@@ -1,0 +1,278 @@
+"""Chargrid rasterization: host-side box programs + on-device painting.
+
+Host half of ``msau_tpu.data.rasterize`` (``BoxProgram``,
+``build_chargrid_programs``, ``pad_to_bucket``, ``round_up``,
+``paint_boxes_numpy``), copied because that package's ``__init__`` imports
+JAX; tests/test_torch_host_copies.py pins it to the original.  The host does
+only the cheap O(#chars) geometry, producing *box programs* — padded arrays
+of (y1, y2, x1, x2, value) records — and ``paint_boxes`` paints one plane on
+the device of its tensors (``msau_tpu_torch.ops.paint``).
+
+Painting is sequential last-write-wins, exactly matching numpy slice
+assignment order; empty records (y1 >= y2 or x1 >= x2) are no-ops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from msau_tpu_torch.data.charset import Charset
+from msau_tpu_torch.data.pages import Line, Page
+from msau_tpu_torch.ops.paint import paint_boxes  # noqa: F401  (re-export)
+
+Array = np.ndarray
+
+
+# ---------------------------------------------------------------------------
+# Box program representation
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class BoxProgram:
+    """A list of paint operations for one plane: grid[y1:y2, x1:x2] = value."""
+
+    boxes: Array   # int32 [B, 4] (y1, y2, x1, x2)
+    values: Array  # int32 [B]
+
+    @classmethod
+    def empty(cls) -> "BoxProgram":
+        return cls(np.zeros((0, 4), np.int32), np.zeros((0,), np.int32))
+
+    @classmethod
+    def from_lists(cls, boxes: List[Tuple[int, int, int, int]], values: List[int]) -> "BoxProgram":
+        if not boxes:
+            return cls.empty()
+        return cls(np.asarray(boxes, np.int32), np.asarray(values, np.int32))
+
+    def clipped(self, height: int, width: int) -> "BoxProgram":
+        b = self.boxes.copy()
+        if len(b):
+            b[:, 0] = np.clip(b[:, 0], 0, height)
+            b[:, 1] = np.clip(b[:, 1], 0, height)
+            b[:, 2] = np.clip(b[:, 2], 0, width)
+            b[:, 3] = np.clip(b[:, 3], 0, width)
+        return BoxProgram(b, self.values)
+
+    def padded(self, capacity: int) -> "BoxProgram":
+        b = np.zeros((capacity, 4), np.int32)
+        v = np.zeros((capacity,), np.int32)
+        n = min(len(self.values), capacity)
+        b[:n] = self.boxes[:n]
+        v[:n] = self.values[:n]
+        return BoxProgram(b, v)
+
+
+def paint_boxes_numpy(program: BoxProgram, height: int, width: int) -> Array:
+    """Host golden model (used by tests to pin down device semantics)."""
+    grid = np.zeros((height, width), np.int32)
+    for (y1, y2, x1, x2), v in zip(program.boxes, program.values):
+        y1c, y2c = max(y1, 0), max(min(y2, height), 0)
+        x1c, x2c = max(x1, 0), max(min(x2, width), 0)
+        grid[y1c:y2c, x1c:x2c] = v
+    return grid
+
+
+# ---------------------------------------------------------------------------
+# Geometry shared by all chargrid variants
+# ---------------------------------------------------------------------------
+def _page_extent(lines: Sequence[Line]):
+    xs1 = [l.box[0] for l in lines]
+    ys1 = [l.box[1] for l in lines]
+    xs2 = [l.box[2] for l in lines]
+    ys2 = [l.box[3] for l in lines]
+    return min(xs1), min(ys1), max(xs2), max(ys2)
+
+
+def _median_line_height(lines: Sequence[Line]) -> float:
+    return float(np.median([l.box[3] - l.box[1] for l in lines]))
+
+
+@dataclasses.dataclass
+class ChargridPrograms:
+    """Host-side output: everything the device needs to paint one page."""
+
+    height: int
+    width: int
+    char: BoxProgram          # token-id plane
+    char_sep: BoxProgram      # last-column-of-char plane (token ids)
+    line_mask: BoxProgram     # 1-px line underline plane (0/1)
+    label: BoxProgram         # class-id plane
+    line_id: BoxProgram       # line-index plane (1-based)
+    char_id: BoxProgram       # char-position plane (1-based)
+    scaled_lines: List[Line] = dataclasses.field(default_factory=list)
+    scale: float = 1.0
+    pad: float = 0.0
+    extent: Tuple[float, float, float, float] = (0, 0, 0, 0)
+
+
+def build_chargrid_programs(
+    page: Page,
+    charset: Charset,
+    *,
+    scale_min: float = 3.0,
+    scale_max: float = 3.0,
+    text_err: float = 0.0,
+    normalize_digits: bool = False,
+    char_w_cap_factor: float = 1.0,
+    pad_factor_fixed: float = 2.0,
+    label_style: str = "underline",   # "underline" (train gen) | "box" (kv)
+    rng: Optional[np.random.Generator] = None,
+) -> ChargridPrograms:
+    """Compute all paint programs for one page.
+
+    Geometry reproduces the reference rasterizers:
+      * training generator (data_generator_funsd.py:293-395): random scale in
+        [scale_min, scale_max] / median_h, v/h jitter and random pad when
+        scale_min != scale_max; label plane is a 1-px underline at y2-1,
+        line_mask at y2; char_w capped at (y2-y1)*1.0.
+      * KV inference (kv_model.py:83-148): fixed scale 3.0/median_h, pad
+        3*median_h, digits normalized to '0', char_w capped at (y2-y1)*1.2,
+        box-filled line_id plane and 1-based char-position plane
+        (use label_style="box", char_w_cap_factor=1.2, pad_factor_fixed=3.0,
+        normalize_digits=True).
+    """
+    rng = rng or np.random.default_rng()
+    lines = page.lines
+    assert lines, "page has no lines"
+
+    min_x, min_y, max_x, max_y = _page_extent(lines)
+    extent = (min_x, min_y, max_x, max_y)
+    median_h = _median_line_height(lines)
+
+    if scale_min != scale_max:
+        v_scale = rng.uniform(0.8, 1.2)
+        h_scale = rng.uniform(0.9, 1.1)
+        pad = float(int(rng.uniform(median_h, median_h * 3)))
+    else:
+        v_scale = 1.0
+        h_scale = 1.0
+        pad = median_h * pad_factor_fixed
+        if label_style == "box":
+            pad = float(int(pad))
+
+    min_x, min_y = min_x - pad, min_y - pad
+    max_x, max_y = max_x + pad, max_y + pad
+    scale = rng.uniform(scale_min, scale_max) / median_h if scale_min != scale_max \
+        else scale_min / median_h
+
+    w, h = max_x - min_x, max_y - min_y
+    height = int(h * scale * v_scale)
+    width = int(w * scale * h_scale)
+
+    # scale all line boxes (vectorized), encode texts, then hand the hot
+    # per-char loop to the native core (msau_tpu/native, numpy fallback)
+    from msau_tpu.native import char_records
+
+    scaled_lines: List[Line] = []
+    sb = np.empty((len(lines), 4), np.int32)
+    ids_parts: List[np.ndarray] = []
+    offsets = np.zeros(len(lines) + 1, np.int32)
+    for line_idx, line in enumerate(lines):
+        x1, y1, x2, y2 = line.box
+        x1 = int((x1 - min_x) * scale * h_scale)
+        y1 = int((y1 - min_y) * scale * v_scale)
+        x2 = int((x2 - min_x) * scale * h_scale)
+        y2 = int((y2 - min_y) * scale * v_scale)
+        sb[line_idx] = (x1, y1, x2, y2)
+        scaled_lines.append(dataclasses.replace(line, box=(x1, y1, x2, y2)))
+        text = line.text
+        if normalize_digits:
+            text = "".join("0" if c.isdigit() else c for c in text)
+        ids = charset.encode(text)
+        if text_err > 0 and len(ids):
+            hit = rng.random(len(ids)) < text_err
+            ids = np.where(
+                hit, rng.integers(0, charset.n_token, len(ids)), ids
+            ).astype(np.int32)
+        ids_parts.append(ids)
+        offsets[line_idx + 1] = offsets[line_idx] + len(ids)
+    all_ids = (
+        np.concatenate(ids_parts).astype(np.int32)
+        if ids_parts
+        else np.zeros(0, np.int32)
+    )
+
+    rec, rec_line, rec_pos = char_records(sb, offsets, all_ids, char_w_cap_factor)
+    char_prog = BoxProgram(rec[:, :4].copy(), rec[:, 4].copy())
+
+    lens = np.diff(offsets)
+    has_text = lens > 0
+    lx1, ly1, lx2, ly2 = sb[:, 0], sb[:, 1], sb[:, 2], sb[:, 3]
+    labels_arr = np.asarray([l.label for l in lines], np.int32)
+
+    def prog_arr(b, v):
+        return BoxProgram(
+            np.asarray(b, np.int32).reshape(-1, 4), np.asarray(v, np.int32)
+        ).clipped(height, width)
+
+    empty = BoxProgram.empty()
+    if label_style == "underline":
+        # 1-px label underline + line mask (data_generator_funsd.py:368-371)
+        lab = prog_arr(
+            np.stack([ly2 - 1, ly2, lx1, lx2], -1)[has_text], labels_arr[has_text]
+        )
+        lm = prog_arr(
+            np.stack([ly2, ly2 + 1, lx1, lx2], -1)[has_text],
+            np.ones(int(has_text.sum()), np.int32),
+        )
+        sep = BoxProgram(
+            np.stack([rec[:, 0], rec[:, 1], rec[:, 3] - 1, rec[:, 3]], -1),
+            rec[:, 4].copy(),
+        ).clipped(height, width)
+        lid = cid = empty
+    else:
+        # box-filled label + line-id planes (kv_model.py:136)
+        lab = prog_arr(
+            np.stack([ly1, ly2, lx1, lx2], -1)[has_text], labels_arr[has_text]
+        )
+        lm = sep = empty
+        # line_id plane interleaves each line's box fill with its char boxes
+        # (paint order matters across overlapping lines) — stable sort on
+        # (line, is_char, char_pos)
+        fill_boxes = np.stack([ly1, ly2, lx1, lx2], -1)[has_text]
+        fill_vals = (np.nonzero(has_text)[0] + 1).astype(np.int32)
+        lid_boxes = np.concatenate([fill_boxes, rec[:, :4]], 0)
+        lid_vals = np.concatenate([fill_vals, rec_line])
+        key_line = np.concatenate([fill_vals, rec_line])
+        key_char = np.concatenate(
+            [np.zeros(len(fill_vals), np.int64), rec_pos.astype(np.int64)]
+        )
+        order = np.lexsort((key_char, key_line))
+        lid = BoxProgram(lid_boxes[order], lid_vals[order]).clipped(height, width)
+        cid = BoxProgram(rec[:, :4].copy(), rec_pos.copy()).clipped(height, width)
+
+    return ChargridPrograms(
+        height=height,
+        width=width,
+        char=char_prog.clipped(height, width),
+        char_sep=sep,
+        line_mask=lm,
+        label=lab,
+        line_id=lid,
+        char_id=cid,
+        scaled_lines=scaled_lines,
+        scale=scale,
+        pad=pad,
+        extent=extent,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Static-shape bucketing
+# ---------------------------------------------------------------------------
+def bucket_dim(size: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= size (largest bucket if none fits)."""
+    for b in sorted(buckets):
+        if size <= b:
+            return b
+    return max(buckets)
+
+
+def pad_to_bucket(h: int, w: int, buckets: Sequence[int]) -> Tuple[int, int]:
+    return bucket_dim(h, buckets), bucket_dim(w, buckets)
+
+
+def round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult

@@ -1,0 +1,199 @@
+"""Layer library: conv / dilated conv / deconv blocks with TF-SAME semantics.
+
+Port of ``msau_tpu.models.layers`` (NHWC flax) as NCHW ``nn.Module``s.
+Module and parameter names follow the flax tree (``Conv_0``,
+``ConvBnLrnDrop_{i}``, ...), so ``utils.transplant`` maps one to the other
+by name alone.
+
+* TF-SAME padding is explicit (``F.pad``): for an even kernel, such as the
+  4x4 end conv, the extra pixel goes bottom/right; a dilated kernel pads by
+  its effective size.
+* Initialization follows the reference TF scheme: weight ~ N(0,
+  sqrt(2/(kh*kw*cin+cout))), bias ~ N(0.1, 1e-5), drawn from an explicit
+  ``torch.Generator``.
+* LRN is torch.nn.LocalResponseNorm with size == n_features: window
+  [c - size//2, c + (size-1)//2], scaled by alpha/size.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def tf_conv_std(kh: int, kw: int, cin: int, cout: int) -> float:
+    """stddev = sqrt(2 / (kh*kw*cin + cout)) — reference initOpt=0."""
+    return (2.0 / (kh * kw * cin + cout)) ** 0.5
+
+
+def _normal(shape, std: float, gen: torch.Generator, mean: float = 0.0):
+    return torch.randn(shape, generator=gen) * std + mean
+
+
+def get_activation(name: Optional[str]) -> Optional[Callable]:
+    if name is None or name == "none":
+        return None
+    return {
+        "relu": F.relu,
+        "elu": F.elu,
+        # jax.nn.gelu defaults to the tanh approximation
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "identity": lambda x: x,
+    }[name]
+
+
+def same_padding(k: int, dilation: int = 1) -> Tuple[int, int]:
+    """TF-SAME (lo, hi) padding of a stride-1 conv; extra pixel at hi."""
+    total = (k - 1) * dilation
+    return total // 2, total - total // 2
+
+
+def local_response_norm(x: torch.Tensor, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
+    """torch.nn.LocalResponseNorm semantics over the channel axis (dim 1).
+
+    The windowed channel sum is one contraction with a [C, C] band matrix,
+    in f32 whatever the input dtype (F.local_response_norm's avg_pool3d has
+    no bf16 CPU kernel)."""
+    c = x.shape[1]
+    ci = torch.arange(c, device=x.device)
+    band = ((ci[:, None] >= ci[None, :] - size // 2)
+            & (ci[:, None] <= ci[None, :] + (size - 1) // 2)).float()
+    xf = x.float()
+    win = torch.einsum("nchw,cd->ndhw", xf * xf, band)
+    return (xf / torch.pow(k + (alpha / size) * win, beta)).to(x.dtype)
+
+
+class Conv(nn.Module):
+    """Conv2d parameters (``weight`` OIHW, ``bias``) with TF-SAME forward;
+    the counterpart of flax ``nn.Conv``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: Tuple[int, int],
+                 gen: torch.Generator, *, weight_std: Optional[float] = None,
+                 bias_mean: float = 0.1, bias_std: float = 1e-5,
+                 lecun: bool = False):
+        super().__init__()
+        kh, kw = kernel_size
+        shape = (cout, cin, kh, kw)
+        if lecun:
+            # flax default kernel_init: lecun_normal = variance_scaling(1,
+            # fan_in, truncated_normal), truncated at 2 std
+            std = (1.0 / (cin * kh * kw)) ** 0.5 / 0.87962566103423978
+            w = torch.empty(shape)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=gen)
+        else:
+            w = _normal(shape, weight_std if weight_std is not None
+                        else tf_conv_std(kh, kw, cin, cout), gen)
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(_normal((cout,), bias_std, gen, bias_mean))
+
+    def forward(self, x: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+        kh, kw = self.weight.shape[-2:]
+        ph, pw = same_padding(kh, dilation), same_padding(kw, dilation)
+        if ph != (0, 0) or pw != (0, 0):
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight, self.bias, dilation=dilation)
+
+
+class ConvBnLrnDrop(nn.Module):
+    """Stride-1 TF-SAME conv + optional act / LRN (reference
+    ``Conv2dBnLrnDrop``; serving has no BatchNorm or dropout)."""
+
+    def __init__(self, cin: int, features: int, kernel_size=(3, 3),
+                 activation: Optional[str] = "relu", use_lrn: bool = False,
+                 *, gen: torch.Generator, rate: int = 1):
+        super().__init__()
+        self.Conv_0 = Conv(cin, features, tuple(kernel_size), gen)
+        self.activation = activation
+        self.use_lrn = use_lrn
+        self.rate = rate
+        self.features = features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.Conv_0(x, dilation=self.rate)
+        act = get_activation(self.activation)
+        if act is not None:
+            y = act(y)
+        if self.use_lrn:
+            y = local_response_norm(y, size=self.features)
+        return y
+
+
+class DilConvBnLrnDrop(ConvBnLrnDrop):
+    """Dilated (atrous) conv at ``rate``; LRN on by default (reference
+    ``DilConv2dBnLrnDrop``)."""
+
+    def __init__(self, cin: int, features: int, kernel_size=(3, 3),
+                 rate: int = 1, activation: Optional[str] = "relu",
+                 use_lrn: bool = True, *, gen: torch.Generator):
+        super().__init__(cin, features, kernel_size, activation, use_lrn,
+                         gen=gen, rate=rate)
+
+
+class DeconvBnLrnDrop(nn.Module):
+    """Stride-2 transposed conv resized to an exact target spatial shape:
+    torch ``ConvTranspose2d(stride=s, padding=k//2)`` with
+    ``output_padding = target - base`` per dim (reference
+    ``Deconv2DBnLrnDrop``).  ``weight`` is torch's [in, out, kh, kw]; the
+    flax kernel is its spatial flip in HWIO (``utils.transplant``)."""
+
+    def __init__(self, cin: int, features: int, kernel_size=(3, 3),
+                 stride: int = 2, activation: Optional[str] = None,
+                 use_lrn: bool = False, *, gen: torch.Generator):
+        super().__init__()
+        kh, kw = kernel_size
+        # reference stddev uses kernel_shape=[kh, kw, out, in]
+        std = tf_conv_std(kh, kw, features, cin)
+        self.weight = nn.Parameter(_normal((cin, features, kh, kw), std, gen))
+        self.bias = nn.Parameter(_normal((features,), 1e-5, gen, 0.1))
+        self.stride = stride
+        self.activation = activation
+        self.use_lrn = use_lrn
+        self.features = features
+
+    def forward(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+        kh, kw = self.weight.shape[-2:]
+        s = self.stride
+        ph, pw = kh // 2, kw // 2
+        h, w = x.shape[-2:]
+        oph = target_hw[0] - ((h - 1) * s - 2 * ph + kh)
+        opw = target_hw[1] - ((w - 1) * s - 2 * pw + kw)
+        if not (0 <= oph < s and 0 <= opw < s):
+            raise ValueError(f"target {tuple(target_hw)} unreachable from "
+                             f"{(h, w)} with stride {s}")
+        y = F.conv_transpose2d(x, self.weight, self.bias, stride=s,
+                               padding=(ph, pw), output_padding=(oph, opw))
+        act = get_activation(self.activation)
+        if act is not None:
+            y = act(y)
+        if self.use_lrn:
+            y = local_response_norm(y, size=self.features)
+        return y
+
+
+class MultiConvResidualBlock(nn.Module):
+    """relu(x) -> res_depth convs (last without activation) -> +x -> act
+    (reference ``MultiConvResidualBlock``)."""
+
+    def __init__(self, channels: int, res_depth: int, filter_size: int,
+                 activation: str = "relu", *, gen: torch.Generator):
+        super().__init__()
+        self.res_depth = res_depth
+        self.activation = activation
+        k = (filter_size, filter_size)
+        for i in range(res_depth):
+            act = activation if i < res_depth - 1 else None
+            self.add_module(f"ConvBnLrnDrop_{i}", ConvBnLrnDrop(
+                channels, channels, k, activation=act, gen=gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(x)
+        for i in range(self.res_depth):
+            y = getattr(self, f"ConvBnLrnDrop_{i}")(y)
+        y = y + x
+        act = get_activation(self.activation)
+        return act(y) if act is not None else y

@@ -1,0 +1,215 @@
+"""Multi-Stage Attention U-Net (MSAU) in PyTorch — port of
+``msau_tpu.models.msau`` on its all-NHWC path (``flat_scales=0``).
+
+  * ``num_blocks`` coupled attention U-Net stages.  Stage 0 takes the
+    chargrid; stages 1..n take the previous stage's n_class map.
+  * Down tower, per scale: dilated conv at rate 2**scale + LRN -> residual
+    block -> (stages > 0) concat with the previous stage's down activation
+    and a 1x1 coupling conv -> self-attention at the deepest scale -> SAME
+    maxpool.  The attention output goes to the NEXT stage's coupling, while
+    the up tower gets the pre-attention tensor.
+  * Up tower, per scale: deconv to the exact skip shape -> concat skip ->
+    KxK merge conv -> residual block -> (stages > 0) 1x1 coupling with the
+    previous stage's up activation.
+  * A 4x4 ``end_conv`` maps feat_root -> n_class per stage; stage n-2's
+    output is the auxiliary logits head.
+
+Modules work in NCHW; the public forward takes NHWC input and returns NHWC
+``(probs, logits, aux)`` like ``MSAUWrapper``.  Module names follow the flax
+tree (``net.block_{b}.down.dil_conv_{l}.Conv_0``, ...).  ``remat`` and
+``attention_impl`` are accepted and ignored (serving only).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from msau_tpu_torch.config import ModelConfig
+from msau_tpu_torch.models.attention import SelfAttentionBlock
+from msau_tpu_torch.models.layers import (
+    ConvBnLrnDrop,
+    DeconvBnLrnDrop,
+    DilConvBnLrnDrop,
+    MultiConvResidualBlock,
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for configurations the port lacks yet."""
+    if cfg.flat_scales > 0:
+        raise NotImplementedError(
+            "flat_scales > 0: the flat-layout convs are TPU kernels K1-K3 and "
+            "K6-K8, not yet ported (ROADMAP Queue 2); use flat_scales=0, the "
+            "same model and parameter tree")
+    if cfg.spatial_shards > 1:
+        raise NotImplementedError(
+            "spatial_shards > 1: spatial sharding is ROADMAP Queue 1 item 13")
+    if cfg.model == "msau_box":
+        raise NotImplementedError(
+            "model='msau_box' (box convolutions) is ROADMAP Queue 1 item 10 (4)")
+    if cfg.use_lstm or cfg.use_spn:
+        raise NotImplementedError(
+            "use_lstm / use_spn (models/extras.py) are ROADMAP Queue 1 item 12")
+
+
+def _maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    # TF-SAME k x k / stride k pool: odd sizes pad bottom/right with -inf,
+    # which is what ceil_mode's partial last window computes
+    return F.max_pool2d(x, kernel_size=k, stride=k, ceil_mode=True)
+
+
+class DownSamplingUNetBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, cin: int, coupled: bool,
+                 gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.coupled = coupled
+        S, k, pool = cfg.scale_space_num, cfg.filter_size, cfg.pool_size
+        feats, c_in = cfg.feat_root, cin
+        for layer in range(S):
+            self.add_module(f"dil_conv_{layer}", DilConvBnLrnDrop(
+                c_in, feats, (k, k), rate=pool ** layer, activation=None,
+                use_lrn=cfg.use_lrn, gen=gen))
+            self.add_module(f"res_block_{layer}", MultiConvResidualBlock(
+                feats, cfg.res_depth, k, cfg.activation_name, gen=gen))
+            if coupled:
+                self.add_module(f"couple_conv_{layer}", ConvBnLrnDrop(
+                    2 * feats, feats, (1, 1), activation=cfg.activation_name,
+                    gen=gen))
+            if layer == S - 1:
+                self.add_module(f"attention_{layer}",
+                                SelfAttentionBlock(feats, gen=gen))
+            c_in = feats
+            feats *= pool
+
+    def forward(self, x: torch.Tensor, prev: Optional[List[torch.Tensor]]):
+        S = self.cfg.scale_space_num
+        dw_h_convs: List[torch.Tensor] = []
+        for layer in range(S):
+            y = getattr(self, f"dil_conv_{layer}")(x)
+            y = getattr(self, f"res_block_{layer}")(y)
+            if self.coupled:
+                y = getattr(self, f"couple_conv_{layer}")(
+                    torch.cat([prev[layer], y], dim=1))
+            if layer == S - 1:
+                dw_h_convs.append(getattr(self, f"attention_{layer}")(y))
+                x = y
+            else:
+                dw_h_convs.append(y)
+                x = _maxpool_same(y, self.cfg.pool_size)
+        return dw_h_convs, x
+
+
+class UpSamplingUNetBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, coupled: bool, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.coupled = coupled
+        k, pool = cfg.filter_size, cfg.pool_size
+        for layer in range(cfg.scale_space_num - 2, -1, -1):
+            feats = cfg.feat_root * pool ** layer
+            self.add_module(f"deconv_{layer}", DeconvBnLrnDrop(
+                feats * pool, feats, (k, k), stride=pool, gen=gen))
+            self.add_module(f"merge_conv_{layer}", ConvBnLrnDrop(
+                2 * feats, feats, (k, k), activation=None, gen=gen))
+            self.add_module(f"res_block_{layer}", MultiConvResidualBlock(
+                feats, cfg.res_depth, k, cfg.activation_name, gen=gen))
+            if coupled:
+                self.add_module(f"couple_conv_{layer}", ConvBnLrnDrop(
+                    2 * feats, feats, (1, 1), activation=cfg.activation_name,
+                    gen=gen))
+
+    def forward(self, dw_h_convs, x, prev: Optional[List[torch.Tensor]]):
+        up_h_convs: List[Optional[torch.Tensor]] = [None] * (
+            self.cfg.scale_space_num - 1)
+        for layer in range(self.cfg.scale_space_num - 2, -1, -1):
+            skip = dw_h_convs[layer]
+            y = getattr(self, f"deconv_{layer}")(x, tuple(skip.shape[-2:]))
+            y = getattr(self, f"merge_conv_{layer}")(torch.cat([skip, y], dim=1))
+            y = getattr(self, f"res_block_{layer}")(y)
+            if self.coupled:
+                y = getattr(self, f"couple_conv_{layer}")(
+                    torch.cat([prev[layer], y], dim=1))
+            up_h_convs[layer] = y
+            x = y
+        return x, up_h_convs
+
+
+class UNetBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, cin: int, coupled: bool,
+                 gen: torch.Generator):
+        super().__init__()
+        self.down = DownSamplingUNetBlock(cfg, cin, coupled, gen)
+        self.up = UpSamplingUNetBlock(cfg, coupled, gen)
+
+    def forward(self, x, prev_dw=None, prev_up=None):
+        dw_h_convs, deepest = self.down(x, prev_dw)
+        out, up_h_convs = self.up(dw_h_convs, deepest, prev_up)
+        return out, dw_h_convs, up_h_convs
+
+
+class MSAUNet(nn.Module):
+    """num_blocks coupled U-Net stages + per-stage 4x4 end convs; NCHW in,
+    NCHW f32 (logits, aux_logits) out."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        for b in range(cfg.num_blocks):
+            cin = cfg.img_channels if b == 0 else cfg.n_class
+            self.add_module(f"block_{b}", UNetBlock(cfg, cin, b > 0, gen))
+            self.add_module(f"end_conv_{b}", ConvBnLrnDrop(
+                cfg.feat_root, cfg.n_class, (4, 4), activation=None, gen=gen))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        prev_dw = prev_up = None
+        logits_aux = None
+        out = x
+        for b in range(cfg.num_blocks):
+            out, prev_dw, prev_up = getattr(self, f"block_{b}")(
+                out, prev_dw, prev_up)
+            out = getattr(self, f"end_conv_{b}")(out)
+            if b == cfg.num_blocks - 2:
+                logits_aux = out
+        logits = out.float()
+        return logits, (logits if logits_aux is None else logits_aux.float())
+
+
+class MSAUWrapper(nn.Module):
+    """Adds the final activation head; ``forward`` takes NHWC ``x`` and
+    returns NHWC ``(probs, logits, aux_logits)``.  Parameters are drawn
+    from ``generator`` (a ``torch.Generator``), always on the CPU, so a
+    seed gives the same weights on every device."""
+
+    def __init__(self, config: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        self.config = config
+        self.net = MSAUNet(config, generator)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return next(self.parameters()).dtype
+
+    def forward(self, x: torch.Tensor):
+        xc = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        logits, aux = self.net(xc)
+        logits = logits.permute(0, 2, 3, 1)
+        aux = aux.permute(0, 2, 3, 1)
+        final_act = self.config.final_act
+        if final_act == "softmax":
+            probs = torch.softmax(logits, dim=-1)
+        elif final_act == "sigmoid":
+            probs = torch.sigmoid(logits)
+        else:
+            probs = logits
+        return probs, logits, aux
+
+
+def build_model(config: ModelConfig, generator: torch.Generator) -> MSAUWrapper:
+    return MSAUWrapper(config, generator)

@@ -1,0 +1,22 @@
+"""Device ops of the port: the hand-written CUDA kernels' wrappers (paint,
+resident attention forward, multiclass CCL) and the torch-op morphology."""
+
+from msau_tpu_torch.ops.attention import resident_attention_cuda
+from msau_tpu_torch.ops.ccl import connected_components_multiclass_cuda
+from msau_tpu_torch.ops.paint import paint_boxes_cuda
+
+# kernel name -> its wrapper, whose ``launches`` attribute counts launches
+KERNEL_WRAPPERS = {
+    "paint": paint_boxes_cuda,
+    "resident_attention_fwd": resident_attention_cuda,
+    "ccl_multiclass": connected_components_multiclass_cuda,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}

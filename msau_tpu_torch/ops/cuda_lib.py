@@ -1,0 +1,136 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), bound with ``ctypes``.  The library lands in
+``build/msau_tpu_torch/`` at the checkout root, named by a hash of the
+sources and flags, and is built at first use — never at import, so the
+package imports on machines without ``nvcc`` or a card.
+
+Every C entry point takes its pointers and the CUDA stream as
+``ctypes.c_void_p`` and returns the ``cudaGetLastError()`` after its
+launches; :func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "msau_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types (every pointer and the stream are c_void_p)
+SIGNATURES = {
+    # boxes, values, n_boxes, out, height, width, stream
+    "msau_paint_boxes": (_P, _P, _I, _P, _I, _I, _P),
+    # f, g, h, out, m, l, partial, splits, n, t, cb, c, is_bf16, stream
+    "msau_resident_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _P),
+    # cls, parent, labels, height, width, stream
+    "msau_ccl_multiclass": (_P, _P, _P, _I, _I, _P),
+}
+
+
+class KernelLibrary:
+    """The compiled kernels of ``csrc/``; ``build_seconds`` is 0 when the
+    library for these sources was already on disk."""
+
+    def __init__(self, path: Path, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        if name in SIGNATURES:
+            return getattr(self._lib, name)
+        raise AttributeError(name)
+
+
+_LIBRARY: Optional[KernelLibrary] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    out = BUILD_DIR / f"libmsau_kernels-{source_hash()}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    _LIBRARY = KernelLibrary(out, seconds, log)
+    return _LIBRARY
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def require_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
+    """Validate a tensor handed to a CUDA kernel wrapper."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if dtype is not None and t.dtype not in (
+            dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise ValueError(f"{name}: dtype {t.dtype} not supported")
+    if t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")

@@ -1,0 +1,79 @@
+"""flax <-> torch weight bridge for the MSAU model.
+
+The port's modules carry the flax tree's names, so a parameter path maps
+one to one: ``net/block_0/down/dil_conv_0/Conv_0/kernel`` is
+``net.block_0.down.dil_conv_0.Conv_0.weight``.  Only layouts change:
+
+  * conv kernel HWIO ``[kh, kw, in, out]`` <-> torch OIHW ``[out, in, kh, kw]``;
+  * deconv kernel (``deconv_{l}``): flax stores it HWIO in correlation
+    orientation, the spatial flip of torch's transposed-conv weight
+    ``[in, out, kh, kw]``.
+
+The flax side is a nested dict of numpy arrays, with or without the outer
+``{"params": ...}``; the torch side is a state_dict of tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _is_deconv(path) -> bool:
+    return len(path) >= 2 and path[-2].startswith("deconv_")
+
+
+def flax_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """flax parameter tree (numpy leaves) -> torch state_dict."""
+    tree = params_np.get("params", params_np)
+    sd = {}
+    for path, v in _flatten(tree).items():
+        leaf = path[-1]
+        if leaf == "kernel":
+            if _is_deconv(path):
+                w = np.flip(v, (0, 1)).transpose(2, 3, 0, 1)
+            else:
+                w = v.transpose(3, 2, 0, 1)
+            name = "weight"
+        elif leaf == "bias":
+            w, name = v, "bias"
+        else:
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        key = ".".join(path[:-1] + (name,))
+        sd[key] = torch.from_numpy(np.array(w, dtype=np.float32, order="C"))
+    return sd
+
+
+def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """torch state_dict -> ``{"params": {...}}`` with numpy leaves."""
+    params: Dict = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        v = t.detach().to("cpu", torch.float32).numpy()
+        if parts[-1] == "weight":
+            if _is_deconv(parts):
+                v = np.flip(v.transpose(2, 3, 0, 1), (0, 1))
+            else:
+                v = v.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        elif parts[-1] == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"unexpected torch parameter {key}")
+        node = params
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return {"params": params}

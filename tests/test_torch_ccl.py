@@ -1,0 +1,72 @@
+"""Multiclass CCL parity: the port's labelling against the TPU kernel
+(connected_components_multiclass_pallas, interpret mode on the CPU) on the
+maps of tests/test_ops.py, after asserting that the JAX output is a
+converged fixpoint (the port has no sweep cap; the TPU kernel does).  A
+maze map is held against scipy.  Integer labels: exact equality."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.ndimage as ndi
+import torch
+
+from msau_tpu.ops.ccl import _sweep_multiclass, connected_components_multiclass_pallas
+from msau_tpu_torch.ops.ccl import (
+    connected_components_multiclass,
+    connected_components_multiclass_cuda,
+    connected_components_multiclass_plain,
+)
+from msau_tpu_torch.utils.kernel_inputs import ccl_map
+
+
+def _test_ops_maps():
+    """The blobby and noisy maps of test_ops.py::test_ccl_multiclass_pallas_matches_xla."""
+    rng = np.random.default_rng(0)
+    maps = []
+    for h, w in ((64, 128), (32, 256)):
+        coarse = rng.integers(0, 4, (h // 8, w // 8))
+        maps.append((np.repeat(np.repeat(coarse, 8, 0), 8, 1).astype(np.int32), 64))
+        maps.append((rng.integers(0, 3, (h, w)).astype(np.int32), 128))
+    return maps
+
+
+def _scipy_labels(cls):
+    """Per-class 4-connected scipy labels in the root convention:
+    (linear index of the component's raster-first pixel) + 1."""
+    out = np.zeros(cls.shape, np.int64)
+    for c in np.unique(cls[cls > 0]):
+        lab, n = ndi.label(cls == c)
+        for i in range(1, n + 1):
+            m = lab == i
+            out[m] = np.flatnonzero(m)[0] + 1
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_ccl_matches_pallas_fixpoint(case):
+    cls, iters = _test_ops_maps()[case]
+    want = np.asarray(connected_components_multiclass_pallas(
+        jnp.asarray(cls), max_iters=iters))
+    # the reference output must be converged for the comparison to hold
+    again = np.asarray(_sweep_multiclass(jnp.asarray(want), jnp.asarray(cls)))
+    np.testing.assert_array_equal(again, want)
+    got = connected_components_multiclass(torch.from_numpy(cls))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_maze_matches_scipy():
+    cls = ccl_map("maze", 48, 40, np.random.default_rng(1))
+    got = connected_components_multiclass_plain(torch.from_numpy(cls))
+    np.testing.assert_array_equal(got.numpy(), _scipy_labels(cls))
+
+
+def test_background_and_negative_classes_are_zero():
+    cls = np.array([[0, 1, 1], [-1, -1, 1], [2, 0, 1]], np.int32)
+    got = connected_components_multiclass(torch.from_numpy(cls)).numpy()
+    np.testing.assert_array_equal(got, [[0, 2, 2], [0, 0, 2], [7, 0, 2]])
+
+
+def test_cuda_wrapper_rejects_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        connected_components_multiclass_cuda(torch.zeros((4, 4), dtype=torch.int32))

@@ -1,0 +1,127 @@
+"""The port's copies of jax-free host code equal their originals: same
+outputs on the fixtures and on synthetic pages (the originals live in
+packages whose ``__init__`` imports JAX, so the port cannot import them)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from msau_tpu.data import charset as o_charset
+from msau_tpu.data import pages as o_pages
+from msau_tpu.data import rasterize as o_rast
+from msau_tpu.data import synth as o_synth
+from msau_tpu.infer import decode as o_decode
+from msau_tpu.infer import reading_order as o_ro
+from msau_tpu.infer import schema as o_schema
+from msau_tpu_torch.data import charset, pages, rasterize, synth
+from msau_tpu_torch.infer import decode, reading_order, schema
+
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
+
+
+def _progs_equal(a, b):
+    for f in ("height", "width", "scale", "pad", "extent"):
+        assert getattr(a, f) == getattr(b, f), f
+    for f in ("char", "char_sep", "line_mask", "label", "line_id", "char_id"):
+        np.testing.assert_array_equal(getattr(a, f).boxes, getattr(b, f).boxes)
+        np.testing.assert_array_equal(getattr(a, f).values, getattr(b, f).values)
+    assert [dataclasses.asdict(l) for l in a.scaled_lines] == \
+        [dataclasses.asdict(l) for l in b.scaled_lines]
+
+
+@pytest.mark.parametrize("style", ["box", "underline"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_chargrid_programs_match(style, seed):
+    doc = synth.make_page(np.random.default_rng(seed), n_cols=2, rows_per_col=2)
+    assert doc == o_synth.make_page(np.random.default_rng(seed), n_cols=2,
+                                    rows_per_col=2)
+    cs = charset.Charset(chars=" $" + synth.BENCH_CHARSET)
+    ocs = o_charset.Charset(chars=" $" + o_synth.BENCH_CHARSET)
+    kw = dict(scale_min=3.0, scale_max=3.0, normalize_digits=True,
+              char_w_cap_factor=1.2, pad_factor_fixed=3.0, label_style=style)
+    a = rasterize.build_chargrid_programs(pages.page_from_label_dict(doc), cs, **kw)
+    b = o_rast.build_chargrid_programs(o_pages.page_from_label_dict(doc), ocs, **kw)
+    _progs_equal(a, b)
+    hb, wb = rasterize.pad_to_bucket(a.height, a.width, (256, 512, 1024))
+    assert (hb, wb) == o_rast.pad_to_bucket(b.height, b.width, (256, 512, 1024))
+    assert rasterize.round_up(a.char.values.size, 512) == \
+        o_rast.round_up(b.char.values.size, 512)
+    np.testing.assert_array_equal(
+        rasterize.paint_boxes_numpy(a.line_id, hb, wb),
+        o_rast.paint_boxes_numpy(b.line_id, hb, wb))
+
+
+def test_page_loaders_and_charset_match(tmp_path):
+    p = os.path.join(FIX, "kv_sample.json")
+    a, b = pages.load_label_json_page(p), o_pages.load_label_json_page(p)
+    assert [dataclasses.asdict(l) for l in a.lines] == \
+        [dataclasses.asdict(l) for l in b.lines]
+    f = os.path.join(FIX, "funsd_sample.json")
+    a, b = pages.load_funsd_page(f), o_pages.load_funsd_page(f)
+    assert [dataclasses.asdict(l) for l in a.lines] == \
+        [dataclasses.asdict(l) for l in b.lines]
+    corpus = a.texts
+    c1, c2 = charset.Charset.from_corpus(corpus), o_charset.Charset.from_corpus(corpus)
+    assert c1.chars == c2.chars
+    np.testing.assert_array_equal(c1.encode("Date 12 ?", normalize_digits=True),
+                                  c2.encode("Date 12 ?", normalize_digits=True))
+
+
+def test_reading_order_and_schema_match():
+    rng = np.random.default_rng(0)
+    boxes = [{"box": [int(x), int(y), int(x) + 40, int(y) + 12]}
+             for x, y in rng.integers(0, 300, (25, 2))]
+    assert reading_order.sort_box_reading_order(boxes) == \
+        o_ro.sort_box_reading_order(boxes)
+    vals = [(f"t{i}", None, None, None) for i in range(17)]
+    for compat in (False, True):
+        assert schema.post_process_kv(vals, schema.FieldSchema(), compat) == \
+            o_schema.post_process_kv(vals, o_schema.FieldSchema(), compat)
+
+
+def test_extract_values_matches():
+    """Same decode tables in, same FieldValues out (incl. the shared-line
+    char-range slicing and multi-line joins)."""
+    rng = np.random.default_rng(1)
+    n_class, k, nl = 17, 8, 12
+    tables = {
+        "active": rng.random(n_class) < 0.7,
+        "main_bbox": rng.integers(0, 50, (n_class, 4)),
+        "alt_bbox": rng.integers(0, 50, (n_class, k, 4)),
+        "alt_valid": rng.random((n_class, k)) < 0.3,
+        "line_overlap": rng.random((n_class, nl)) < 0.3,
+        "comp_per_line": rng.integers(0, 3, (n_class, nl)),
+        "char_min": rng.integers(0, 4, (n_class, nl)),
+        "char_max": rng.integers(0, 9, (n_class, nl)),
+    }
+    lines = [pages.Line(box=(int(x), int(y), int(x) + 30, int(y) + 8),
+                        text=f"line {i} text", id=i + 1)
+             for i, (x, y) in enumerate(rng.integers(0, 200, (nl - 1, 2)))]
+    olines = [o_pages.Line(**dataclasses.asdict(l)) for l in lines]
+    sch = schema.FieldSchema(multiple_lines_fields=(5, 11))
+    osch = o_schema.FieldSchema(multiple_lines_fields=(5, 11))
+    a = decode.extract_values(tables, lines, sch)
+    b = o_decode.extract_values(tables, olines, osch)
+    assert [tuple(v) for v in a] == [tuple(v) for v in b]
+    vec = np.concatenate([np.asarray(tables[key], np.int32).ravel()
+                          for key in decode._PACK_KEYS])
+    ua = decode.unpack_decode_out(vec, n_class, k, nl - 1)
+    ub = o_decode.unpack_decode_out(vec, n_class, k, nl - 1)
+    for key in ub:
+        np.testing.assert_array_equal(ua[key], ub[key])
+
+
+def test_port_imports_without_jax():
+    """The serve path imports with JAX made unimportable."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import msau_tpu_torch.infer.kv_model; "
+            "assert not any(m == 'jax' or m.startswith('jax.') or "
+            "m.startswith('flax') for m in sys.modules if sys.modules[m])")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,113 @@
+"""The serve slice end to end: the port's KVModel.predict against the JAX
+KVModel.predict on tests/fixtures/kv_sample.json, with the tiny config of
+tests/test_kv_model.py and the same (bridged) weights.
+
+Probabilities: atol 1e-5 (f32 on both sides).  The argmax maps are asserted
+equal first — a flipped argmax would change the decode legitimately — and
+then the decode tables, the extracted values and the result dict must be
+equal.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msau_tpu.config import InferConfig, ModelConfig
+from msau_tpu.infer.kv_model import KVModel as JaxKVModel
+from msau_tpu.infer.schema import FieldSchema as JaxFieldSchema
+from msau_tpu.models.msau import build_model as jax_build_model
+from msau_tpu_torch.infer.kv_model import INFER_SPECIALS, KVModel
+from msau_tpu_torch.infer.schema import FieldSchema
+from msau_tpu_torch.ops import launch_counts
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "kv_sample.json")
+N_CLASS = 9
+NAMES = tuple(["NUL"] + [f"{p}_f{i}" for i in range(1, 5) for p in ("k", "v")])
+
+
+@pytest.fixture(scope="module")
+def charset_file(tmp_path_factory):
+    p = tmp_path_factory.mktemp("cs") / "charset.txt"
+    chars = sorted(set("Bank NameFirst National Account 0123456789 Alexandra Example Savings"))
+    p.write_text("".join(chars))
+    return str(p)
+
+
+@pytest.fixture(scope="module")
+def pair(charset_file):
+    """(jax KVModel, port KVModel) with identical weights and config."""
+    jkv = JaxKVModel(infer_config=InferConfig(n_class=N_CLASS),
+                     schema=JaxFieldSchema(class_names=NAMES,
+                                           multiple_lines_fields=(5,)))
+    jkv.load(charset=charset_file, n_class=N_CLASS)
+    mc = ModelConfig(img_channels=jkv.charset.n_token, n_class=N_CLASS,
+                     scale_space_num=2, res_depth=1, feat_root=4, num_blocks=1)
+    jkv.model_config = mc
+    jkv.model = jax_build_model(mc)
+    jkv.params = jkv.model.init(jax.random.PRNGKey(0),
+                                jnp.zeros((1, 64, 64, mc.img_channels)))
+    tkv = KVModel(model_config=mc, infer_config=InferConfig(n_class=N_CLASS),
+                  schema=FieldSchema(class_names=NAMES,
+                                     multiple_lines_fields=(5,)),
+                  device="cpu")
+    tkv.load(charset=charset_file, n_class=N_CLASS,
+             params=jax.tree_util.tree_map(np.asarray, jkv.params))
+    return jkv, tkv
+
+
+def test_predict_matches_jax(pair):
+    jkv, tkv = pair
+    jres, jex = jkv.predict(FIXTURE)
+    timings = {}
+    tres, tex = tkv.predict(FIXTURE, timings=timings)
+    jp, tp = np.asarray(jex["pred"]), tex["pred"].numpy()
+    assert tp.shape == jp.shape
+    np.testing.assert_array_equal(tp.argmax(-1), jp.argmax(-1))
+    np.testing.assert_allclose(tp, jp, atol=1e-5)
+    np.testing.assert_array_equal(tex["chosen_class"].numpy(),
+                                  np.asarray(jex["chosen_class"]))
+    assert [tuple(v) for v in tex["values"]] == [tuple(v) for v in jex["values"]]
+    assert tres == jres
+    assert set(timings) == {"prep", "device", "strings"}
+
+
+def test_serving_protocol_omits_maps_and_launches_nothing_on_cpu(pair):
+    _, tkv = pair
+    before = launch_counts()
+    res, extras = tkv.predict(FIXTURE, return_maps=False)
+    assert "pred" not in extras and "chosen_class" not in extras
+    assert launch_counts() == before
+    assert set(res) == {f"f{i}" for i in range(1, 5)}
+
+
+def test_charset_specials(charset_file):
+    kv = KVModel(device="cpu").load(charset=charset_file, n_class=5)
+    assert kv.charset.chars[:2] == "".join(INFER_SPECIALS)
+    assert kv.model is None  # no weights and no generator: nothing built
+    assert kv.schema.n_class == 5
+
+
+def test_init_from_generator_is_seeded(charset_file):
+    mc = ModelConfig(img_channels=10, n_class=4, scale_space_num=2,
+                     res_depth=1, feat_root=4, num_blocks=1)
+    a = KVModel(model_config=mc, device="cpu").load(
+        charset=charset_file, n_class=4, generator=torch.Generator().manual_seed(7))
+    b = KVModel(model_config=mc, device="cpu").load(
+        charset=charset_file, n_class=4, generator=torch.Generator().manual_seed(7))
+    for (ka, va), (kb, vb) in zip(a.model.state_dict().items(),
+                                  b.model.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)
+
+
+def test_unported_entry_points_raise(pair):
+    _, tkv = pair
+    for call in (lambda: tkv.predict_batch([FIXTURE]),
+                 lambda: tkv.run_test([FIXTURE]),
+                 lambda: tkv.predict(FIXTURE, label_path=FIXTURE,
+                                     eval_results=[])):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()

@@ -1,0 +1,84 @@
+"""MSAU model parity: the port's MSAUWrapper against the flax MSAUWrapper on
+the CPU, same weights (bridged from the flax init) and same numpy input.
+
+Tolerance: atol 1e-4 on logits/aux/probs — f32 on both sides; the residue
+is summation order across ~40 convs (CPU conv kernels of two frameworks).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msau_tpu.config import ModelConfig
+from msau_tpu.models.layers import local_response_norm as jax_lrn
+from msau_tpu.models.msau import build_model as jax_build_model
+from msau_tpu_torch.models.layers import local_response_norm, same_padding
+from msau_tpu_torch.models.msau import build_model
+from msau_tpu_torch.utils.transplant import flax_to_torch
+
+ATOL = 1e-4
+CFG = dict(img_channels=6, n_class=5, scale_space_num=3, res_depth=2,
+           feat_root=4, num_blocks=2, final_act="softmax")
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg = ModelConfig(**CFG)
+    jm = jax_build_model(cfg)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 6)))
+    tm = build_model(cfg, torch.Generator().manual_seed(0))
+    tm.load_state_dict(flax_to_torch(jax.tree_util.tree_map(np.asarray,
+                                                            params)))
+    return jm, params, tm.eval()
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (83, 57)])
+def test_wrapper_matches_flax(models, hw):
+    jm, params, tm = models
+    x = np.random.default_rng(1).normal(size=(1, *hw, 6)).astype(np.float32)
+    jp, jl, ja = jax.jit(jm.apply)(params, jnp.asarray(x))
+    with torch.no_grad():
+        tp, tl, ta = tm(torch.from_numpy(x))
+    assert tl.shape == (1, *hw, 5) and ta.shape == tl.shape
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=ATOL)
+
+
+def test_state_dict_names_follow_flax_tree(models):
+    _, _, tm = models
+    keys = set(tm.state_dict())
+    for k in ("net.block_0.down.dil_conv_0.Conv_0.weight",
+              "net.block_0.down.res_block_1.ConvBnLrnDrop_1.Conv_0.bias",
+              "net.block_1.down.couple_conv_2.Conv_0.weight",
+              "net.block_1.down.attention_2.f.weight",
+              "net.block_0.up.deconv_0.weight",
+              "net.block_1.up.merge_conv_1.Conv_0.weight",
+              "net.end_conv_1.Conv_0.weight"):
+        assert k in keys, k
+
+
+def test_same_padding_even_kernel_extra_pixel_bottom_right():
+    assert same_padding(4) == (1, 2)
+    assert same_padding(3, dilation=4) == (4, 4)
+
+
+def test_lrn_matches_flax():
+    x = np.random.default_rng(2).normal(size=(2, 5, 7, 16)).astype(np.float32)
+    want = np.asarray(jax_lrn(jnp.asarray(x), size=16))
+    got = local_response_norm(torch.from_numpy(x).permute(0, 3, 1, 2), 16)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("field,value", [("flat_scales", 2),
+                                         ("spatial_shards", 2),
+                                         ("model", "msau_box"),
+                                         ("use_lstm", True),
+                                         ("use_spn", True)])
+def test_unported_options_raise(field, value):
+    cfg = ModelConfig(**{**CFG, field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg, torch.Generator().manual_seed(0))

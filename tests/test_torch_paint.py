@@ -1,0 +1,46 @@
+"""Paint parity: the port's paint_boxes against the TPU kernel
+(paint_boxes_pallas in interpret mode) and the host golden model
+paint_boxes_numpy.  Integer grids: exact equality."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msau_tpu.data.rasterize import BoxProgram as JaxBoxProgram
+from msau_tpu.data.rasterize import paint_boxes_numpy as jax_paint_numpy
+from msau_tpu.ops.paint_pallas import paint_boxes_pallas
+from msau_tpu_torch.data.rasterize import BoxProgram, paint_boxes_numpy
+from msau_tpu_torch.ops.paint import paint_boxes, paint_boxes_cuda
+from msau_tpu_torch.utils.kernel_inputs import paint_program
+
+
+@pytest.mark.parametrize("h,w,n,pad", [(128, 128, 40, 64), (256, 96, 300, 512),
+                                       (128, 64, 0, 8)])
+def test_paint_matches_pallas_and_numpy(h, w, n, pad):
+    boxes, values = paint_program(np.random.default_rng(h + n), n, h, w, pad)
+    want = np.asarray(paint_boxes_pallas(jnp.asarray(boxes),
+                                         jnp.asarray(values), h, w,
+                                         interpret=True))
+    golden = paint_boxes_numpy(BoxProgram(boxes, values), h, w)
+    np.testing.assert_array_equal(
+        golden, jax_paint_numpy(JaxBoxProgram(boxes, values), h, w))
+    np.testing.assert_array_equal(want, golden)
+    got = paint_boxes(torch.from_numpy(boxes), torch.from_numpy(values), h, w)
+    assert got.dtype == torch.int32 and got.shape == (h, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_tensor_takes_plain_version():
+    before = paint_boxes_cuda.launches
+    boxes = torch.tensor([[0, 2, 0, 2]], dtype=torch.int32)
+    vals = torch.tensor([7], dtype=torch.int32)
+    out = paint_boxes(boxes, vals, 4, 4)
+    assert paint_boxes_cuda.launches == before
+    assert out[:2, :2].eq(7).all() and out.sum() == 28
+
+
+def test_cuda_wrapper_rejects_cpu_tensor():
+    boxes = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        paint_boxes_cuda(boxes, torch.zeros(1, dtype=torch.int32), 8, 8)
