@@ -1,10 +1,12 @@
 """msau_tpu_torch — the PyTorch + CUDA port of msau_tpu for one NVIDIA H100.
 
 The serve path (``infer.kv_model.KVModel.predict``: box programs, paint,
-one-hot, the MSAU forward, device decode, host strings) runs on PyTorch,
-with the TPU package's Pallas kernels on that path rewritten by hand in CUDA
-C++ (``csrc/``): paint, the resident attention forward and the multiclass
-CCL.  ``msau_tpu`` stays the reference; this package never imports JAX.
+one-hot, the MSAU forward, device decode, host strings) and the train step
+(``train``: masked CE, the optax chain, ``Trainer``) run on PyTorch, with
+the TPU package's Pallas kernels on those paths rewritten by hand in CUDA
+C++ (``csrc/``): paint, the resident attention forward and backward, the
+multiclass CCL and the fused masked CE forward and backward.  ``msau_tpu``
+stays the reference; this package never imports JAX.
 
 f32 precision policy, set once here: cuDNN convolutions and matmuls run in
 full f32 (PyTorch lets cuDNN use TF32 by default, which keeps about three

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the port: the JAX package's own
-``ModelConfig`` / ``InferConfig`` (``msau_tpu.config`` imports no JAX), so
-one config drives both implementations."""
+``ModelConfig`` / ``InferConfig`` / ``TrainConfig`` (``msau_tpu.config``
+imports no JAX), so one config drives both implementations."""
 
-from msau_tpu.config import InferConfig, ModelConfig
+from msau_tpu.config import InferConfig, ModelConfig, TrainConfig
 
-__all__ = ["InferConfig", "ModelConfig"]
+__all__ = ["InferConfig", "ModelConfig", "TrainConfig"]

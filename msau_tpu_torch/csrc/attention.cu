@@ -39,21 +39,15 @@
 // recomputed in (b) rather than stored: 2 x 16.7 M Cb-wide dots cost less
 // than writing and re-reading a 64 MiB score matrix.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using msau::store;
+using msau::to_f32;
 
 // pass (a)
 constexpr int kStatsThreads = 256;

@@ -1,8 +1,9 @@
-"""Synthetic form pages for the serve benchmark and smoke runs.
+"""Synthetic form pages for the serve benchmark and smoke runs, and the
+bench's structured training batch.
 
-Host copy of ``make_page`` and ``BENCH_CHARSET`` from ``msau_tpu.data.synth``
-(that package's ``__init__`` imports JAX); tests/test_torch_host_copies.py
-pins it to the original.  Each page is a randomized bank-transfer-style form
+Host copy of ``make_page``, ``make_structured_batch`` and ``BENCH_CHARSET``
+from ``msau_tpu.data.synth`` (that package's ``__init__`` imports JAX);
+tests/test_torch_host_copies.py pins each to the original.  Each page is a randomized bank-transfer-style form
 in the labeling-tool JSON dict format (``{'img_shape', 'lines': [{box, text,
 type, value}]}``) over the default 17-class schema.
 """
@@ -10,7 +11,7 @@ type, value}]}``) over the default 17-class schema.
 from __future__ import annotations
 
 import string
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -86,6 +87,31 @@ def make_page(rng: np.random.Generator, *, n_cols: int = 1,
                     y += int(rng.integers(34, 56))
         y_max = max(y_max, y)
     return {"img_shape": [y_max + 30, n_cols * col_w], "lines": lines}
+
+
+def make_structured_batch(
+    rng: np.random.Generator, bs: int, hw: int, n_class: int,
+    channels: int, n_rects: int = 24,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Rectangle-structured (input, label) pair for benchmark training.
+
+    Each image holds ``n_rects`` random class-c rectangles; the input adds
+    +1 on channel ``c % channels`` inside each rectangle over background
+    noise, so the labels are linearly recoverable from the input and the
+    masked CE converges instead of chasing uniform noise.
+    """
+    x = rng.normal(0.0, 0.1, (bs, hw, hw, channels)).astype(np.float32)
+    label = np.zeros((bs, hw, hw), np.int32)
+    for b in range(bs):
+        for _ in range(n_rects):
+            c = int(rng.integers(1, n_class))
+            rh = int(rng.integers(max(hw // 16, 2), max(hw // 4, 3)))
+            rw = int(rng.integers(max(hw // 16, 2), max(hw // 4, 3)))
+            yy = int(rng.integers(0, hw - rh))
+            xx = int(rng.integers(0, hw - rw))
+            label[b, yy:yy + rh, xx:xx + rw] = c
+            x[b, yy:yy + rh, xx:xx + rw, c % channels] += 1.0
+    return x, label
 
 
 BENCH_CHARSET = string.ascii_letters + string.digits  # 62 chars + 2 specials

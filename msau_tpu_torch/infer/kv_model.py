@@ -36,11 +36,10 @@ from msau_tpu_torch.infer.decode import (
     unpack_decode_out,
 )
 from msau_tpu_torch.infer.schema import FieldSchema, post_process_kv
-from msau_tpu_torch.models.msau import build_model, check_supported
+from msau_tpu_torch.models.msau import DTYPES, build_model, check_supported
 from msau_tpu_torch.utils.transplant import flax_to_torch
 
 INFER_SPECIALS = (" ", "$")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _is_state_dict(params: Mapping) -> bool:
@@ -134,8 +133,9 @@ class KVModel:
         return self
 
     def set_model(self, model: torch.nn.Module) -> None:
-        """Install ``model`` on this KVModel's device and compute dtype."""
-        dtype = _DTYPES[self.model_config.dtype]
+        """Install ``model`` on this KVModel's device and compute dtype
+        (parameters cast once: the same as casting at every use)."""
+        dtype = DTYPES[self.model_config.dtype]
         self.model = model.to(device=self.device, dtype=dtype).eval()
 
     def warmup_bucket(self, hb: int, wb: Optional[int] = None) -> None:

@@ -9,8 +9,8 @@ Semantics mirror the reference SAGAN-style block:
     y       = out + x                              (residual)
 
 There is no 1/sqrt(d) scaling and no output projection.  The product runs in
-``ops.attention.resident_attention``: the CUDA kernel on a card, the plain
-einsum on the CPU.
+``ops.attention.resident_attention``, an autograd op: the CUDA kernels
+(forward and backward) on a card, the plain einsum forms on the CPU.
 """
 
 from __future__ import annotations

@@ -92,11 +92,14 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(_normal((cout,), bias_std, gen, bias_mean))
 
     def forward(self, x: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+        """Computes in ``x``'s dtype: the parameters are cast at use, as
+        flax ``nn.Conv(dtype=...)`` does (f32 parameters, bf16 compute)."""
         kh, kw = self.weight.shape[-2:]
         ph, pw = same_padding(kh, dilation), same_padding(kw, dilation)
         if ph != (0, 0) or pw != (0, 0):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, dilation=dilation)
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        dilation=dilation)
 
 
 class ConvBnLrnDrop(nn.Module):
@@ -165,7 +168,9 @@ class DeconvBnLrnDrop(nn.Module):
         if not (0 <= oph < s and 0 <= opw < s):
             raise ValueError(f"target {tuple(target_hw)} unreachable from "
                              f"{(h, w)} with stride {s}")
-        y = F.conv_transpose2d(x, self.weight, self.bias, stride=s,
+        # parameters cast to the activation dtype at use, as in Conv
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype),
+                               self.bias.to(x.dtype), stride=s,
                                padding=(ph, pw), output_padding=(oph, opw))
         act = get_activation(self.activation)
         if act is not None:

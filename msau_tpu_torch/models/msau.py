@@ -14,10 +14,18 @@
   * A 4x4 ``end_conv`` maps feat_root -> n_class per stage; stage n-2's
     output is the auxiliary logits head.
 
-Modules work in NCHW; the public forward takes NHWC input and returns NHWC
-``(probs, logits, aux)`` like ``MSAUWrapper``.  Module names follow the flax
-tree (``net.block_{b}.down.dil_conv_{l}.Conv_0``, ...).  ``remat`` and
-``attention_impl`` are accepted and ignored (serving only).
+Modules work in NCHW; the public forward takes NHWC input and returns
+``(probs, logits, aux)`` like ``MSAUWrapper``, NHWC or NCHW
+(``logits_layout``).  Module names follow the flax tree
+(``net.block_{b}.down.dil_conv_{l}.Conv_0``, ...).
+
+Compute dtype follows flax's ``dtype=``: the input is cast to
+``config.dtype`` and every layer casts its (f32) parameters to the
+activation's dtype at use, so a bf16 config trains f32 parameters with bf16
+activations; logits come out in f32.  ``remat`` recomputes each U-Net stage
+in the backward (``torch.utils.checkpoint``, as ``nn.remat(UNetBlock)``).
+``attention_impl`` is accepted and ignored: the deepest scale always takes
+``ops.attention.resident_attention``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from msau_tpu_torch.config import ModelConfig
 from msau_tpu_torch.models.attention import SelfAttentionBlock
@@ -54,6 +63,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.use_lstm or cfg.use_spn:
         raise NotImplementedError(
             "use_lstm / use_spn (models/extras.py) are ROADMAP Queue 1 item 12")
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -171,9 +183,14 @@ class MSAUNet(nn.Module):
         prev_dw = prev_up = None
         logits_aux = None
         out = x
+        remat = cfg.remat and torch.is_grad_enabled()
         for b in range(cfg.num_blocks):
-            out, prev_dw, prev_up = getattr(self, f"block_{b}")(
-                out, prev_dw, prev_up)
+            block = getattr(self, f"block_{b}")
+            if remat:
+                out, prev_dw, prev_up = checkpoint(
+                    block, out, prev_dw, prev_up, use_reentrant=False)
+            else:
+                out, prev_dw, prev_up = block(out, prev_dw, prev_up)
             out = getattr(self, f"end_conv_{b}")(out)
             if b == cfg.num_blocks - 2:
                 logits_aux = out
@@ -183,7 +200,7 @@ class MSAUNet(nn.Module):
 
 class MSAUWrapper(nn.Module):
     """Adds the final activation head; ``forward`` takes NHWC ``x`` and
-    returns NHWC ``(probs, logits, aux_logits)``.  Parameters are drawn
+    returns ``(probs, logits, aux_logits)``.  Parameters are drawn in f32
     from ``generator`` (a ``torch.Generator``), always on the CPU, so a
     seed gives the same weights on every device."""
 
@@ -194,16 +211,27 @@ class MSAUWrapper(nn.Module):
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return next(self.parameters()).dtype
+        return DTYPES[self.config.dtype]
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, logits_layout: str = "NHWC"):
+        """``logits_layout`` "NHWC" or "NCHW" (f32 logits and probs in that
+        layout; NCHW is the network's own, with no transpose)."""
+        if logits_layout == "BODY":
+            raise NotImplementedError(
+                "logits_layout='BODY' is the TPU flat layout of flat_scales "
+                "> 0 (ROADMAP Queue 2, K1-K3 and K6-K8)")
+        if logits_layout not in ("NHWC", "NCHW"):
+            raise ValueError(f"unknown logits_layout {logits_layout!r}")
         xc = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         logits, aux = self.net(xc)
-        logits = logits.permute(0, 2, 3, 1)
-        aux = aux.permute(0, 2, 3, 1)
+        caxis = 1
+        if logits_layout == "NHWC":
+            logits = logits.permute(0, 2, 3, 1)
+            aux = aux.permute(0, 2, 3, 1)
+            caxis = -1
         final_act = self.config.final_act
         if final_act == "softmax":
-            probs = torch.softmax(logits, dim=-1)
+            probs = torch.softmax(logits, dim=caxis)
         elif final_act == "sigmoid":
             probs = torch.sigmoid(logits)
         else:

@@ -1,8 +1,13 @@
 """Device ops of the port: the hand-written CUDA kernels' wrappers (paint,
-resident attention forward, multiclass CCL) and the torch-op morphology."""
+resident attention forward and backward, multiclass CCL, fused masked CE
+forward and backward) and the torch-op morphology."""
 
-from msau_tpu_torch.ops.attention import resident_attention_cuda
+from msau_tpu_torch.ops.attention import (
+    resident_attention_bwd_cuda,
+    resident_attention_cuda,
+)
 from msau_tpu_torch.ops.ccl import connected_components_multiclass_cuda
+from msau_tpu_torch.ops.ce_loss import masked_ce_bwd_cuda, masked_ce_fwd_cuda
 from msau_tpu_torch.ops.paint import paint_boxes_cuda
 
 # kernel name -> its wrapper, whose ``launches`` attribute counts launches
@@ -10,6 +15,9 @@ KERNEL_WRAPPERS = {
     "paint": paint_boxes_cuda,
     "resident_attention_fwd": resident_attention_cuda,
     "ccl_multiclass": connected_components_multiclass_cuda,
+    "resident_attention_bwd": resident_attention_bwd_cuda,
+    "masked_ce_fwd": masked_ce_fwd_cuda,
+    "masked_ce_bwd": masked_ce_bwd_cuda,
 }
 
 

@@ -4,12 +4,17 @@ With flattened spatial tokens, A = softmax_rows(g fᵀ) and out = Aᵀ h — the
 softmax runs over the *output* axis and the sum over the *input* axis (the
 transpose of standard attention), with no 1/√d scaling.
 
-``resident_attention`` is the entry point: a CUDA tensor launches the
-hand-written forward kernel (``csrc/attention.cu``, the port of the TPU
-kernel ``msau_tpu/ops/pallas_attn.py:_res_fwd_kernel``); a CPU tensor takes
-``resident_attention_plain``, the einsum form of
-``msau_tpu.models.attention.self_attention_xla``.  Forward only: serving
-needs no gradient.
+``resident_attention`` is the entry point, a ``torch.autograd.Function``
+(``ResidentAttention``) whose forward saves (f, g, h, m, l) with m, l each
+query row's score max and sum-exp, and whose backward recomputes A from
+them.  A CUDA tensor launches the hand-written kernels: the forward
+(``csrc/attention.cu``, port of the TPU kernel
+``msau_tpu/ops/pallas_attn.py:_res_fwd_kernel``) and the backward
+(``csrc/attention_bwd.cu``, port of ``_res_bwd_kernel``).  A CPU tensor
+takes the plain versions (``resident_attention_plain_stats``, the einsum
+form of ``msau_tpu.models.attention.self_attention_xla``, and
+``resident_attention_bwd_plain``), so CPU training runs the same backward
+formula that the kernel implements.
 """
 
 from __future__ import annotations
@@ -35,6 +40,64 @@ def resident_attention_plain(f: torch.Tensor, g: torch.Tensor,
     return torch.einsum("nij,nic->njc", beta, h.to(f32)).to(h.dtype)
 
 
+def resident_attention_plain_stats(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain forward with the saved statistics: (out in h's dtype,
+    m, l [N, T] f32), m_i = max_j s_ij and l_i = sum_j exp(s_ij - m_i)."""
+    f32 = torch.float32
+    s = torch.einsum("nic,njc->nij", g.to(f32), f.to(f32))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("nij,nic->njc", p / l[..., None], h.to(f32))
+    return out.to(h.dtype), m, l
+
+
+def resident_attention_bwd_plain(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
+    l: torch.Tensor, dout: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(df, dg, dh) in the input dtypes, from the forward's m and l; the
+    f32 [N, T, T] form of ``_res_bwd_kernel``:
+
+        A = exp(s - m) / l,  dh = A dout,  rho_i = h_i . dh_i,
+        ds = A * (h doutᵀ - rho),  dg = ds f,  df = dsᵀ g.
+    """
+    f32 = torch.float32
+    ff, gf, hf, dof = (t.to(f32) for t in (f, g, h, dout))
+    s = torch.einsum("nic,njc->nij", gf, ff)
+    a = torch.exp(s - m[..., None]) / l[..., None]
+    dh = torch.einsum("nij,njc->nic", a, dof)
+    rho = (hf * dh).sum(dim=-1)
+    u = torch.einsum("nic,njc->nij", hf, dof)
+    ds = a * (u - rho[..., None])
+    dg = torch.einsum("nij,njc->nic", ds, ff)
+    df = torch.einsum("nij,nic->njc", ds, gf)
+    return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
+
+
+def _check_operands(name: str, f: torch.Tensor, g: torch.Tensor,
+                    h: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Validate the kernels' f, g, h -> (n, t, cb, c)."""
+    dtypes = (torch.float32, torch.bfloat16)
+    for arg, t in (("f", f), ("g", g), ("h", h)):
+        cuda_lib.require_cuda(f"{name} {arg}", t, dtypes, 3)
+    if not (f.dtype == g.dtype == h.dtype):
+        raise ValueError(f"{name}: f, g, h must share a dtype")
+    if not (f.device == g.device == h.device):
+        raise ValueError(f"{name}: f, g, h on different devices")
+    n, t, cb = f.shape
+    c = h.shape[-1]
+    if g.shape != f.shape or h.shape[:2] != (n, t):
+        raise ValueError(f"{name}: shapes f {tuple(f.shape)} "
+                         f"g {tuple(g.shape)} h {tuple(h.shape)}")
+    if (cb, c) not in KERNEL_WIDTHS:
+        raise ValueError(f"{name}: (Cb, C) = {(cb, c)} not in "
+                         f"{KERNEL_WIDTHS}")
+    return n, t, cb, c
+
+
 def _i_splits(n: int, t: int, c: int, device: torch.device) -> int:
     """How many contiguous i ranges the accumulation pass splits into:
     enough blocks for about four per SM (each block owns 64 output rows),
@@ -55,21 +118,7 @@ def resident_attention_cuda(
     m, l ([N, T] f32)
     are each query row's score max and sum-exp.
     ``resident_attention_cuda.launches`` counts calls."""
-    dtypes = (torch.float32, torch.bfloat16)
-    for name, t in (("f", f), ("g", g), ("h", h)):
-        cuda_lib.require_cuda(f"resident_attention {name}", t, dtypes, 3)
-    if not (f.dtype == g.dtype == h.dtype):
-        raise ValueError("resident_attention: f, g, h must share a dtype")
-    if not (f.device == g.device == h.device):
-        raise ValueError("resident_attention: f, g, h on different devices")
-    n, t, cb = f.shape
-    c = h.shape[-1]
-    if g.shape != f.shape or h.shape[:2] != (n, t):
-        raise ValueError(f"resident_attention: shapes f {tuple(f.shape)} "
-                         f"g {tuple(g.shape)} h {tuple(h.shape)}")
-    if (cb, c) not in KERNEL_WIDTHS:
-        raise ValueError(f"resident_attention: (Cb, C) = {(cb, c)} not in "
-                         f"{KERNEL_WIDTHS}")
+    n, t, cb, c = _check_operands("resident_attention", f, g, h)
     out = torch.empty_like(h)
     m = torch.empty((n, t), dtype=torch.float32, device=f.device)
     l = torch.empty((n, t), dtype=torch.float32, device=f.device)
@@ -88,12 +137,78 @@ def resident_attention_cuda(
 resident_attention_cuda.launches = 0
 
 
+def bwd_row_block(c: int) -> int:
+    """Query rows per block of the backward kernel (``kBwdRows`` in
+    ``csrc/attention_bwd.cu``): one f32 df partial per row block."""
+    return 32 if c >= 128 else 64
+
+
+def resident_attention_bwd_cuda(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
+    l: torch.Tensor, dout: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (rows pass, df combine) -> (df, dg, dh)
+    in the input dtype.  ``resident_attention_bwd_cuda.launches`` counts
+    calls."""
+    n, t, cb, c = _check_operands("resident_attention_bwd", f, g, h)
+    cuda_lib.require_cuda("resident_attention_bwd dout", dout, h.dtype, 3)
+    for name, st in (("m", m), ("l", l)):
+        cuda_lib.require_cuda(f"resident_attention_bwd {name}", st,
+                              torch.float32, 2)
+        if st.shape != (n, t) or st.device != f.device:
+            raise ValueError(f"resident_attention_bwd: {name} must be "
+                             f"[{n}, {t}] on {f.device}")
+    if dout.shape != h.shape or dout.device != f.device:
+        raise ValueError("resident_attention_bwd: dout must match h")
+    df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
+    tiles = -(-t // bwd_row_block(c))
+    partial = torch.empty((tiles, n, t, cb), dtype=torch.float32,
+                          device=f.device)
+    code = cuda_lib.library().msau_resident_attention_bwd(
+        f.data_ptr(), g.data_ptr(), h.data_ptr(), dout.data_ptr(),
+        m.data_ptr(), l.data_ptr(), df.data_ptr(), dg.data_ptr(),
+        dh.data_ptr(), partial.data_ptr(), tiles, n, t, cb, c,
+        int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
+    cuda_lib.check("msau_resident_attention_bwd", code)
+    resident_attention_bwd_cuda.launches += 1
+    return df, dg, dh
+
+
+resident_attention_bwd_cuda.launches = 0
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"resident_attention: unsupported device {t.device}")
+    return t.device.type
+
+
+class ResidentAttention(torch.autograd.Function):
+    """out = Aᵀh with A = softmax_rows(g fᵀ); saves (f, g, h, m, l) and
+    returns (df, dg, dh) in the input dtypes, as the TPU kernel pair's
+    ``jax.custom_vjp`` (``pallas_attn.py:_resident_fwd/_resident_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, f, g, h):
+        if _device_kind(f) == "cuda":
+            out, m, l = resident_attention_cuda(f, g, h)
+        else:
+            out, m, l = resident_attention_plain_stats(f, g, h)
+        ctx.save_for_backward(f, g, h, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        f, g, h, m, l = ctx.saved_tensors
+        # autograd may hand over a strided or differently typed cotangent
+        dout = dout.to(h.dtype).contiguous()
+        if _device_kind(f) == "cuda":
+            return resident_attention_bwd_cuda(f, g, h, m, l, dout)
+        return resident_attention_bwd_plain(f, g, h, m, l, dout)
+
+
 def resident_attention(f: torch.Tensor, g: torch.Tensor,
                        h: torch.Tensor) -> torch.Tensor:
-    """A = softmax_rows(g fᵀ), out = Aᵀ h; the device of ``f`` picks the
-    implementation."""
-    if f.device.type == "cuda":
-        return resident_attention_cuda(f, g, h)[0]
-    if f.device.type != "cpu":
-        raise ValueError(f"resident_attention: unsupported device {f.device}")
-    return resident_attention_plain(f, g, h)
+    """A = softmax_rows(g fᵀ), out = Aᵀ h, differentiable; the device of
+    ``f`` picks the implementation."""
+    return ResidentAttention.apply(f, g, h)

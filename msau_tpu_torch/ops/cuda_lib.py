@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), bound with ``ctypes``.  The library lands in
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more links the objects into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), bound
+with ``ctypes``.  The library lands in
 ``build/msau_tpu_torch/`` at the checkout root, named by a hash of the
 sources and flags, and is built at first use — never at import, so the
 package imports on machines without ``nvcc`` or a card.
@@ -30,8 +31,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "msau_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,15 @@ SIGNATURES = {
                                     _I, _I, _I, _P),
     # cls, parent, labels, height, width, stream
     "msau_ccl_multiclass": (_P, _P, _P, _I, _I, _P),
+    # f, g, h, dout, m, l, df, dg, dh, partial, tiles, n, t, cb, c, is_bf16,
+    # stream
+    "msau_resident_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _P),
+    # logits, labels, mask, partial, ce_out, correct_out, blocks, n, c,
+    # length, is_bf16, stream
+    "msau_masked_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # logits, labels, mask, g, dlogits, n, c, length, is_bf16, stream
+    "msau_masked_ce_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -85,7 +96,7 @@ def _sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -100,18 +111,43 @@ def library() -> KernelLibrary:
     out = BUILD_DIR / f"libmsau_kernels-{source_hash()}.so"
     seconds, log = 0.0, ""
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(out)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
     _LIBRARY = KernelLibrary(out, seconds, log)
     return _LIBRARY
+
+
+def _build(out: Path) -> str:
+    """Compile every source in parallel, link into ``out``; returns the
+    compilers' output (ptxas register and shared-memory lines)."""
+    nvcc = _nvcc()
+    objs = BUILD_DIR / f"obj-{out.stem}-{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in _sources():
+        obj = objs / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src.name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for name, _, proc in jobs:  # wait for every process, failed or not
+        text, _ = proc.communicate()
+        log.append(f"== {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    shutil.rmtree(objs, ignore_errors=True)
+    return "\n".join(log)
 
 
 def stream_ptr(device: torch.device) -> int:

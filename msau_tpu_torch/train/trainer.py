@@ -1,0 +1,307 @@
+"""Training loop of the port: train / eval steps, the fit loop, checkpoints
+(port of ``msau_tpu.train.trainer`` at ``flat_scales=0`` on one device).
+
+The state's parameters are the model's own ``nn.Parameter``s, updated in
+place by the optimizer (PyTorch is eager and has no donation: in-place
+updates are what keeps one copy of the weights).  The step computes the
+loss on the network's channel-major logits [N, C, H*W], so the masked loss
+takes the fused CE op (``ops.ce_loss``), and the deepest-scale attention
+runs its autograd op (``ops.attention``): on a card both are hand-written
+CUDA kernels.  Metrics stay on the device: nothing in a step waits for it.
+
+Checkpoints are ``torch.save`` files holding the full train state (step,
+parameters and optimizer buffers), so a restore resumes training exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from msau_tpu_torch.config import ModelConfig, TrainConfig
+from msau_tpu_torch.models.msau import MSAUWrapper, build_model
+from msau_tpu_torch.train.loss import masked_cross_entropy, unet_loss
+from msau_tpu_torch.train.optimizer import Optimizer, make_optimizer
+
+CHECKPOINT_FILE = "train_state.pt"
+
+
+@dataclasses.dataclass
+class TrainState:
+    """step: updates done; params: the model's parameters by name;
+    opt_state: the optimizer's buffers and update count."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, optimizer: Optimizer) -> "TrainState":
+        params = dict(model.named_parameters())
+        return cls(step=0, params=params, opt_state=optimizer.init(params))
+
+
+def _loss(model: MSAUWrapper, batch, masked: bool, aux_weight: float):
+    """The step's loss and metrics on the network's NCHW logits; the
+    masked loss sees them as [N, C, H*W] and takes the fused CE op."""
+    _, logits, aux = model(batch["input"], logits_layout="NCHW")
+    labels, valid = batch["label"], batch.get("valid")
+    if masked:
+        n, c = logits.shape[:2]
+        return masked_cross_entropy(
+            logits.reshape(n, c, -1), aux.reshape(n, c, -1),
+            labels.reshape(n, -1),
+            None if valid is None else valid.reshape(n, -1), channel_axis=1)
+    return unet_loss(logits, labels, aux_logits=aux, valid=valid,
+                     aux_weight=aux_weight, channel_axis=1)
+
+
+def make_loss_and_grad(model: MSAUWrapper, *, masked: bool = True,
+                       aux_weight: float = 0.5) -> Callable:
+    """batch -> (loss, metrics, grads by parameter name); the value and
+    gradient of the step's loss at the model's current parameters
+    (``jax.value_and_grad(loss_fn, has_aux=True)``).
+
+    batch: {"input": [N, H, W, C], "label": [N, H, W] int, "valid":
+    [N, H, W] bool (optional)}.
+    """
+    names, params = zip(*model.named_parameters())
+
+    def loss_and_grad(batch):
+        loss, metrics = _loss(model, batch, masked, aux_weight)
+        # the last stage's attention feeds only a next stage, which does
+        # not exist: its parameters get zero gradients, as under jax.grad
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, dict(zip(names, grads))
+
+    return loss_and_grad
+
+
+def make_train_step(model: MSAUWrapper, optimizer: Optimizer, *,
+                    masked: bool = True, aux_weight: float = 0.5,
+                    donate: bool = True) -> Callable:
+    """(state, batch) -> (state, metrics) with metrics["grad_norm"] the raw
+    gradients' global norm.  ``state.params`` must be the model's own
+    parameters (``TrainState.create``); they and ``state.opt_state`` are
+    updated in place.  ``donate`` is a TPU knob, accepted and ignored."""
+    del donate
+    loss_and_grad = make_loss_and_grad(model, masked=masked,
+                                       aux_weight=aux_weight)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        _, metrics, grads = loss_and_grad(batch)
+        metrics["grad_norm"] = optimizer.update(grads, state.opt_state,
+                                                state.params)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(model: MSAUWrapper, *, masked: bool = True) -> Callable:
+    """(params, batch) -> metrics, with no gradient; ``params`` are the
+    model's own parameters (the state's), which the forward reads."""
+
+    @torch.no_grad()
+    def step(params: Dict[str, torch.Tensor], batch) -> Dict[str, torch.Tensor]:
+        if next(iter(params.values())) is not next(model.parameters()):
+            raise ValueError("eval step: params are not the model's own")
+        return _loss(model, batch, masked, 0.5)[1]
+
+    return step
+
+
+class Trainer:
+    """Host loop around the step on one device.
+
+    ``data_provider`` exposes ``next_data(split)`` returning a batch dict of
+    numpy arrays (None when exhausted) and optionally ``size_val``, the
+    protocol of the reference generators.  ``device`` is required: the
+    trainer never picks one.  ``mesh`` must be None (data and spatial
+    parallelism are ROADMAP Queue 1 item 13); ``TrainConfig``'s
+    ``matmul_precision``, ``donate_state`` and mesh fields are TPU knobs,
+    accepted and ignored (f32 stays full f32: TF32 is off, see
+    ``msau_tpu_torch/__init__.py``).
+    """
+
+    def __init__(self, model_config: ModelConfig,
+                 train_config: Optional[TrainConfig] = None, mesh=None, *,
+                 device):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Trainer(mesh=...): multi-device training is ROADMAP Queue 1 "
+                "item 13")
+        self.model_config = model_config
+        self.cfg = train_config or TrainConfig()
+        self.device = torch.device(device)
+        self.model = build_model(
+            model_config, torch.Generator().manual_seed(self.cfg.seed)
+        ).to(self.device)
+        self.optimizer = make_optimizer(self.cfg)
+        self._make_steps()
+        self.state: Optional[TrainState] = None
+
+    def _make_steps(self) -> None:
+        self.train_step = make_train_step(
+            self.model, self.optimizer, masked=self.cfg.masked_loss,
+            aux_weight=self.cfg.loss_aux_weight)
+        self.eval_step = make_eval_step(self.model, masked=self.cfg.masked_loss)
+
+    # ------------------------------------------------------------------
+    def init_state(self, sample_input: np.ndarray,
+                   seed: Optional[int] = None) -> TrainState:
+        """Fresh f32 parameters drawn from ``seed`` (default ``cfg.seed``)
+        on the CPU, so a seed gives the same weights on every device, and a
+        fresh optimizer state.  ``sample_input`` [N, H, W, C] is checked
+        against the model's input channels."""
+        seed = self.cfg.seed if seed is None else seed
+        if np.shape(sample_input)[-1] != self.model_config.img_channels:
+            raise ValueError(f"sample input has {np.shape(sample_input)[-1]} "
+                             f"channels, the model "
+                             f"{self.model_config.img_channels}")
+        fresh = build_model(self.model_config, torch.Generator().manual_seed(seed))
+        self.model.load_state_dict(fresh.state_dict())
+        self.state = TrainState.create(self.model, self.optimizer)
+        return self.state
+
+    def put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    def fit(
+        self,
+        data_provider,
+        output_path: Optional[str] = None,
+        epochs: Optional[int] = None,
+        batch_steps_per_epoch: Optional[int] = None,
+        restore_path: Optional[str] = None,
+        log_fn: Callable[[str], None] = print,
+        log_dir: Optional[str] = None,
+    ) -> Dict[str, list]:
+        """Queue-fed training with a per-epoch validation sweep and
+        best-val-loss checkpoints (reference Trainer.train contract)."""
+        if log_dir:
+            raise NotImplementedError(
+                "fit(log_dir=...): the metrics logger (utils/profiling.py) "
+                "is ROADMAP Queue 1 item 12")
+        epochs = epochs if epochs is not None else self.cfg.epochs
+        steps = batch_steps_per_epoch or self.cfg.batch_steps_per_epoch
+        if steps != self.cfg.batch_steps_per_epoch and self.cfg.lr_decay_staircase:
+            # the staircase decays by epoch: an overridden epoch length must
+            # reach the schedule; the state's layout is unchanged
+            self.optimizer = make_optimizer(self.cfg, steps_per_epoch=steps)
+            self._make_steps()
+        if restore_path:
+            self.restore(restore_path)
+        if self.state is None:
+            raise RuntimeError("call init_state() first")
+
+        history = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
+        best_val = float("inf")
+        next_batch = data_provider.next_data("train")
+        for epoch in range(epochs):
+            t0 = time.time()
+            agg: Dict[str, torch.Tensor] = {}
+            n_steps = 0
+            if next_batch is None:  # retry once per epoch
+                next_batch = data_provider.next_data("train")
+            for _ in range(steps):
+                batch = next_batch
+                if batch is None:
+                    break
+                self.state, metrics = self.train_step(self.state,
+                                                      self.put_batch(batch))
+                n_steps += 1
+                # the next batch is made while the card runs this step;
+                # metrics stay on the device until the epoch ends
+                next_batch = data_provider.next_data("train")
+                for k, v in metrics.items():
+                    agg[k] = agg[k] + v if k in agg else v
+            if n_steps == 0:
+                log_fn("No training data available; stopping.")
+                break
+            train_loss = float(agg.get("loss", 0.0)) / n_steps
+            train_acc = float(agg.get("accuracy", 0.0)) / n_steps
+            history["train_loss"].append(train_loss)
+            history["train_acc"].append(train_acc)
+            log_fn(f"TRAIN epoch {epoch + 1}: loss={train_loss:.6f} "
+                   f"acc={train_acc:.6f} time={time.time() - t0:.2f}s")
+
+            val_size = getattr(data_provider, "size_val", 0)
+            if val_size:
+                vagg: Dict[str, float] = {}
+                vn = 0
+                for _ in range(val_size):
+                    batch = data_provider.next_data("val")
+                    if batch is None:
+                        break
+                    metrics = self.eval_step(self.state.params,
+                                             self.put_batch(batch))
+                    vn += 1
+                    for k, v in metrics.items():
+                        vagg[k] = vagg.get(k, 0.0) + float(v)
+                if vn:
+                    val_loss = vagg.get("loss", 0.0) / vn
+                    val_acc = vagg.get("accuracy", 0.0) / vn
+                    history["val_loss"].append(val_loss)
+                    history["val_acc"].append(val_acc)
+                    log_fn(f"VAL   epoch {epoch + 1}: loss={val_loss:.6f} "
+                           f"acc={val_acc:.6f}")
+                    if output_path and (
+                        val_loss < best_val
+                        or (epoch + 1) % self.cfg.checkpoint_every_epochs == 0
+                    ):
+                        best_val = min(best_val, val_loss)
+                        self.save(os.path.join(output_path, f"model{epoch + 1}"))
+            elif output_path and (epoch + 1) % self.cfg.checkpoint_every_epochs == 0:
+                self.save(os.path.join(output_path, f"model{epoch + 1}"))
+        self.wait_for_checkpoints()
+        return history
+
+    # ------------------------------------------------------------------
+    # checkpoints: torch.save of the full train state, written synchronously
+    # ------------------------------------------------------------------
+    def save(self, path: str, wait: bool = False) -> None:
+        """Write the train state to ``path/train_state.pt`` (the directory
+        is created; the file is replaced atomically).  The write is
+        synchronous, so ``wait`` has nothing to wait for."""
+        del wait
+        os.makedirs(path, exist_ok=True)
+        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+        st = self.state
+        blob = {"step": st.step, "params": cpu(st.params),
+                "opt_state": {k: (cpu(v) if isinstance(v, dict) else v)
+                              for k, v in st.opt_state.items()}}
+        dst = os.path.join(path, CHECKPOINT_FILE)
+        tmp = f"{dst}.{os.getpid()}.tmp"
+        torch.save(blob, tmp)
+        os.replace(tmp, dst)
+
+    def wait_for_checkpoints(self) -> None:
+        """Checkpoints are written synchronously: nothing is pending."""
+
+    def restore(self, path: str) -> TrainState:
+        """Load a ``save``d state into the current one, in place (the
+        model's parameters stay the state's)."""
+        if self.state is None:
+            raise RuntimeError("init_state() before restore, for structure")
+        blob = torch.load(os.path.join(path, CHECKPOINT_FILE),
+                          map_location="cpu", weights_only=True)
+        with torch.no_grad():
+            for k, v in self.state.params.items():
+                v.copy_(blob["params"][k])
+            for k, v in self.state.opt_state.items():
+                if isinstance(v, dict):
+                    for name, buf in v.items():
+                        buf.copy_(blob["opt_state"][k][name])
+                else:
+                    self.state.opt_state[k] = blob["opt_state"][k]
+        self.state.step = blob["step"]
+        return self.state

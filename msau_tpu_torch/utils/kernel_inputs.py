@@ -35,6 +35,26 @@ def attention_inputs(rng: np.random.Generator, n: int, t: int, cb: int, c: int,
     return f, g, h
 
 
+def ce_inputs(rng: np.random.Generator, n: int, c: int, length: int,
+              scale: float = 3.0, out_of_range: bool = False):
+    """Masked-CE operands: logits [N, C, L] f32 (``scale`` sets their
+    range), labels [N, L] int32 with about a quarter label 0 (background)
+    and, with ``out_of_range``, some below 0 or above C-1, and maskf [N, L]
+    f32 = (label != 0) and not in a bucket-padding band (the last eighth of
+    each image's pixels)."""
+    logits = (rng.normal(size=(n, c, length)) * scale).astype(np.float32)
+    labels = rng.integers(1, c, (n, length)).astype(np.int32)
+    labels[rng.random((n, length)) < 0.25] = 0
+    if out_of_range:
+        odd = rng.random((n, length))
+        labels[odd < 0.05] = -1
+        labels[odd > 0.95] = c + 2
+    valid = np.ones((n, length), bool)
+    valid[:, length - length // 8:] = False
+    maskf = ((labels != 0) & valid).astype(np.float32)
+    return logits, labels, maskf
+
+
 def ccl_map(kind: str, h: int, w: int, rng: np.random.Generator) -> np.ndarray:
     """int32 [H, W] class maps: 'blobby' (upsampled random classes),
     'noisy' (independent 3-class pixels, many tiny components) or 'maze'

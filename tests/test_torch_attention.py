@@ -1,9 +1,12 @@
 """Attention parity: the port's resident_attention against the TPU kernel
-(resident_attention in interpret mode) and the SelfAttentionBlock module
-against flax with bridged weights.
+(resident_attention in interpret mode), forward and backward, and the
+SelfAttentionBlock module against flax with bridged weights.
 
 Tolerance rtol/atol 1e-5: f32 on both sides; the residue is the softmax
-sum order over T = 256..512 keys.
+sum order over T = 256..512 keys.  The backward's atol is 1e-5 scaled by the
+gradient's largest magnitude: df and dg reach 90 at scale 6, where two f32
+summation orders differ by about 1e-6 of that (and each is as far from an
+f64 reference as from the other).
 """
 
 import jax
@@ -18,8 +21,11 @@ from msau_tpu.ops.pallas_attn import resident_attention as jax_resident
 from msau_tpu_torch.models.attention import SelfAttentionBlock, add_timing_signal_2d
 from msau_tpu_torch.ops.attention import (
     resident_attention,
+    resident_attention_bwd_cuda,
+    resident_attention_bwd_plain,
     resident_attention_cuda,
     resident_attention_plain,
+    resident_attention_plain_stats,
 )
 from msau_tpu_torch.utils.kernel_inputs import attention_inputs
 from msau_tpu_torch.utils.transplant import flax_to_torch
@@ -41,6 +47,42 @@ def test_resident_attention_matches_pallas(t, scale):
     got = resident_attention(*map(torch.from_numpy, (f, g, h)))
     assert got.dtype == torch.float32 and got.shape == (2, t, 64)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("t,scale", [(256, 1.0), (512, 1.0), (256, 6.0)])
+def test_resident_attention_backward_matches_pallas(t, scale):
+    """(df, dg, dh) through torch.autograd (the plain backward) against
+    jax.vjp of the Pallas pair, whose backward is _res_bwd_kernel."""
+    rng = np.random.default_rng(t + 1)
+    f, g, h = _inputs(t, 2, t, 8, 64, scale)
+    dout = rng.normal(size=(2, t, 64)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_resident(a, b, c, interpret=True),
+                     *map(jnp.asarray, (f, g, h)))
+    want = vjp(jnp.asarray(dout))
+    ft, gt, ht = (torch.from_numpy(a).requires_grad_() for a in (f, g, h))
+    resident_attention(ft, gt, ht).backward(torch.from_numpy(dout))
+    for got, w in zip((ft.grad, gt.grad, ht.grad), want):
+        w = np.asarray(w)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(w).max()))
+
+
+def test_bwd_plain_keeps_input_dtypes():
+    f, g, h = (torch.from_numpy(a).bfloat16() for a in _inputs(0, 1, 64, 8, 64))
+    _, m, l = resident_attention_plain_stats(f, g, h)
+    grads = resident_attention_bwd_plain(f, g, h, m, l, h)
+    assert [t.dtype for t in grads] == [torch.bfloat16] * 3
+    assert [t.shape for t in grads] == [f.shape, g.shape, h.shape]
+
+
+def test_plain_stats_are_row_max_and_sum_exp():
+    f, g, h = map(torch.from_numpy, _inputs(5, 1, 40, 8, 64))
+    out, m, l = resident_attention_plain_stats(f, g, h)
+    s = torch.einsum("nic,njc->nij", g, f)
+    torch.testing.assert_close(m, s.amax(-1))
+    torch.testing.assert_close(l, torch.exp(s - m[..., None]).sum(-1))
+    torch.testing.assert_close(out, resident_attention_plain(f, g, h), **TOL)
 
 
 def test_plain_keeps_h_dtype():
@@ -82,3 +124,32 @@ def test_cuda_wrapper_rejects_cpu_tensor():
     f, g, h = map(torch.from_numpy, _inputs(0, 1, 16, 8, 64))
     with pytest.raises(ValueError, match="CUDA"):
         resident_attention_cuda(f, g, h)
+
+
+def test_bwd_cuda_wrapper_rejects_cpu_tensor():
+    f, g, h = map(torch.from_numpy, _inputs(0, 1, 16, 8, 64))
+    m = l = torch.ones(1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        resident_attention_bwd_cuda(f, g, h, m, l, h)
+
+
+def test_self_attention_block_grads_match_flax():
+    """Parameter and input gradients of the block (projections + the
+    autograd attention op) against jax.grad of the flax block."""
+    x = np.random.default_rng(6).normal(size=(2, 16, 16, 64)).astype(np.float32)
+    w = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    jm = JaxSelfAttention(input_channels=64, impl="xla")
+    params = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    loss = lambda p, xx: jnp.sum(jm.apply(p, xx) * jnp.asarray(w))
+    jp, jx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    tm = SelfAttentionBlock(64, gen=torch.Generator().manual_seed(0))
+    tm.load_state_dict(flax_to_torch(jax.tree_util.tree_map(np.asarray,
+                                                            params)))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    (tm(xt).permute(0, 2, 3, 1) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(jx), rtol=1e-4, atol=1e-4)
+    want = flax_to_torch(jax.tree_util.tree_map(np.asarray, jp))
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)

@@ -55,6 +55,18 @@ def test_chargrid_programs_match(style, seed):
         o_rast.paint_boxes_numpy(b.line_id, hb, wb))
 
 
+@pytest.mark.parametrize("bs,hw,n_class,channels", [(2, 64, 17, 64),
+                                                    (3, 40, 5, 6)])
+def test_structured_batch_matches(bs, hw, n_class, channels):
+    a = synth.make_structured_batch(np.random.default_rng(0), bs, hw,
+                                    n_class, channels)
+    b = o_synth.make_structured_batch(np.random.default_rng(0), bs, hw,
+                                      n_class, channels)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
 def test_page_loaders_and_charset_match(tmp_path):
     p = os.path.join(FIX, "kv_sample.json")
     a, b = pages.load_label_json_page(p), o_pages.load_label_json_page(p)
@@ -121,6 +133,19 @@ def test_port_imports_without_jax():
             "import msau_tpu_torch.infer.kv_model; "
             "assert not any(m == 'jax' or m.startswith('jax.') or "
             "m.startswith('flax') for m in sys.modules if sys.modules[m])")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_train_path_imports_without_jax():
+    """The train path imports with JAX made unimportable."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import msau_tpu_torch.train.trainer; "
+            "assert not any(m == 'jax' or m.startswith('jax.') or "
+            "m.startswith('flax') or m.startswith('optax') "
+            "for m in sys.modules if sys.modules[m])")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)

@@ -7,7 +7,12 @@ card (which has none):
 
 Tolerances: paint and CCL are integer maps, exact; attention is f32 in the
 kernel, 1e-5 against the plain f32 einsum (sum order over T keys), and 2e-2
-for bf16 inputs (the output is rounded to bf16).
+for bf16 inputs (the output is rounded to bf16).  The attention backward's
+largest error, scaled by max(1, the largest |gradient|), is at most 1e-4 in
+f32 (sums over T = 4096 keys in another order, and rho cancels against
+h . dout) and 2e-2 for bf16 (rounded outputs).  The masked CE: ``correct``
+exact (sums of 0/1), ``ce_sum`` to rel 1e-5 (f32 sums in another order),
+dlogits to 1e-6 in f32 and 1e-2 in bf16 (one bf16 rounding of values <= 1).
 """
 
 import numpy as np
@@ -15,8 +20,17 @@ import pytest
 import torch
 
 from msau_tpu_torch.ops.attention import (
+    resident_attention_bwd_cuda,
+    resident_attention_bwd_plain,
     resident_attention_cuda,
     resident_attention_plain,
+    resident_attention_plain_stats,
+)
+from msau_tpu_torch.ops.ce_loss import (
+    masked_ce_bwd_cuda,
+    masked_ce_bwd_plain,
+    masked_ce_fwd_cuda,
+    masked_ce_fwd_plain,
 )
 from msau_tpu_torch.ops.ccl import (
     connected_components_multiclass_cuda,
@@ -26,6 +40,7 @@ from msau_tpu_torch.ops.paint import paint_boxes_cuda, paint_boxes_plain
 from msau_tpu_torch.utils.kernel_inputs import (
     attention_inputs,
     ccl_map,
+    ce_inputs,
     paint_program,
 )
 
@@ -71,3 +86,50 @@ def test_ccl_kernel_matches_plain(cuda, kind):
     got = connected_components_multiclass_cuda(t)
     torch.cuda.synchronize()
     assert torch.equal(got, connected_components_multiclass_plain(t))
+
+
+def _scaled_err(got, want):
+    want = want.double()
+    return float((got.double() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,dtype,tol", [(2, 4096, torch.float32, 1e-4),
+                                           (2, 4096, torch.bfloat16, 2e-2),
+                                           (3, 66, torch.float32, 1e-4)])
+def test_attention_bwd_kernel_matches_plain(cuda, n, t, dtype, tol):
+    rng = np.random.default_rng(t)
+    f, g, h = (torch.from_numpy(a).to(cuda, dtype)
+               for a in attention_inputs(rng, n, t, 8, 64))
+    dout = torch.from_numpy(rng.normal(size=(n, t, 64)).astype(np.float32)
+                            ).to(cuda, dtype)
+    _, m, l = resident_attention_plain_stats(f, g, h)
+    got = resident_attention_bwd_cuda(f, g, h, m, l, dout)
+    torch.cuda.synchronize()
+    want = resident_attention_bwd_plain(f, g, h, m, l, dout)
+    for name, a, b in zip(("df", "dg", "dh"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _scaled_err(a, b) <= tol, (name, _scaled_err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-2)])
+def test_masked_ce_kernels_match_plain(cuda, dtype, tol):
+    logits, labels, maskf = (
+        torch.from_numpy(a).to(cuda) for a in
+        ce_inputs(np.random.default_rng(0), 4, 17, 128 * 128,
+                  out_of_range=True))
+    logits = logits.to(dtype)
+    s, c = masked_ce_fwd_cuda(logits, labels, maskf)
+    torch.cuda.synchronize()
+    ps, pc = masked_ce_fwd_plain(logits, labels, maskf)
+    assert float(c) == float(pc)
+    assert abs(float(s) - float(ps)) <= 1e-5 * abs(float(ps))
+    g = torch.tensor(0.37, device=cuda)
+    dl = masked_ce_bwd_cuda(logits, labels, maskf, g)
+    torch.cuda.synchronize()
+    want = masked_ce_bwd_plain(logits, labels, maskf, g)
+    assert dl.dtype == dtype
+    assert float((dl.double() - want.double()).abs().max()) <= tol

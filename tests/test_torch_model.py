@@ -1,8 +1,10 @@
 """MSAU model parity: the port's MSAUWrapper against the flax MSAUWrapper on
-the CPU, same weights (bridged from the flax init) and same numpy input.
+the CPU, same weights (bridged from the flax init) and same numpy input;
+and the port's compute-dtype and logits-layout contract.
 
 Tolerance: atol 1e-4 on logits/aux/probs — f32 on both sides; the residue
 is summation order across ~40 convs (CPU conv kernels of two frameworks).
+The dtype check is exact, and so are the layout check's logits.
 """
 
 import jax
@@ -82,3 +84,43 @@ def test_unported_options_raise(field, value):
     cfg = ModelConfig(**{**CFG, field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, torch.Generator().manual_seed(0))
+
+
+def test_bf16_config_casts_f32_params_at_use():
+    """A bf16 config with f32 parameters computes exactly what the same
+    model cast to bf16 computes (flax dtype semantics), and its gradients
+    are f32."""
+    cfg = ModelConfig(**{**CFG, "dtype": "bfloat16"})
+    m = build_model(cfg, torch.Generator().manual_seed(0))
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+    cast = build_model(cfg, torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(1, 32, 24, 6)).astype(np.float32))
+    outs = m(x)
+    with torch.no_grad():
+        want = cast(x)
+    for a, b in zip(outs, want):
+        assert a.dtype == torch.float32
+        assert torch.equal(a.detach(), b)
+    outs[1].square().mean().backward()
+    # the last stage's attention feeds nothing, so it alone has no gradient
+    grads = [p.grad for n, p in m.named_parameters()
+             if ".block_1.down.attention_" not in n]
+    assert all(g is not None and g.dtype == torch.float32 for g in grads)
+
+
+def test_logits_layout(models):
+    _, _, tm = models
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 20, 28, 6)).astype(np.float32))
+    with torch.no_grad():
+        nhwc = tm(x)
+        nchw = tm(x, logits_layout="NCHW")
+    # logits are the same tensor permuted; softmax along a strided axis may
+    # sum in another order
+    assert torch.equal(nhwc[1], nchw[1].permute(0, 2, 3, 1))
+    assert torch.equal(nhwc[2], nchw[2].permute(0, 2, 3, 1))
+    torch.testing.assert_close(nhwc[0], nchw[0].permute(0, 2, 3, 1),
+                               rtol=1e-6, atol=1e-7)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm(x, logits_layout="BODY")
