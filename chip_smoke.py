@@ -21,22 +21,37 @@ Phases, in order; any failure raises and the exit code is non-zero:
        masked CE  fwd and bwd on [16, 17, 512^2] f32 and bf16 logits with
                   label-0 pixels and a masked-out band: correct exact,
                   ce_sum rel 1e-5, dlogits 1e-6 (f32) / 1e-2 (bf16);
+     and the flat-layout forward kernels (entry layout, max pool, conv with
+     its fused epilogue, concat 1x1, stride-2 deconv, fused residual block)
+     on every case of utils/flat_cases.py: each instance the flagship's
+     flat_scales=3 request runs, and ragged shapes (odd sizes, an image
+     smaller than a tile), in f32 (1e-5 of max(1, max |want|)) and bf16
+     (2e-2 of it), layout and pool exact; the conv and the residual block
+     also timed at batch 16;
   2. the serve path, KVModel.predict, of the flagship model (img_channels 64,
-     17 classes, 4 scales, feat_root 8, res_depth 2, 3 stages, flat_scales
-     0) with seeded random weights on the 512^2 bench page: warm-up, then 5
-     requests in f32 and 5 in bf16 with the launch counters reset just
-     before.  Checks: each kernel launched 3 / 3 / 1 times per request; the
-     decode tables equal the same pipeline's with the plain versions (CPU)
-     on the same probabilities; the f32 forward agrees with the CPU forward
-     on a small input; p50 of each predict stage;
-  3. the train path: the same model through Trainer.init_state and its
+     17 classes, 4 scales, feat_root 8, res_depth 2, 3 stages) at
+     flat_scales 0 and 3, f32 and bf16, with the same seeded random weights
+     on the 512^2 bench page: warm-up, then 5 requests per model with the
+     launch counters reset just before and read just after.  Checks: the
+     launches per request (paint 3, attention 3, CCL 1; at flat_scales 3
+     also conv 21, residual block 18, concat 1x1 12, deconv 9, pool 9,
+     entry layout 1); the decode tables equal the same pipeline's with the
+     plain versions (CPU) on the same probabilities; at 64x64 the f32
+     forwards at flat_scales 0 and 3 on the card and on the CPU agree to
+     1e-4; the bf16 flat_scales 3 probabilities lie from the bf16
+     flat_scales 0 ones at most 2.5 times as far (mean abs) as those lie
+     from their f32 counterparts; p50 of each predict stage, flat_scales 0
+     and 3 side by side;
+  3. the train path (flat_scales 0: the flat ops have no backward yet):
+     the same model through Trainer.init_state and its
      train step (masked CE, Adam lr 1e-4, clip 1.0) at batch 16, 512^2, on
      the bench's structured batch, bf16 activations with f32 parameters,
      then f32: 2 warm-up steps, then 10 timed steps with the launch
      counters reset just before (img/s, ms/step, peak memory).  Checks: per
      step exactly 3 attention forwards, 2 attention backwards (the last
      stage's attention output feeds nothing, so autograd runs no backward
-     for it), 2 CE forwards and 2 CE backwards; the loss finite, and below
+     for it), 2 CE forwards and 2 CE backwards, and no flat-layout kernel;
+     the loss finite, and below
      its first value after 20 bf16 steps; and one f32 step at 128^2, batch
      2, on the card against the CPU (plain versions) from the same weights:
      loss rel 1e-5, grad_norm rel 1e-4, each parameter's gradient within
@@ -304,8 +319,117 @@ def check_train_kernels(dev):
     return out
 
 
+# kernel -> (its source, the TPU kernel it replaces) for the flat-layout ops
+FLAT_KERNELS = {
+    "to_nchw": ("msau_tpu_torch/csrc/layout.cu",
+                "msau_tpu/ops/flatconv.py:2394"),
+    "flat_maxpool2": ("msau_tpu_torch/csrc/pool.cu",
+                      "msau_tpu/ops/flatconv.py:1862"),
+    "flat_conv2d": ("msau_tpu_torch/csrc/flatconv.cu",
+                    "msau_tpu/ops/flatconv.py:472"),
+    "concat_conv1x1": ("msau_tpu_torch/csrc/flatconv.cu",
+                       "msau_tpu/ops/flatconv.py:2083"),
+    "flat_deconv2": ("msau_tpu_torch/csrc/deconv.cu",
+                     "msau_tpu/ops/flatconv.py:1396"),
+    "flat_res_block": ("msau_tpu_torch/csrc/flatres.cu",
+                       "msau_tpu/ops/flatres.py:400"),
+}
+FLAT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of max(1, max |want|)
+TIMED_BATCH = 16   # the flagship train step's batch: K1 and K2 timed there
+
+
+def check_flat_kernels(dev):
+    """Phase 1, the flat-layout kernels on every ``FLAT_CASES`` entry in
+    f32 and bf16 -> {kernel: {max_abs_err, ms, plain_ms, cases, ...}}.
+    ``ms`` / ``plain_ms``: f32, the op's first (largest) serve case;
+    ``request_ms``: the sum over one request's instances, per dtype."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.utils.flat_cases import (
+        FLAT_CASES,
+        flat_case_fns,
+        flat_case_tensors,
+    )
+
+    out = {name: {"max_abs_err": 0.0, "cases": {}, "request_ms": {},
+                  "request_plain_ms": {}, "batch16": {}}
+           for name in FLAT_KERNELS}
+    for case in FLAT_CASES:
+        rec, report = out[case["op"]], []
+        exact = case["op"] in ("to_nchw", "flat_maxpool2")
+        for key, tol in FLAT_TOL.items():
+            dtype = getattr(torch, key)
+            tensors = flat_case_tensors(case, np.random.default_rng(11), dev,
+                                        dtype)
+            kernel, plain = flat_case_fns(case, tensors, dtype)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err, scaled = _max_abs(got, want), _scaled_err(got, want)
+            if (got.dtype != dtype or got.shape != want.shape
+                    or (err if exact else scaled > tol)):
+                raise AssertionError(
+                    f"{case['op']} {case['name']} {key}: max abs err {err} "
+                    f"(scaled {scaled}, tol {0 if exact else tol})")
+            entry = {"max_abs_err": err, "scaled_err": scaled,
+                     "tol": 0 if exact else tol}
+            msg = f"{key} err {err:.3e}"
+            if case["per_request"]:
+                entry["ms"] = _cuda_ms(kernel, 20)
+                entry["plain_ms"] = _cuda_ms(plain, 10)
+                for field, ms in (("request_ms", entry["ms"]),
+                                  ("request_plain_ms", entry["plain_ms"])):
+                    rec[field][key] = (rec[field].get(key, 0.0)
+                                       + case["per_request"] * ms)
+                if "ms" not in rec and key == "float32":
+                    rec["ms"], rec["plain_ms"] = entry["ms"], entry["plain_ms"]
+                msg += f", {entry['ms']:.4f} ms vs plain {entry['plain_ms']:.4f}"
+            if key == "float32":
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["cases"][f"{case['name']} {key}"] = entry
+            report.append(msg)
+            del tensors, got, want
+        print(f"[phase 1] {case['op']} {case['name']}: " + "; ".join(report),
+              flush=True)
+    for case in FLAT_CASES:
+        if case["op"] not in ("flat_conv2d", "flat_res_block") \
+                or not case["per_request"]:
+            continue
+        for key in FLAT_TOL:
+            dtype = getattr(torch, key)
+            tensors = flat_case_tensors(case, np.random.default_rng(12), dev,
+                                        dtype, n=TIMED_BATCH)
+            kernel, plain = flat_case_fns(case, tensors, dtype)
+            t = {"ms": _cuda_ms(kernel, 10), "plain_ms": _cuda_ms(plain, 5)}
+            out[case["op"]]["batch16"][f"{case['name']} {key}"] = t
+            print(f"[phase 1] {case['op']} {case['name']} {key} batch "
+                  f"{TIMED_BATCH}: {t['ms']:.4f} ms vs plain "
+                  f"{t['plain_ms']:.4f}", flush=True)
+            del tensors
+    for name, rec in out.items():
+        print(f"[phase 1] {name} per request ms: {json.dumps(rec['request_ms'])}"
+              f" vs plain {json.dumps(rec['request_plain_ms'])}", flush=True)
+    return out
+
+
+# kernel launches per request of the flagship's serve path at each
+# flat_scales; every other kernel launches no time
+SERVE_PER_REQUEST = {
+    0: {"paint": 3, "resident_attention_fwd": 3, "ccl_multiclass": 1},
+    3: {"paint": 3, "resident_attention_fwd": 3, "ccl_multiclass": 1,
+        "flat_conv2d": 21, "flat_res_block": 18, "concat_conv1x1": 12,
+        "flat_deconv2": 9, "flat_maxpool2": 9, "to_nchw": 1},
+}
+# bf16 flat_scales 3 probabilities against bf16 flat_scales 0: each bf16
+# path rounds the same f32 function at other places, so their mean
+# distance may be at most this many times the unfused path's own mean
+# distance from f32
+BF16_FLAT_FACTOR = 2.5
+
+
 def serve_path(dev):
-    """Phase 2 -> (launch counts, per-dtype stage p50s, checks)."""
+    """Phase 2 -> (launch counts, stage p50s by model, checks)."""
     import numpy as np
     import torch
 
@@ -320,47 +444,55 @@ def serve_path(dev):
     from msau_tpu_torch.models.msau import build_model
 
     base = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
-                feat_root=8, num_blocks=3, final_act="softmax", flat_scales=0)
+                feat_root=8, num_blocks=3, final_act="softmax")
     page = page_from_label_dict(
         make_page(np.random.default_rng(3), n_cols=5, rows_per_col=10))
     models = {}
-    for dtype in ("float32", "bfloat16"):
-        kv = KVModel(model_config=ModelConfig(**base, dtype=dtype),
-                     infer_config=InferConfig(n_class=17), device=dev)
-        kv.charset = Charset(chars=" $" + BENCH_CHARSET)
-        assert kv.charset.n_token == 64
-        kv.load(n_class=17, generator=torch.Generator().manual_seed(0))
-        kv.warmup_bucket(512)
-        kv.predict(page, return_maps=False)   # the bench page once, unmeasured
-        models[dtype] = kv
+    for fs in SERVE_PER_REQUEST:
+        for dtype in ("float32", "bfloat16"):
+            kv = KVModel(model_config=ModelConfig(**base, flat_scales=fs,
+                                                  dtype=dtype),
+                         infer_config=InferConfig(n_class=17), device=dev)
+            kv.charset = Charset(chars=" $" + BENCH_CHARSET)
+            assert kv.charset.n_token == 64
+            # the same seed draws the same weights at every flat_scales
+            kv.load(n_class=17, generator=torch.Generator().manual_seed(0))
+            kv.warmup_bucket(512)
+            kv.predict(page, return_maps=False)   # the bench page, unmeasured
+            models[(fs, dtype)] = kv
 
     n_req = 5
-    ops.reset_launch_counts()
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
     timings = {}
-    for dtype, kv in models.items():
+    for (fs, dtype), kv in models.items():
         rows = []
+        ops.reset_launch_counts()
         for _ in range(n_req):
             t = {}
             kv.predict(page, return_maps=False, timings=t)
             rows.append(t)
-        timings[dtype] = {k: float(np.median([r[k] for r in rows]))
-                          for k in ("prep", "device", "strings")}
-    counts = ops.launch_counts()
-    per_req = {"paint": 3, "resident_attention_fwd": 3, "ccl_multiclass": 1}
-    for name, n in per_req.items():
-        want = n * n_req * len(models)
-        if counts[name] != want:
-            raise AssertionError(f"{name}: {counts[name]} launches in "
-                                 f"{n_req * len(models)} requests, want {want}")
-    print(f"[phase 2] launches over {n_req * len(models)} requests: {counts}",
-          flush=True)
-    for dtype, t in timings.items():
-        print(f"[phase 2] {dtype} predict p50 ms: " +
-              ", ".join(f"{k} {v:.3f}" for k, v in t.items()), flush=True)
+        counts = ops.launch_counts()
+        for name, n in counts.items():
+            want = SERVE_PER_REQUEST[fs].get(name, 0) * n_req
+            if n != want:
+                raise AssertionError(f"fs={fs} {dtype}: {name} launched {n} "
+                                     f"times in {n_req} requests, want {want}")
+            total[name] += n
+        timings[f"fs{fs}_{dtype}"] = {
+            k: float(np.median([r[k] for r in rows]))
+            for k in ("prep", "device", "strings")}
+        print(f"[phase 2] fs={fs} {dtype}: launches per request "
+              f"{ {k: v / n_req for k, v in counts.items() if v} }", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        print(f"[phase 2] {dtype} predict p50 ms: " + " | ".join(
+            f"fs={fs} " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    timings[f"fs{fs}_{dtype}"].items())
+            for fs in SERVE_PER_REQUEST), flush=True)
 
     # ---- correctness of what comes out -----------------------------------
-    checks = {}
-    for dtype, kv in models.items():
+    checks, probs_of = {}, {}
+    for (fs, dtype), kv in models.items():
+        key = f"fs{fs}_{dtype}"
         res, extras = kv.predict(page, return_maps=True)
         probs = extras["pred"]
         progs = extras["programs"]
@@ -368,6 +500,7 @@ def serve_path(dev):
         assert probs.shape == (hb, wb, 17), probs.shape
         assert torch.isfinite(probs).all()
         assert torch.allclose(probs.sum(-1), torch.ones((), device=dev), atol=1e-4)
+        probs_of[(fs, dtype)] = probs.float()
         num_lines = -(-max(len(extras["scaled_lines"]), 1) // 128) * 128
         planes = {}
         for name in ("line_id", "char_id"):
@@ -389,30 +522,59 @@ def serve_path(dev):
         assert torch.equal(card["chosen_class"].cpu(), host["chosen_class"])
         assert torch.equal(card["chosen_class"], extras["chosen_class"])
         if not same:
-            raise AssertionError(f"{dtype}: decode tables differ from the "
+            raise AssertionError(f"{key}: decode tables differ from the "
                                  "plain-version pipeline")
-        checks[dtype] = {"decode_tables_equal_plain": True,
-                         "active_fields": int(card["active"].sum()),
-                         "n_results": len(res)}
-        print(f"[phase 2] {dtype}: decode tables equal the plain pipeline's; "
-              f"{checks[dtype]['active_fields']} active classes", flush=True)
+        checks[key] = {"decode_tables_equal_plain": True,
+                       "active_fields": int(card["active"].sum()),
+                       "n_results": len(res)}
+        print(f"[phase 2] {key}: decode tables equal the plain pipeline's; "
+              f"{checks[key]['active_fields']} active classes", flush=True)
 
-    # the f32 forward against the same model on the CPU, small input
-    kv = models["float32"]
-    cpu_model = build_model(kv.model_config, torch.Generator().manual_seed(0)).eval()
-    cpu_model.load_state_dict({k: v.cpu() for k, v in kv.model.state_dict().items()})
+    # f32 at 512^2: flat_scales 3 against 0 (reported), and at 64x64 the
+    # card's fs=0 and fs=3 forwards against each other and against the CPU
+    p = probs_of
+    err = _max_abs(p[(3, "float32")], p[(0, "float32")])
+    checks["probs_f32_fs3_vs_fs0_512_max_abs_err"] = err
+    print(f"[phase 2] f32 probs at 512^2, fs=3 vs fs=0: max abs err {err:.3e}",
+          flush=True)
     ids = np.random.default_rng(1).integers(0, 64, (1, 64, 64))
     x = torch.from_numpy(np.eye(64, dtype=np.float32)[ids])
-    with torch.inference_mode():
-        p_card = kv.model(x.to(dev))[0].cpu()
-        p_cpu = cpu_model(x)[0]
-    err = _max_abs(p_card, p_cpu)
-    if err > 1e-4:
-        raise AssertionError(f"f32 forward card vs CPU: max abs err {err}")
-    checks["forward_f32_vs_cpu_64x64_max_abs_err"] = err
-    print(f"[phase 2] f32 forward card vs CPU at 64x64: max abs err {err:.3e}",
+    small = {}
+    for fs in SERVE_PER_REQUEST:
+        kv = models[(fs, "float32")]
+        cpu_model = build_model(kv.model_config,
+                                torch.Generator().manual_seed(0)).eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   kv.model.state_dict().items()})
+        with torch.inference_mode():
+            small[(fs, "card")] = kv.model(x.to(dev))[0].cpu()
+            small[(fs, "cpu")] = cpu_model(x)[0]
+    for name, a, b in (("fs0_card_vs_cpu", (0, "card"), (0, "cpu")),
+                       ("fs3_card_vs_cpu", (3, "card"), (3, "cpu")),
+                       ("fs3_vs_fs0_card", (3, "card"), (0, "card"))):
+        err = _max_abs(small[a], small[b])
+        if err > 1e-4:
+            raise AssertionError(f"f32 forward at 64x64, {name}: max abs err "
+                                 f"{err}")
+        checks[f"forward_f32_64x64_{name}_max_abs_err"] = err
+        print(f"[phase 2] f32 forward at 64x64, {name}: max abs err {err:.3e}",
+              flush=True)
+    # bf16 flat_scales 3 against the port's own bf16 flat_scales 0
+    mean = lambda a, b: float((a - b).abs().mean())
+    d_flat = mean(p[(3, "bfloat16")], p[(0, "bfloat16")])
+    d_ref = mean(p[(0, "bfloat16")], p[(0, "float32")])
+    bf = {"mean_abs_fs3_vs_fs0": d_flat,
+          "max_abs_fs3_vs_fs0": _max_abs(p[(3, "bfloat16")], p[(0, "bfloat16")]),
+          "mean_abs_fs0_bf16_vs_f32": d_ref,
+          "mean_abs_fs3_bf16_vs_f32": mean(p[(3, "bfloat16")], p[(3, "float32")]),
+          "tol": BF16_FLAT_FACTOR * d_ref}
+    checks["probs_bf16_fs3_vs_fs0_512"] = bf
+    print(f"[phase 2] bf16 probs at 512^2, fs=3 vs fs=0: {json.dumps(bf)}",
           flush=True)
-    return counts, timings, checks
+    if not d_flat <= bf["tol"]:
+        raise AssertionError(f"bf16 fs=3 vs fs=0 probs: mean abs {d_flat} > "
+                             f"{bf['tol']}")
+    return total, timings, checks
 
 
 FLAGSHIP = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
@@ -422,7 +584,7 @@ FLAGSHIP = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
 # nothing, so autograd runs its forward but no backward
 PER_STEP = {"resident_attention_fwd": 3, "resident_attention_bwd": 2,
             "masked_ce_fwd": 2, "masked_ce_bwd": 2, "paint": 0,
-            "ccl_multiclass": 0}
+            "ccl_multiclass": 0, **{name: 0 for name in FLAT_KERNELS}}
 TRAIN_BATCH = (16, 512)  # images per step, side
 CHECK_BATCH = (2, 128)   # the card-vs-CPU step
 
@@ -591,6 +753,7 @@ def main() -> int:
 
     kernels = check_kernels(dev, bench_progs)
     kernels.update(check_train_kernels(dev))
+    kernels.update(check_flat_kernels(dev))
     counts, timings, checks = serve_path(dev)
     train_counts, train = train_path(dev)
     checks["train_step_card_vs_cpu"] = train_step_check(dev)
@@ -611,6 +774,7 @@ def main() -> int:
                           "msau_tpu/ops/ce_loss.py:39"),
         "masked_ce_bwd": ("msau_tpu_torch/csrc/ce_loss.cu",
                           "msau_tpu/ops/ce_loss.py:61"),
+        **FLAT_KERNELS,
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -37,4 +37,31 @@ __device__ __forceinline__ void load_row(float (&dst)[N], const float* src) {
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
+// Activation codes of the flat-layout kernels: 0 none, 1 relu, 2 elu
+// (jax.nn.elu / torch F.elu: expm1 below 0).
+enum Act { kActNone = 0, kActRelu = 1, kActElu = 2 };
+
+__device__ __forceinline__ float apply_act(float v, int act) {
+  if (act == kActRelu) return fmaxf(v, 0.f);
+  if (act == kActElu) return v > 0.f ? v : expm1f(v);
+  return v;
+}
+
+// x rounded to the storage type T and back (identity for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel;
+// returns the cudaError of the attribute call (0 when none was needed).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 }  // namespace msau

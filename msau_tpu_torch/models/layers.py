@@ -23,6 +23,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from msau_tpu_torch.ops.flatconv import (
+    concat_conv1x1,
+    flat_conv2d,
+    flat_deconv2,
+    local_response_norm,
+    same_padding,
+)
+from msau_tpu_torch.ops.flatres import FUSED_CHANNELS, flat_res_block
+
 
 def tf_conv_std(kh: int, kw: int, cin: int, cout: int) -> float:
     """stddev = sqrt(2 / (kh*kw*cin + cout)) — reference initOpt=0."""
@@ -43,28 +52,6 @@ def get_activation(name: Optional[str]) -> Optional[Callable]:
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
         "identity": lambda x: x,
     }[name]
-
-
-def same_padding(k: int, dilation: int = 1) -> Tuple[int, int]:
-    """TF-SAME (lo, hi) padding of a stride-1 conv; extra pixel at hi."""
-    total = (k - 1) * dilation
-    return total // 2, total - total // 2
-
-
-def local_response_norm(x: torch.Tensor, size: int, alpha: float = 1e-4,
-                        beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
-    """torch.nn.LocalResponseNorm semantics over the channel axis (dim 1).
-
-    The windowed channel sum is one contraction with a [C, C] band matrix,
-    in f32 whatever the input dtype (F.local_response_norm's avg_pool3d has
-    no bf16 CPU kernel)."""
-    c = x.shape[1]
-    ci = torch.arange(c, device=x.device)
-    band = ((ci[:, None] >= ci[None, :] - size // 2)
-            & (ci[:, None] <= ci[None, :] + (size - 1) // 2)).float()
-    xf = x.float()
-    win = torch.einsum("nchw,cd->ndhw", xf * xf, band)
-    return (xf / torch.pow(k + (alpha / size) * win, beta)).to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -104,19 +91,36 @@ class Conv(nn.Module):
 
 class ConvBnLrnDrop(nn.Module):
     """Stride-1 TF-SAME conv + optional act / LRN (reference
-    ``Conv2dBnLrnDrop``; serving has no BatchNorm or dropout)."""
+    ``Conv2dBnLrnDrop``; serving has no BatchNorm or dropout).
+
+    ``flat`` (a scale below ``flat_scales``) runs the whole layer as one
+    flat-layout op with the act and LRN fused (``ops.flatconv``): a pair of
+    inputs (a, b), taken as their channel concat, then never materializes
+    it, and a 1x1 conv of a pair is the concat 1x1 coupling op."""
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  activation: Optional[str] = "relu", use_lrn: bool = False,
-                 *, gen: torch.Generator, rate: int = 1):
+                 *, gen: torch.Generator, rate: int = 1, flat: bool = False):
         super().__init__()
         self.Conv_0 = Conv(cin, features, tuple(kernel_size), gen)
         self.activation = activation
         self.use_lrn = use_lrn
         self.rate = rate
         self.features = features
+        self.flat = flat
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
+        """``x``: [N, C, H, W] or a pair of them concatenated on channels."""
+        if self.flat:
+            w, b = self.Conv_0.weight, self.Conv_0.bias
+            if (isinstance(x, tuple) and tuple(w.shape[-2:]) == (1, 1)
+                    and not self.use_lrn):
+                return concat_conv1x1(*x, w, b, act=self.activation)
+            return flat_conv2d(x, w, b, dilation=self.rate,
+                               act=self.activation,
+                               lrn_size=self.features if self.use_lrn else 0)
+        if isinstance(x, tuple):
+            x = torch.cat(x, dim=1)
         y = self.Conv_0(x, dilation=self.rate)
         act = get_activation(self.activation)
         if act is not None:
@@ -132,9 +136,10 @@ class DilConvBnLrnDrop(ConvBnLrnDrop):
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  rate: int = 1, activation: Optional[str] = "relu",
-                 use_lrn: bool = True, *, gen: torch.Generator):
+                 use_lrn: bool = True, *, gen: torch.Generator,
+                 flat: bool = False):
         super().__init__(cin, features, kernel_size, activation, use_lrn,
-                         gen=gen, rate=rate)
+                         gen=gen, rate=rate, flat=flat)
 
 
 class DeconvBnLrnDrop(nn.Module):
@@ -142,12 +147,17 @@ class DeconvBnLrnDrop(nn.Module):
     torch ``ConvTranspose2d(stride=s, padding=k//2)`` with
     ``output_padding = target - base`` per dim (reference
     ``Deconv2DBnLrnDrop``).  ``weight`` is torch's [in, out, kh, kw]; the
-    flax kernel is its spatial flip in HWIO (``utils.transplant``)."""
+    flax kernel is its spatial flip in HWIO (``utils.transplant``).
+    ``flat`` runs the transposed conv as the flat-layout op
+    (``ops.flatconv.flat_deconv2``, stride 2)."""
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  stride: int = 2, activation: Optional[str] = None,
-                 use_lrn: bool = False, *, gen: torch.Generator):
+                 use_lrn: bool = False, *, gen: torch.Generator,
+                 flat: bool = False):
         super().__init__()
+        if flat and stride != 2:
+            raise ValueError(f"the flat deconv has stride 2, not {stride}")
         kh, kw = kernel_size
         # reference stddev uses kernel_shape=[kh, kw, out, in]
         std = tf_conv_std(kh, kw, features, cin)
@@ -157,21 +167,25 @@ class DeconvBnLrnDrop(nn.Module):
         self.activation = activation
         self.use_lrn = use_lrn
         self.features = features
+        self.flat = flat
 
     def forward(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
-        kh, kw = self.weight.shape[-2:]
-        s = self.stride
-        ph, pw = kh // 2, kw // 2
-        h, w = x.shape[-2:]
-        oph = target_hw[0] - ((h - 1) * s - 2 * ph + kh)
-        opw = target_hw[1] - ((w - 1) * s - 2 * pw + kw)
-        if not (0 <= oph < s and 0 <= opw < s):
-            raise ValueError(f"target {tuple(target_hw)} unreachable from "
-                             f"{(h, w)} with stride {s}")
-        # parameters cast to the activation dtype at use, as in Conv
-        y = F.conv_transpose2d(x, self.weight.to(x.dtype),
-                               self.bias.to(x.dtype), stride=s,
-                               padding=(ph, pw), output_padding=(oph, opw))
+        if self.flat:
+            y = flat_deconv2(x, self.weight, self.bias, target_hw)
+        else:
+            kh, kw = self.weight.shape[-2:]
+            s = self.stride
+            ph, pw = kh // 2, kw // 2
+            h, w = x.shape[-2:]
+            oph = target_hw[0] - ((h - 1) * s - 2 * ph + kh)
+            opw = target_hw[1] - ((w - 1) * s - 2 * pw + kw)
+            if not (0 <= oph < s and 0 <= opw < s):
+                raise ValueError(f"target {tuple(target_hw)} unreachable from "
+                                 f"{(h, w)} with stride {s}")
+            # parameters cast to the activation dtype at use, as in Conv
+            y = F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                   self.bias.to(x.dtype), stride=s,
+                                   padding=(ph, pw), output_padding=(oph, opw))
         act = get_activation(self.activation)
         if act is not None:
             y = act(y)
@@ -182,20 +196,30 @@ class DeconvBnLrnDrop(nn.Module):
 
 class MultiConvResidualBlock(nn.Module):
     """relu(x) -> res_depth convs (last without activation) -> +x -> act
-    (reference ``MultiConvResidualBlock``)."""
+    (reference ``MultiConvResidualBlock``).  ``flat`` runs the flagship
+    shape (depth 2, 3x3, relu or elu, a channel count the kernel takes) as
+    one fused op (``ops.flatres``) and any other as flat convs."""
 
     def __init__(self, channels: int, res_depth: int, filter_size: int,
-                 activation: str = "relu", *, gen: torch.Generator):
+                 activation: str = "relu", *, gen: torch.Generator,
+                 flat: bool = False):
         super().__init__()
         self.res_depth = res_depth
         self.activation = activation
+        self.fused = (flat and res_depth == 2 and filter_size == 3
+                      and activation in ("relu", "elu")
+                      and channels in FUSED_CHANNELS)
         k = (filter_size, filter_size)
         for i in range(res_depth):
             act = activation if i < res_depth - 1 else None
             self.add_module(f"ConvBnLrnDrop_{i}", ConvBnLrnDrop(
-                channels, channels, k, activation=act, gen=gen))
+                channels, channels, k, activation=act, gen=gen, flat=flat))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            c1, c2 = self.ConvBnLrnDrop_0.Conv_0, self.ConvBnLrnDrop_1.Conv_0
+            return flat_res_block(x, c1.weight, c1.bias, c2.weight, c2.bias,
+                                  self.activation)
         y = F.relu(x)
         for i in range(self.res_depth):
             y = getattr(self, f"ConvBnLrnDrop_{i}")(y)

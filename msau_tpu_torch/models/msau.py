@@ -1,5 +1,5 @@
 """Multi-Stage Attention U-Net (MSAU) in PyTorch — port of
-``msau_tpu.models.msau`` on its all-NHWC path (``flat_scales=0``).
+``msau_tpu.models.msau``.
 
   * ``num_blocks`` coupled attention U-Net stages.  Stage 0 takes the
     chargrid; stages 1..n take the previous stage's n_class map.
@@ -18,6 +18,14 @@ Modules work in NCHW; the public forward takes NHWC input and returns
 ``(probs, logits, aux)`` like ``MSAUWrapper``, NHWC or NCHW
 (``logits_layout``).  Module names follow the flax tree
 (``net.block_{b}.down.dil_conv_{l}.Conv_0``, ...).
+
+``flat_scales`` = fs > 0 runs the scales below fs, and the end convs,
+through the flat-layout forward ops (``ops.flatconv``, ``ops.flatres``: a
+hand-written CUDA kernel each on a card) as the JAX package runs them
+through its Pallas kernels; the deepest scale keeps torch convs and the
+resident attention.  The tensors stay NCHW at every scale and the parameter
+tree is the same for every fs.  Those ops have no backward yet, so fs > 0
+serves and evaluates but does not train.
 
 Compute dtype follows flax's ``dtype=``: the input is cast to
 ``config.dtype`` and every layer casts its (f32) parameters to the
@@ -45,15 +53,19 @@ from msau_tpu_torch.models.layers import (
     DilConvBnLrnDrop,
     MultiConvResidualBlock,
 )
+from msau_tpu_torch.ops.flatconv import flat_maxpool2, to_nchw
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configurations the port lacks yet."""
-    if cfg.flat_scales > 0:
-        raise NotImplementedError(
-            "flat_scales > 0: the flat-layout convs are TPU kernels K1-K3 and "
-            "K6-K8, not yet ported (ROADMAP Queue 2); use flat_scales=0, the "
-            "same model and parameter tree")
+    """Raise NotImplementedError for configurations the port lacks yet,
+    ValueError for ones the model does not define."""
+    if not 0 <= cfg.flat_scales <= cfg.scale_space_num - 1:
+        raise ValueError(
+            f"flat_scales {cfg.flat_scales} out of [0, scale_space_num - 1]: "
+            "the deepest (attention) scale is never flat")
+    if cfg.flat_scales > 0 and cfg.pool_size != 2:
+        raise ValueError("flat_scales > 0 needs pool_size 2 (the flat pool "
+                         "and deconv are 2x2, stride 2)")
     if cfg.spatial_shards > 1:
         raise NotImplementedError(
             "spatial_shards > 1: spatial sharding is ROADMAP Queue 1 item 13")
@@ -83,15 +95,17 @@ class DownSamplingUNetBlock(nn.Module):
         S, k, pool = cfg.scale_space_num, cfg.filter_size, cfg.pool_size
         feats, c_in = cfg.feat_root, cin
         for layer in range(S):
+            flat = layer < cfg.flat_scales
             self.add_module(f"dil_conv_{layer}", DilConvBnLrnDrop(
                 c_in, feats, (k, k), rate=pool ** layer, activation=None,
-                use_lrn=cfg.use_lrn, gen=gen))
+                use_lrn=cfg.use_lrn, gen=gen, flat=flat))
             self.add_module(f"res_block_{layer}", MultiConvResidualBlock(
-                feats, cfg.res_depth, k, cfg.activation_name, gen=gen))
+                feats, cfg.res_depth, k, cfg.activation_name, gen=gen,
+                flat=flat))
             if coupled:
                 self.add_module(f"couple_conv_{layer}", ConvBnLrnDrop(
                     2 * feats, feats, (1, 1), activation=cfg.activation_name,
-                    gen=gen))
+                    gen=gen, flat=flat))
             if layer == S - 1:
                 self.add_module(f"attention_{layer}",
                                 SelfAttentionBlock(feats, gen=gen))
@@ -105,14 +119,14 @@ class DownSamplingUNetBlock(nn.Module):
             y = getattr(self, f"dil_conv_{layer}")(x)
             y = getattr(self, f"res_block_{layer}")(y)
             if self.coupled:
-                y = getattr(self, f"couple_conv_{layer}")(
-                    torch.cat([prev[layer], y], dim=1))
+                y = getattr(self, f"couple_conv_{layer}")((prev[layer], y))
             if layer == S - 1:
                 dw_h_convs.append(getattr(self, f"attention_{layer}")(y))
                 x = y
             else:
                 dw_h_convs.append(y)
-                x = _maxpool_same(y, self.cfg.pool_size)
+                x = (flat_maxpool2(y) if layer < self.cfg.flat_scales
+                     else _maxpool_same(y, self.cfg.pool_size))
         return dw_h_convs, x
 
 
@@ -124,16 +138,19 @@ class UpSamplingUNetBlock(nn.Module):
         k, pool = cfg.filter_size, cfg.pool_size
         for layer in range(cfg.scale_space_num - 2, -1, -1):
             feats = cfg.feat_root * pool ** layer
+            flat = layer < cfg.flat_scales
             self.add_module(f"deconv_{layer}", DeconvBnLrnDrop(
-                feats * pool, feats, (k, k), stride=pool, gen=gen))
+                feats * pool, feats, (k, k), stride=pool, gen=gen, flat=flat))
             self.add_module(f"merge_conv_{layer}", ConvBnLrnDrop(
-                2 * feats, feats, (k, k), activation=None, gen=gen))
+                2 * feats, feats, (k, k), activation=None, gen=gen,
+                flat=flat))
             self.add_module(f"res_block_{layer}", MultiConvResidualBlock(
-                feats, cfg.res_depth, k, cfg.activation_name, gen=gen))
+                feats, cfg.res_depth, k, cfg.activation_name, gen=gen,
+                flat=flat))
             if coupled:
                 self.add_module(f"couple_conv_{layer}", ConvBnLrnDrop(
                     2 * feats, feats, (1, 1), activation=cfg.activation_name,
-                    gen=gen))
+                    gen=gen, flat=flat))
 
     def forward(self, dw_h_convs, x, prev: Optional[List[torch.Tensor]]):
         up_h_convs: List[Optional[torch.Tensor]] = [None] * (
@@ -141,11 +158,10 @@ class UpSamplingUNetBlock(nn.Module):
         for layer in range(self.cfg.scale_space_num - 2, -1, -1):
             skip = dw_h_convs[layer]
             y = getattr(self, f"deconv_{layer}")(x, tuple(skip.shape[-2:]))
-            y = getattr(self, f"merge_conv_{layer}")(torch.cat([skip, y], dim=1))
+            y = getattr(self, f"merge_conv_{layer}")((skip, y))
             y = getattr(self, f"res_block_{layer}")(y)
             if self.coupled:
-                y = getattr(self, f"couple_conv_{layer}")(
-                    torch.cat([prev[layer], y], dim=1))
+                y = getattr(self, f"couple_conv_{layer}")((prev[layer], y))
             up_h_convs[layer] = y
             x = y
         return x, up_h_convs
@@ -176,7 +192,8 @@ class MSAUNet(nn.Module):
             cin = cfg.img_channels if b == 0 else cfg.n_class
             self.add_module(f"block_{b}", UNetBlock(cfg, cin, b > 0, gen))
             self.add_module(f"end_conv_{b}", ConvBnLrnDrop(
-                cfg.feat_root, cfg.n_class, (4, 4), activation=None, gen=gen))
+                cfg.feat_root, cfg.n_class, (4, 4), activation=None, gen=gen,
+                flat=cfg.flat_scales > 0))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
@@ -218,11 +235,15 @@ class MSAUWrapper(nn.Module):
         layout; NCHW is the network's own, with no transpose)."""
         if logits_layout == "BODY":
             raise NotImplementedError(
-                "logits_layout='BODY' is the TPU flat layout of flat_scales "
-                "> 0 (ROADMAP Queue 2, K1-K3 and K6-K8)")
+                "logits_layout='BODY' (the TPU flat layout's logits) comes "
+                "with the flat_scales > 0 train step, ROADMAP Queue 2 rows 7, "
+                "8, 10, 12, 14, 16 and 19; it maps to channel-major NCHW")
         if logits_layout not in ("NHWC", "NCHW"):
             raise ValueError(f"unknown logits_layout {logits_layout!r}")
-        xc = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        if self.config.flat_scales > 0:
+            xc = to_nchw(x.contiguous(), self.compute_dtype)
+        else:
+            xc = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         logits, aux = self.net(xc)
         caxis = 1
         if logits_layout == "NHWC":

@@ -1,6 +1,8 @@
 """Device ops of the port: the hand-written CUDA kernels' wrappers (paint,
 resident attention forward and backward, multiclass CCL, fused masked CE
-forward and backward) and the torch-op morphology."""
+forward and backward, and the flat-layout forward ops: entry layout, max
+pool, conv with its fused epilogue, concat 1x1 conv, stride-2 deconv and the
+fused residual block) and the torch-op morphology."""
 
 from msau_tpu_torch.ops.attention import (
     resident_attention_bwd_cuda,
@@ -8,6 +10,14 @@ from msau_tpu_torch.ops.attention import (
 )
 from msau_tpu_torch.ops.ccl import connected_components_multiclass_cuda
 from msau_tpu_torch.ops.ce_loss import masked_ce_bwd_cuda, masked_ce_fwd_cuda
+from msau_tpu_torch.ops.flatconv import (
+    concat_conv1x1_cuda,
+    flat_conv2d_cuda,
+    flat_deconv2_cuda,
+    flat_maxpool2_cuda,
+    to_nchw_cuda,
+)
+from msau_tpu_torch.ops.flatres import flat_res_block_cuda
 from msau_tpu_torch.ops.paint import paint_boxes_cuda
 
 # kernel name -> its wrapper, whose ``launches`` attribute counts launches
@@ -18,6 +28,12 @@ KERNEL_WRAPPERS = {
     "resident_attention_bwd": resident_attention_bwd_cuda,
     "masked_ce_fwd": masked_ce_fwd_cuda,
     "masked_ce_bwd": masked_ce_bwd_cuda,
+    "to_nchw": to_nchw_cuda,
+    "flat_maxpool2": flat_maxpool2_cuda,
+    "flat_conv2d": flat_conv2d_cuda,
+    "concat_conv1x1": concat_conv1x1_cuda,
+    "flat_deconv2": flat_deconv2_cuda,
+    "flat_res_block": flat_res_block_cuda,
 }
 
 

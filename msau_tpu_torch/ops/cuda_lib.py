@@ -37,6 +37,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream are c_void_p)
 SIGNATURES = {
     # boxes, values, n_boxes, out, height, width, stream
@@ -55,6 +56,19 @@ SIGNATURES = {
     "msau_masked_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # logits, labels, mask, g, dlogits, n, c, length, is_bf16, stream
     "msau_masked_ce_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, y, n, hw, c, in_bf16, out_bf16, stream
+    "msau_nhwc_to_nchw": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, nc, h, w, is_bf16, stream
+    "msau_maxpool2": (_P, _P, _I, _I, _I, _I, _P),
+    # a, b, w, bias, y, n, ca, cb, h, w, cout, kh, kw, dil, pt, pleft, act,
+    # lrn_size, alpha, beta, lrn_k, is_bf16, stream
+    "msau_flat_conv2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # x, w, bias, y, n, cin, h, w, cout, k, ho, wo, is_bf16, stream
+    "msau_flat_deconv2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
+    # x, w1, b1, w2, b2, y, n, c, h, w, act, is_bf16, stream
+    "msau_flat_res_block": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -79,6 +93,8 @@ class KernelLibrary:
 
 
 _LIBRARY: Optional[KernelLibrary] = None
+# a failed build, re-raised by every later call instead of building again
+_BUILD_ERROR: Optional[RuntimeError] = None
 
 
 def _nvcc() -> str:
@@ -105,14 +121,20 @@ def source_hash() -> str:
 
 def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
-    global _LIBRARY
+    global _LIBRARY, _BUILD_ERROR
     if _LIBRARY is not None:
         return _LIBRARY
+    if _BUILD_ERROR is not None:
+        raise _BUILD_ERROR
     out = BUILD_DIR / f"libmsau_kernels-{source_hash()}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         t0 = time.perf_counter()
-        log = _build(out)
+        try:
+            log = _build(out)
+        except RuntimeError as e:
+            _BUILD_ERROR = e
+            raise
         seconds = time.perf_counter() - t0
     _LIBRARY = KernelLibrary(out, seconds, log)
     return _LIBRARY

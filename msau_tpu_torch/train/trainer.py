@@ -1,5 +1,7 @@
 """Training loop of the port: train / eval steps, the fit loop, checkpoints
-(port of ``msau_tpu.train.trainer`` at ``flat_scales=0`` on one device).
+(port of ``msau_tpu.train.trainer`` at ``flat_scales=0`` on one device;
+the flat-layout ops of ``flat_scales > 0`` have no backward yet, so
+``Trainer``, ``make_train_step`` and ``make_loss_and_grad`` refuse it).
 
 The state's parameters are the model's own ``nn.Parameter``s, updated in
 place by the optimizer (PyTorch is eager and has no donation: in-place
@@ -25,6 +27,7 @@ import torch
 
 from msau_tpu_torch.config import ModelConfig, TrainConfig
 from msau_tpu_torch.models.msau import MSAUWrapper, build_model
+from msau_tpu_torch.ops.flatconv import BACKWARD_TODO
 from msau_tpu_torch.train.loss import masked_cross_entropy, unet_loss
 from msau_tpu_torch.train.optimizer import Optimizer, make_optimizer
 
@@ -44,6 +47,11 @@ class TrainState:
     def create(cls, model: torch.nn.Module, optimizer: Optimizer) -> "TrainState":
         params = dict(model.named_parameters())
         return cls(step=0, params=params, opt_state=optimizer.init(params))
+
+
+def _refuse_flat(cfg: ModelConfig) -> None:
+    if cfg.flat_scales > 0:
+        raise NotImplementedError(BACKWARD_TODO)
 
 
 def _loss(model: MSAUWrapper, batch, masked: bool, aux_weight: float):
@@ -70,6 +78,7 @@ def make_loss_and_grad(model: MSAUWrapper, *, masked: bool = True,
     batch: {"input": [N, H, W, C], "label": [N, H, W] int, "valid":
     [N, H, W] bool (optional)}.
     """
+    _refuse_flat(model.config)
     names, params = zip(*model.named_parameters())
 
     def loss_and_grad(batch):
@@ -137,6 +146,7 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer(mesh=...): multi-device training is ROADMAP Queue 1 "
                 "item 13")
+        _refuse_flat(model_config)
         self.model_config = model_config
         self.cfg = train_config or TrainConfig()
         self.device = torch.device(device)

@@ -1,0 +1,176 @@
+"""The flat-layout ops' cases on the card: the shapes the flagship's serve
+path runs each op at, and ragged ones, with seeded operands, shared by
+``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from msau_tpu_torch.ops import flatconv, flatres
+
+
+def _case(op, name, per_request, **kw):
+    return dict(op=op, name=name, per_request=per_request, **kw)
+
+
+# The flat-layout ops of the flagship (img_channels 64, n_class 17,
+# feat_root 8, 4 scales, 3 stages, relu) at flat_scales 3 on one 512^2 page,
+# with how many times one request runs each, then ragged cases
+# (per_request 0): odd sizes and images smaller than one tile, so a tile
+# touches every image edge.  ``cb`` is a second input read as a channel
+# concat; ``k`` the kernel side; ``d`` the dilation.
+FLAT_CASES = [
+    _case("to_nchw", "entry 512^2", 1, n=1, c=64, h=512, w=512),
+    _case("to_nchw", "ragged 83x57", 0, n=2, c=64, h=83, w=57),
+    _case("flat_maxpool2", "8 ch 512^2", 3, n=1, c=8, h=512, w=512),
+    _case("flat_maxpool2", "16 ch 256^2", 3, n=1, c=16, h=256, w=256),
+    _case("flat_maxpool2", "32 ch 128^2", 3, n=1, c=32, h=128, w=128),
+    _case("flat_maxpool2", "ragged 83x57", 0, n=2, c=8, h=83, w=57),
+    _case("flat_conv2d", "dil_conv_0 stage 0", 1, n=1, c=64, cout=8, h=512,
+          w=512, k=3, d=1, act=None, lrn=True),
+    _case("flat_conv2d", "dil_conv_0 stages 1-2", 2, n=1, c=17, cout=8,
+          h=512, w=512, k=3, d=1, act=None, lrn=True),
+    _case("flat_conv2d", "dil_conv_1", 3, n=1, c=8, cout=16, h=256, w=256,
+          k=3, d=2, act=None, lrn=True),
+    _case("flat_conv2d", "dil_conv_2", 3, n=1, c=16, cout=32, h=128, w=128,
+          k=3, d=4, act=None, lrn=True),
+    _case("flat_conv2d", "merge_conv_0", 3, n=1, c=8, cb=8, cout=8, h=512,
+          w=512, k=3, d=1, act=None, lrn=False),
+    _case("flat_conv2d", "merge_conv_1", 3, n=1, c=16, cb=16, cout=16,
+          h=256, w=256, k=3, d=1, act=None, lrn=False),
+    _case("flat_conv2d", "merge_conv_2", 3, n=1, c=32, cb=32, cout=32,
+          h=128, w=128, k=3, d=1, act=None, lrn=False),
+    _case("flat_conv2d", "end_conv", 3, n=1, c=8, cout=17, h=512, w=512,
+          k=4, d=1, act=None, lrn=False),
+    _case("flat_conv2d", "ragged 83x57 elu", 0, n=2, c=17, cout=8, h=83,
+          w=57, k=3, d=2, act="elu", lrn=True),
+    _case("flat_conv2d", "ragged 7x5 relu", 0, n=2, c=8, cb=8, cout=8, h=7,
+          w=5, k=3, d=1, act="relu", lrn=False),
+    _case("flat_conv2d", "ragged 83x57 4x4", 0, n=1, c=8, cout=17, h=83,
+          w=57, k=4, d=1, act=None, lrn=False),
+    _case("concat_conv1x1", "couple 8 ch 512^2", 4, n=1, c=8, cb=8, cout=8,
+          h=512, w=512, act="relu"),
+    _case("concat_conv1x1", "couple 16 ch 256^2", 4, n=1, c=16, cb=16,
+          cout=16, h=256, w=256, act="relu"),
+    _case("concat_conv1x1", "couple 32 ch 128^2", 4, n=1, c=32, cb=32,
+          cout=32, h=128, w=128, act="relu"),
+    _case("concat_conv1x1", "ragged 83x57 elu", 0, n=2, c=8, cb=8, cout=8,
+          h=83, w=57, act="elu"),
+    _case("flat_deconv2", "64->32 to 128^2", 3, n=1, c=64, cout=32, h=64,
+          w=64, ho=128, wo=128),
+    _case("flat_deconv2", "32->16 to 256^2", 3, n=1, c=32, cout=16, h=128,
+          w=128, ho=256, wo=256),
+    _case("flat_deconv2", "16->8 to 512^2", 3, n=1, c=16, cout=8, h=256,
+          w=256, ho=512, wo=512),
+    _case("flat_deconv2", "ragged 42x29 to 83x57", 0, n=2, c=16, cout=8,
+          h=42, w=29, ho=83, wo=57),
+    _case("flat_deconv2", "ragged 42x29 to 84x57", 0, n=1, c=32, cout=16,
+          h=42, w=29, ho=84, wo=57),
+    _case("flat_res_block", "8 ch 512^2", 6, n=1, c=8, h=512, w=512,
+          act="relu"),
+    _case("flat_res_block", "16 ch 256^2", 6, n=1, c=16, h=256, w=256,
+          act="relu"),
+    _case("flat_res_block", "32 ch 128^2", 6, n=1, c=32, h=128, w=128,
+          act="relu"),
+    _case("flat_res_block", "ragged 83x57 elu", 0, n=2, c=16, h=83, w=57,
+          act="elu"),
+    _case("flat_res_block", "ragged 7x5", 0, n=2, c=32, h=7, w=5, act="relu"),
+    _case("flat_res_block", "ragged 37x45 8 ch", 0, n=1, c=8, h=37, w=45,
+          act="elu"),
+    _case("flat_res_block", "ragged 33x65 4 ch", 0, n=2, c=4, h=33, w=65,
+          act="relu"),
+]
+
+
+def flat_case_arrays(case: dict, rng: np.random.Generator,
+                     n: Optional[int] = None):
+    """float32 operands of a FLAT_CASES entry in the port's layouts (batch
+    ``n`` or the case's): to_nchw (x NHWC,); flat_maxpool2 (x,);
+    flat_conv2d and concat_conv1x1 (a, b or None, w OIHW, bias);
+    flat_deconv2 (x, w [Cin, Cout, K, K] with asymmetric taps, bias);
+    flat_res_block (x, w1, b1, w2, b2).  Weights are scaled by
+    1/sqrt(fan-in), so activations stay O(1) through the epilogue."""
+    op, n = case["op"], n or case["n"]
+    c, h, w = case["c"], case["h"], case["w"]
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    if op == "to_nchw":
+        return (normal(n, h, w, c),)
+    if op == "flat_maxpool2":
+        return (normal(n, c, h, w),)
+    if op in ("flat_conv2d", "concat_conv1x1"):
+        cb, cout, k = case.get("cb", 0), case["cout"], case.get("k", 1)
+        b = normal(n, cb, h, w) if cb else None
+        wt = normal(cout, c + cb, k, k, scale=(k * k * (c + cb)) ** -0.5)
+        return normal(n, c, h, w), b, wt, normal(cout, scale=0.1)
+    if op == "flat_deconv2":
+        cout = case["cout"]
+        wt = (normal(c, cout, 3, 3) + np.arange(9, dtype=np.float32).reshape(
+            3, 3)) * (9 * c) ** -0.5
+        return (normal(n, c, h, w), wt.astype(np.float32),
+                normal(cout, scale=0.1))
+    if op == "flat_res_block":
+        s = (9 * c) ** -0.5
+        return (normal(n, c, h, w), normal(c, c, 3, 3, scale=s),
+                normal(c, scale=0.1), normal(c, c, 3, 3, scale=s),
+                normal(c, scale=0.1))
+    raise ValueError(f"unknown flat op {op!r}")
+
+
+def flat_case_tensors(case: dict, rng: np.random.Generator,
+                      device: torch.device, dtype: torch.dtype,
+                      n: Optional[int] = None):
+    """``flat_case_arrays`` on ``device``: activations and weights in
+    ``dtype``, biases f32; to_nchw's NHWC input stays f32 (the one-hot
+    chargrid), its output takes ``dtype``."""
+    op = case["op"]
+    out = []
+    for a in flat_case_arrays(case, rng, n):
+        t = None if a is None else torch.from_numpy(a).to(device)
+        if t is not None and op != "to_nchw" and t.ndim > 1:
+            t = t.to(dtype)
+        out.append(t)
+    return out
+
+
+def flat_case_fns(case: dict, tensors, dtype: torch.dtype
+                  ) -> Tuple[Callable, Callable]:
+    """(kernel, plain): zero-argument calls of a case's CUDA wrapper and
+    plain version on ``flat_case_tensors``; ``dtype`` is to_nchw's output
+    dtype."""
+    op = case["op"]
+    if op == "to_nchw":
+        (x,) = tensors
+        return (lambda: flatconv.to_nchw_cuda(x, dtype),
+                lambda: flatconv.to_nchw_plain(x, dtype))
+    if op == "flat_maxpool2":
+        (x,) = tensors
+        return (lambda: flatconv.flat_maxpool2_cuda(x),
+                lambda: flatconv.flat_maxpool2_plain(x))
+    if op == "flat_conv2d":
+        a, b, w, bias = tensors
+        kw = dict(dilation=case["d"], act=case["act"],
+                  lrn_size=case["cout"] if case["lrn"] else 0)
+        return (lambda: flatconv.flat_conv2d_cuda(a, b, w, bias, **kw),
+                lambda: flatconv.flat_conv2d_plain(a, b, w, bias, **kw))
+    if op == "concat_conv1x1":
+        a, b, w, bias = tensors
+        return (lambda: flatconv.concat_conv1x1_cuda(a, b, w, bias,
+                                                     act=case["act"]),
+                lambda: flatconv.concat_conv1x1_plain(a, b, w, bias,
+                                                      act=case["act"]))
+    if op == "flat_deconv2":
+        x, w, bias = tensors
+        hw = (case["ho"], case["wo"])
+        return (lambda: flatconv.flat_deconv2_cuda(x, w, bias, hw),
+                lambda: flatconv.flat_deconv2_plain(x, w, bias, hw))
+    if op == "flat_res_block":
+        args = tuple(tensors) + (case["act"],)
+        return (lambda: flatres.flat_res_block_cuda(*args),
+                lambda: flatres.flat_res_block_plain(*args))
+    raise ValueError(f"unknown flat op {op!r}")

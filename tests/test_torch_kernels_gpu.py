@@ -13,6 +13,12 @@ f32 (sums over T = 4096 keys in another order, and rho cancels against
 h . dout) and 2e-2 for bf16 (rounded outputs).  The masked CE: ``correct``
 exact (sums of 0/1), ``ce_sum`` to rel 1e-5 (f32 sums in another order),
 dlogits to 1e-6 in f32 and 1e-2 in bf16 (one bf16 rounding of values <= 1).
+The flat-layout ops (``utils.flat_cases``: the flagship's serve shapes and
+ragged ones): the layout copy and the max pool exact; the convs, the
+deconv and the fused residual block within 1e-5 of max(1, max |want|) in
+f32 (sum order) and 2e-2 of it in bf16 (both sides sum the same bf16
+operands in f32 and round once; the residual block also rounds conv1's
+output, where one flipped rounding moves conv2's sum by a bf16 ulp).
 """
 
 import numpy as np
@@ -37,6 +43,11 @@ from msau_tpu_torch.ops.ccl import (
     connected_components_multiclass_plain,
 )
 from msau_tpu_torch.ops.paint import paint_boxes_cuda, paint_boxes_plain
+from msau_tpu_torch.utils.flat_cases import (
+    FLAT_CASES,
+    flat_case_fns,
+    flat_case_tensors,
+)
 from msau_tpu_torch.utils.kernel_inputs import (
     attention_inputs,
     ccl_map,
@@ -133,3 +144,21 @@ def test_masked_ce_kernels_match_plain(cuda, dtype, tol):
     want = masked_ce_bwd_plain(logits, labels, maskf, g)
     assert dl.dtype == dtype
     assert float((dl.double() - want.double()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLAT_CASES,
+                         ids=[f"{c['op']}-{c['name']}" for c in FLAT_CASES])
+def test_flat_kernels_match_plain(cuda, case, dtype):
+    tensors = flat_case_tensors(case, np.random.default_rng(11), cuda, dtype)
+    kernel, plain = flat_case_fns(case, tensors, dtype)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if case["op"] in ("to_nchw", "flat_maxpool2"):
+        assert torch.equal(got, want)
+    else:
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert _scaled_err(got, want) <= tol

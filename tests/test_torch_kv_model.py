@@ -111,3 +111,26 @@ def test_unported_entry_points_raise(pair):
                                      eval_results=[])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+def test_predict_at_flat_scales_2_gives_the_decode_tables_of_0(charset_file):
+    """The flat-layout ops (plain versions on the CPU) serve the same
+    decode tables as flat_scales 0, from the same seeded weights."""
+    out = {}
+    for fs in (0, 2):
+        mc = ModelConfig(img_channels=36, n_class=N_CLASS, scale_space_num=3,
+                         res_depth=2, feat_root=4, num_blocks=1, flat_scales=fs)
+        kv = KVModel(model_config=mc, infer_config=InferConfig(n_class=N_CLASS),
+                     schema=FieldSchema(class_names=NAMES,
+                                        multiple_lines_fields=(5,)),
+                     device="cpu")
+        kv.load(charset=charset_file, n_class=N_CLASS,
+                generator=torch.Generator().manual_seed(4))
+        assert kv.charset.n_token == mc.img_channels
+        out[fs] = kv.predict(FIXTURE)
+    (res0, ex0), (res2, ex2) = out[0], out[2]
+    np.testing.assert_allclose(ex2["pred"].numpy(), ex0["pred"].numpy(),
+                               atol=1e-5)
+    assert torch.equal(ex2["chosen_class"], ex0["chosen_class"])
+    assert [tuple(v) for v in ex2["values"]] == [tuple(v) for v in ex0["values"]]
+    assert res2 == res0

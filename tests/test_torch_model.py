@@ -1,6 +1,9 @@
 """MSAU model parity: the port's MSAUWrapper against the flax MSAUWrapper on
-the CPU, same weights (bridged from the flax init) and same numpy input;
-and the port's compute-dtype and logits-layout contract.
+the CPU, same weights (bridged from the flax init) and same numpy input, at
+flat_scales 0 and at every flat_scales the config allows (the port's flat
+ops against the flax model at 0, and once against the flax flat model with
+its Pallas kernels in interpret mode); and the port's compute-dtype and
+logits-layout contract.
 
 Tolerance: atol 1e-4 on logits/aux/probs — f32 on both sides; the residue
 is summation order across ~40 convs (CPU conv kernels of two frameworks).
@@ -18,7 +21,8 @@ from msau_tpu.models.layers import local_response_norm as jax_lrn
 from msau_tpu.models.msau import build_model as jax_build_model
 from msau_tpu_torch.models.layers import local_response_norm, same_padding
 from msau_tpu_torch.models.msau import build_model
-from msau_tpu_torch.utils.transplant import flax_to_torch
+from msau_tpu_torch.train.trainer import Trainer
+from msau_tpu_torch.utils.transplant import flax_to_torch, torch_to_flax
 
 ATOL = 1e-4
 CFG = dict(img_channels=6, n_class=5, scale_space_num=3, res_depth=2,
@@ -47,6 +51,73 @@ def test_wrapper_matches_flax(models, hw):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=ATOL)
+
+
+@pytest.mark.parametrize("fs", [1, 2])
+@pytest.mark.parametrize("hw", [(64, 64), (83, 57)])
+def test_flat_scales_match_fs0_and_flax(models, fs, hw):
+    """The flat-layout ops (plain versions on the CPU) give the model at
+    flat_scales fs the function of flat_scales 0, in the port and in
+    flax."""
+    jm, params, tm = models
+    flat = build_model(ModelConfig(**CFG, flat_scales=fs),
+                       torch.Generator().manual_seed(1))
+    flat.load_state_dict(tm.state_dict())
+    x = np.random.default_rng(fs).normal(size=(1, *hw, 6)).astype(np.float32)
+    jp, jl, ja = jax.jit(jm.apply)(params, jnp.asarray(x))
+    with torch.no_grad():
+        outs = flat.eval()(torch.from_numpy(x))
+        outs0 = tm(torch.from_numpy(x))
+    for got, want0, want in zip(outs, outs0, (jp, jl, ja)):
+        assert got.shape == (1, *hw, 5)
+        np.testing.assert_allclose(got.numpy(), want0.numpy(), atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_flat_model_matches_flax_flat_model(monkeypatch):
+    """The port at flat_scales 1 against the flax model at flat_scales 1,
+    whose flat convs, fused res block and concat 1x1 run as Pallas kernels
+    (interpret mode); weights drawn by the port and bridged to flax."""
+    from jax.experimental import pallas as pl
+
+    seen = set()
+    real = pl.pallas_call
+
+    def spy(kernel, *args, **kwargs):
+        fn = getattr(kernel, "func", kernel)
+        seen.add(f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}")
+        return real(kernel, *args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    cfg = ModelConfig(img_channels=6, n_class=5, feat_root=8,
+                      scale_space_num=2, num_blocks=2, res_depth=2,
+                      final_act="softmax", flat_scales=1)
+    tm = build_model(cfg, torch.Generator().manual_seed(2)).eval()
+    x = np.random.default_rng(2).normal(size=(1, 32, 48, 6)).astype(np.float32)
+    jp, jl, ja = jax_build_model(cfg).apply(torch_to_flax(tm.state_dict()),
+                                            jnp.asarray(x))
+    assert {"flatconv._fwd_kernel", "flatres._fwd_kernel",
+            "flatconv._cc_fwd_kernel"} <= seen
+    with torch.no_grad():
+        tp, tl, ta = tm(torch.from_numpy(x))
+    # these weights give logits of ~300, where f32 summation order alone
+    # moves the last digits (flax's flat and fs=0 models differ by 3e-4
+    # there): atol 1e-4 or 1e-5 of the output's scale, whichever is larger
+    for got, want in ((tl, jl), (ta, ja), (tp, jp)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(
+            got.numpy(), want, atol=max(ATOL, 1e-5 * np.abs(want).max()))
+
+
+def test_state_dict_keys_do_not_depend_on_flat_scales():
+    cfg = dict(CFG, scale_space_num=4)
+    keys = [list(build_model(ModelConfig(**cfg, flat_scales=fs),
+                             torch.Generator().manual_seed(0)).state_dict())
+            for fs in (0, 3)]
+    assert keys[0] == keys[1]
+    with pytest.raises(ValueError, match="deepest"):
+        build_model(ModelConfig(**cfg, flat_scales=4),
+                    torch.Generator().manual_seed(0))
 
 
 def test_state_dict_names_follow_flax_tree(models):
@@ -81,9 +152,14 @@ def test_lrn_matches_flax():
                                          ("use_lstm", True),
                                          ("use_spn", True)])
 def test_unported_options_raise(field, value):
+    """flat_scales > 0 serves (see the parity tests above) but does not
+    train: the flat ops' backward kernels are the next slice."""
     cfg = ModelConfig(**{**CFG, field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, torch.Generator().manual_seed(0))
+        if field == "flat_scales":
+            Trainer(cfg, device="cpu")
+        else:
+            build_model(cfg, torch.Generator().manual_seed(0))
 
 
 def test_bf16_config_casts_f32_params_at_use():

@@ -312,3 +312,17 @@ def test_fit_checkpoint_resume_is_exact(tmp_path):
 def test_trainer_rejects_a_mesh():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(ModelConfig(**CFG), mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["make_loss_and_grad", "make_train_step"])
+def test_flat_scales_train_entry_points_raise(entry):
+    """The flat-layout ops have no backward yet: make_loss_and_grad and
+    make_train_step refuse flat_scales > 0, naming the ROADMAP rows still
+    to port."""
+    model = build_model(ModelConfig(**CFG, flat_scales=1),
+                        torch.Generator().manual_seed(0))
+    args = (model,) if entry == "make_loss_and_grad" else (
+        model, make_optimizer(TrainConfig()))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 rows 7"):
+        {"make_loss_and_grad": make_loss_and_grad,
+         "make_train_step": make_train_step}[entry](*args)
