@@ -59,9 +59,42 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 // returns the cudaError of the attribute call (0 when none was needed).
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// Weight gradients are sums over every pixel of the batch.  Blocks run in
+// parallel and in no order, so a kernel that sums them walks its tiles with
+// a grid of at most kPartialBlocks blocks; block b adds its tiles, in
+// order, into its own f32 row partial[b][0, stride) (plain stores: no other
+// block touches the row), and sum_partials adds the rows in block order.
+// The same inputs therefore give the same bits, with no float atomics.
+constexpr int kPartialBlocks = 264;
+
+static __global__ void sum_partials_kernel(const float* __restrict__ part, int nblocks,
+                                           int64_t stride, float* __restrict__ out) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= stride) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += part[(int64_t)b * stride + j];
+  out[j] = s;
+}
+
+static inline int sum_partials(const float* part, int nblocks, int64_t stride,
+                               float* out, cudaStream_t stream) {
+  sum_partials_kernel<<<(unsigned)((stride + 255) / 256), 256, 0, stream>>>(
+      part, nblocks, stride, out);
+  return (int)cudaGetLastError();
+}
+
+// d act(a) / da from the preactivation a (jax.nn.elu's derivative: exp(a)
+// below 0).
+__device__ __forceinline__ float act_grad(float a, int act) {
+  if (act == kActRelu) return a > 0.f ? 1.f : 0.f;
+  if (act == kActElu) return a > 0.f ? 1.f : expf(fminf(a, 0.f));
+  return 1.f;
 }
 
 }  // namespace msau

@@ -1,0 +1,43 @@
+"""Per-character box records of the rasterizer, in numpy.
+
+The port's copy of the numpy path of ``msau_tpu.native.char_records``
+(``_char_records_numpy``): the JAX package also has a C core for it, which
+the port does not build.  ``tests/test_torch_host_copies.py`` pins the two
+to the same records.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def char_records(line_boxes: np.ndarray, text_offsets: np.ndarray,
+                 char_ids: np.ndarray, cap_factor: float
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """line_boxes [L, 4] int32 scaled (x1, y1, x2, y2), text_offsets [L+1],
+    char_ids [total] -> (records [N, 5] (y1, y2, sx, ex, id), line_idx [N]
+    1-based, char_pos [N] 1-based)."""
+    line_boxes = np.ascontiguousarray(line_boxes, np.int32)
+    text_offsets = np.ascontiguousarray(text_offsets, np.int32)
+    char_ids = np.ascontiguousarray(char_ids, np.int32)
+    lens = np.diff(text_offsets)
+    if not (lens > 0).any():
+        e = np.zeros((0,), np.int32)
+        return np.zeros((0, 5), np.int32), e, e
+    x1, y1, x2, y2 = (line_boxes[:, 0], line_boxes[:, 1], line_boxes[:, 2],
+                      line_boxes[:, 3])
+    lens_f = np.maximum(lens, 1).astype(np.float64)
+    cfw = np.maximum((x2 - x1) / lens_f, 1.0)
+    cw = np.maximum(0.9 * cfw, 1.0)
+    cw = np.minimum(cw, ((y2 - y1) * cap_factor).astype(np.int64).astype(
+        np.float64))
+    line_of = np.repeat(np.arange(len(lens)), lens)
+    pos = np.arange(len(char_ids)) - np.repeat(text_offsets[:-1], lens)
+    offset = x1[line_of] + pos * cfw[line_of]
+    sx = offset.astype(np.int32)
+    ex = (offset + cw[line_of]).astype(np.int32)
+    rec = np.stack([y1[line_of], y2[line_of], sx, ex, char_ids],
+                   axis=1).astype(np.int32)
+    return rec, (line_of + 1).astype(np.int32), (pos + 1).astype(np.int32)

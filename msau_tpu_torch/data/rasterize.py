@@ -161,9 +161,9 @@ def build_chargrid_programs(
     height = int(h * scale * v_scale)
     width = int(w * scale * h_scale)
 
-    # scale all line boxes (vectorized), encode texts, then hand the hot
-    # per-char loop to the native core (msau_tpu/native, numpy fallback)
-    from msau_tpu.native import char_records
+    # scale all line boxes (vectorized), encode texts, then build the
+    # per-char records in one vectorized pass
+    from msau_tpu_torch.data.native import char_records
 
     scaled_lines: List[Line] = []
     sb = np.empty((len(lines), 4), np.int32)

@@ -20,17 +20,18 @@ Modules work in NCHW; the public forward takes NHWC input and returns
 (``net.block_{b}.down.dil_conv_{l}.Conv_0``, ...).
 
 ``flat_scales`` = fs > 0 runs the scales below fs, and the end convs,
-through the flat-layout forward ops (``ops.flatconv``, ``ops.flatres``: a
-hand-written CUDA kernel each on a card) as the JAX package runs them
-through its Pallas kernels; the deepest scale keeps torch convs and the
-resident attention.  The tensors stay NCHW at every scale and the parameter
-tree is the same for every fs.  Those ops have no backward yet, so fs > 0
-serves and evaluates but does not train.
+through the flat-layout ops (``ops.flatconv``, ``ops.flatres``: hand-written
+CUDA kernels on a card, forward and backward) as the JAX package runs them
+through its Pallas kernels; the deepest scale keeps
+torch convs and the resident attention.  The tensors stay NCHW at every
+scale and the parameter tree is the same for every fs.
 
 Compute dtype follows flax's ``dtype=``: the input is cast to
 ``config.dtype`` and every layer casts its (f32) parameters to the
 activation's dtype at use, so a bf16 config trains f32 parameters with bf16
-activations; logits come out in f32.  ``remat`` recomputes each U-Net stage
+activations; logits come out in f32.  "float64" (parameters cast to
+float64 too, ``model.double()``) runs the plain versions on the CPU with no
+f32 rounding: the exact reference a float32 step is held to.  ``remat`` recomputes each U-Net stage
 in the backward (``torch.utils.checkpoint``, as ``nn.remat(UNetBlock)``).
 ``attention_impl`` is accepted and ignored: the deepest scale always takes
 ``ops.attention.resident_attention``.
@@ -54,6 +55,7 @@ from msau_tpu_torch.models.layers import (
     MultiConvResidualBlock,
 )
 from msau_tpu_torch.ops.flatconv import flat_maxpool2, to_nchw
+from msau_tpu_torch.ops.precision import wide
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -77,7 +79,8 @@ def check_supported(cfg: ModelConfig) -> None:
             "use_lstm / use_spn (models/extras.py) are ROADMAP Queue 1 item 12")
 
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 
 
 def _maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -211,8 +214,8 @@ class MSAUNet(nn.Module):
             out = getattr(self, f"end_conv_{b}")(out)
             if b == cfg.num_blocks - 2:
                 logits_aux = out
-        logits = out.float()
-        return logits, (logits if logits_aux is None else logits_aux.float())
+        logits = wide(out)
+        return logits, (logits if logits_aux is None else wide(logits_aux))
 
 
 class MSAUWrapper(nn.Module):
@@ -231,14 +234,12 @@ class MSAUWrapper(nn.Module):
         return DTYPES[self.config.dtype]
 
     def forward(self, x: torch.Tensor, logits_layout: str = "NHWC"):
-        """``logits_layout`` "NHWC" or "NCHW" (f32 logits and probs in that
-        layout; NCHW is the network's own, with no transpose)."""
-        if logits_layout == "BODY":
-            raise NotImplementedError(
-                "logits_layout='BODY' (the TPU flat layout's logits) comes "
-                "with the flat_scales > 0 train step, ROADMAP Queue 2 rows 7, "
-                "8, 10, 12, 14, 16 and 19; it maps to channel-major NCHW")
-        if logits_layout not in ("NHWC", "NCHW"):
+        """``logits_layout`` "NHWC", "NCHW" (f32 logits and probs in that
+        layout; NCHW is the network's own, with no transpose) or "BODY":
+        channel-major [N, C, H*W], the port's counterpart of the JAX
+        package's body-flat [N, C, LB] logits, which the train step's fused
+        loss reads."""
+        if logits_layout not in ("NHWC", "NCHW", "BODY"):
             raise ValueError(f"unknown logits_layout {logits_layout!r}")
         if self.config.flat_scales > 0:
             xc = to_nchw(x.contiguous(), self.compute_dtype)
@@ -246,7 +247,10 @@ class MSAUWrapper(nn.Module):
             xc = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         logits, aux = self.net(xc)
         caxis = 1
-        if logits_layout == "NHWC":
+        if logits_layout == "BODY":
+            logits = logits.flatten(2)
+            aux = aux.flatten(2)
+        elif logits_layout == "NHWC":
             logits = logits.permute(0, 2, 3, 1)
             aux = aux.permute(0, 2, 3, 1)
             caxis = -1

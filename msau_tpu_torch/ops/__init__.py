@@ -1,8 +1,9 @@
 """Device ops of the port: the hand-written CUDA kernels' wrappers (paint,
 resident attention forward and backward, multiclass CCL, fused masked CE
-forward and backward, and the flat-layout forward ops: entry layout, max
-pool, conv with its fused epilogue, concat 1x1 conv, stride-2 deconv and the
-fused residual block) and the torch-op morphology."""
+forward and backward, and the flat-layout ops: entry layout, max pool, conv
+with its fused epilogue, concat 1x1 conv, stride-2 deconv and the fused
+residual block, with their backward: pool, conv stage 1 and dx, deconv dx
+and dw, residual block) and the torch-op morphology."""
 
 from msau_tpu_torch.ops.attention import (
     resident_attention_bwd_cuda,
@@ -13,11 +14,19 @@ from msau_tpu_torch.ops.ce_loss import masked_ce_bwd_cuda, masked_ce_fwd_cuda
 from msau_tpu_torch.ops.flatconv import (
     concat_conv1x1_cuda,
     flat_conv2d_cuda,
+    flat_conv_bwd_cuda,
+    flat_conv_dx_cuda,
     flat_deconv2_cuda,
+    flat_deconv2_dw_cuda,
+    flat_deconv2_dx_cuda,
+    flat_maxpool2_bwd_cuda,
     flat_maxpool2_cuda,
     to_nchw_cuda,
 )
-from msau_tpu_torch.ops.flatres import flat_res_block_cuda
+from msau_tpu_torch.ops.flatres import (
+    flat_res_block_bwd_cuda,
+    flat_res_block_cuda,
+)
 from msau_tpu_torch.ops.paint import paint_boxes_cuda
 
 # kernel name -> its wrapper, whose ``launches`` attribute counts launches
@@ -34,6 +43,12 @@ KERNEL_WRAPPERS = {
     "concat_conv1x1": concat_conv1x1_cuda,
     "flat_deconv2": flat_deconv2_cuda,
     "flat_res_block": flat_res_block_cuda,
+    "flat_maxpool2_bwd": flat_maxpool2_bwd_cuda,
+    "flat_conv_bwd": flat_conv_bwd_cuda,
+    "flat_conv_dx": flat_conv_dx_cuda,
+    "flat_deconv2_dx": flat_deconv2_dx_cuda,
+    "flat_deconv2_dw": flat_deconv2_dw_cuda,
+    "flat_res_block_bwd": flat_res_block_bwd_cuda,
 }
 
 

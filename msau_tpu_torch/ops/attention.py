@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from msau_tpu_torch.ops import cuda_lib
+from msau_tpu_torch.ops.precision import wide_dtype
 
 # (Cb, C) pairs the kernel is instantiated for: the model's projections
 # have Cb = max(C // 8, 1)
@@ -34,10 +35,10 @@ def resident_attention_plain(f: torch.Tensor, g: torch.Tensor,
                              h: torch.Tensor) -> torch.Tensor:
     """f, g: [N, T, Cb]; h: [N, T, C] -> [N, T, C] in h's dtype, computed in
     f32: out_j = sum_i h_i softmax_j(g_i . f_j)."""
-    f32 = torch.float32
-    s = torch.einsum("nic,njc->nij", g.to(f32), f.to(f32))
+    acc = wide_dtype(h)
+    s = torch.einsum("nic,njc->nij", g.to(acc), f.to(acc))
     beta = torch.softmax(s, dim=-1)
-    return torch.einsum("nij,nic->njc", beta, h.to(f32)).to(h.dtype)
+    return torch.einsum("nij,nic->njc", beta, h.to(acc)).to(h.dtype)
 
 
 def resident_attention_plain_stats(
@@ -45,12 +46,12 @@ def resident_attention_plain_stats(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain forward with the saved statistics: (out in h's dtype,
     m, l [N, T] f32), m_i = max_j s_ij and l_i = sum_j exp(s_ij - m_i)."""
-    f32 = torch.float32
-    s = torch.einsum("nic,njc->nij", g.to(f32), f.to(f32))
+    acc = wide_dtype(h)
+    s = torch.einsum("nic,njc->nij", g.to(acc), f.to(acc))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    out = torch.einsum("nij,nic->njc", p / l[..., None], h.to(f32))
+    out = torch.einsum("nij,nic->njc", p / l[..., None], h.to(acc))
     return out.to(h.dtype), m, l
 
 
@@ -64,8 +65,8 @@ def resident_attention_bwd_plain(
         A = exp(s - m) / l,  dh = A dout,  rho_i = h_i . dh_i,
         ds = A * (h doutᵀ - rho),  dg = ds f,  df = dsᵀ g.
     """
-    f32 = torch.float32
-    ff, gf, hf, dof = (t.to(f32) for t in (f, g, h, dout))
+    acc = wide_dtype(h)
+    ff, gf, hf, dof = (t.to(acc) for t in (f, g, h, dout))
     s = torch.einsum("nic,njc->nij", gf, ff)
     a = torch.exp(s - m[..., None]) / l[..., None]
     dh = torch.einsum("nij,njc->nic", a, dof)

@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from msau_tpu_torch.ops import cuda_lib
+from msau_tpu_torch.ops.precision import wide
 
 _LOGIT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -36,7 +37,7 @@ def _clamped(labels: torch.Tensor, nclass: int) -> torch.Tensor:
 def masked_ce_fwd_plain(logits: torch.Tensor, labels: torch.Tensor,
                         maskf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ce_sum, correct) as f32 scalars, in f32 torch ops."""
-    lf = logits.float()
+    lf = wide(logits)
     m = lf.amax(dim=1)
     lse = m + torch.log(torch.exp(lf - m[:, None]).sum(dim=1))
     lsel = lf.gather(1, _clamped(labels, lf.shape[1])[:, None])[:, 0]
@@ -49,7 +50,7 @@ def masked_ce_bwd_plain(logits: torch.Tensor, labels: torch.Tensor,
                         maskf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dlogits = (softmax - onehot) * mask * g in the logits' dtype; ``g``
     is the f32 cotangent of ce_sum (a 0-d tensor)."""
-    lf = logits.float()
+    lf = wide(logits)
     p = torch.softmax(lf, dim=1)
     onehot = torch.zeros_like(p).scatter_(
         1, _clamped(labels, lf.shape[1])[:, None], 1.0)
@@ -144,7 +145,7 @@ class FusedMaskedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_sum, _g_correct):
         logits, labels, maskf = ctx.saved_tensors
-        g = g_sum.float()
+        g = wide(g_sum)
         if _on_cuda(logits):
             dlogits = masked_ce_bwd_cuda(logits, labels, maskf, g)
         else:

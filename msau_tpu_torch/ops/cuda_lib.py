@@ -60,16 +60,34 @@ SIGNATURES = {
     "msau_nhwc_to_nchw": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, y, nc, h, w, is_bf16, stream
     "msau_maxpool2": (_P, _P, _I, _I, _I, _I, _P),
-    # a, b, w, bias, y, n, ca, cb, h, w, cout, kh, kw, dil, pt, pleft, act,
-    # lrn_size, alpha, beta, lrn_k, is_bf16, stream
-    "msau_flat_conv2d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # a, b, w, bias, y, y2, n, ca, cb, h, w, cout, cout_a, kh, kw, dil, pt,
+    # pleft, act, lrn_size, alpha, beta, lrn_k, is_bf16, stream
+    "msau_flat_conv2d": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # a, b, w, bias, g, g0, partial, out, n, ca, cb, h, w, cout, kh, kw, dil,
+    # pt, pleft, act, lrn_size, alpha, beta, lrn_k, is_bf16, stream
+    "msau_flat_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # x, g, dx, nc, h, w, is_bf16, stream
+    "msau_maxpool2_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, bias, y, n, cin, h, w, cout, k, ho, wo, is_bf16, stream
     "msau_flat_deconv2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P),
+    # g, w, dx, n, cin, h, w, cout, k, ho, wo, is_bf16, stream
+    "msau_flat_deconv2_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
+    # x, g, partial, dw, n, cin, h, w, cout, k, ho, wo, is_bf16, stream
+    "msau_flat_deconv2_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     # x, w1, b1, w2, b2, y, n, c, h, w, act, is_bf16, stream
     "msau_flat_res_block": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, w1, b1, w2, b2, dx, partial, out, n, c, h, w, act, is_bf16, stream
+    "msau_flat_res_block_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _P),
 }
+# rows of the f32 scratch a kernel that sums weight gradients across blocks
+# writes (kPartialBlocks in csrc/common.cuh): one per block of its grid
+PARTIAL_BLOCKS = 264
 
 
 class KernelLibrary:

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from msau_tpu_torch.ops.ce_loss import fused_masked_ce_sum
+from msau_tpu_torch.ops.precision import wide
 
 
 def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -27,7 +28,7 @@ def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
     """Softmax cross-entropy per pixel along ``channel_axis``; labels int
     [N, ...] are clamped to [0, C-1], so a data bug gives a visible loss
     instead of a silent 0."""
-    logp = torch.log_softmax(logits.float(), dim=channel_axis)
+    logp = torch.log_softmax(wide(logits), dim=channel_axis)
     nclass = logits.shape[channel_axis]
     idx = labels.clamp(0, nclass - 1).long().unsqueeze(channel_axis)
     return -logp.gather(channel_axis, idx).squeeze(channel_axis)

@@ -1,15 +1,17 @@
 """Training loop of the port: train / eval steps, the fit loop, checkpoints
-(port of ``msau_tpu.train.trainer`` at ``flat_scales=0`` on one device;
-the flat-layout ops of ``flat_scales > 0`` have no backward yet, so
-``Trainer``, ``make_train_step`` and ``make_loss_and_grad`` refuse it).
+(port of ``msau_tpu.train.trainer`` on one device, at every
+``flat_scales``).
 
 The state's parameters are the model's own ``nn.Parameter``s, updated in
 place by the optimizer (PyTorch is eager and has no donation: in-place
 updates are what keeps one copy of the weights).  The step computes the
-loss on the network's channel-major logits [N, C, H*W], so the masked loss
-takes the fused CE op (``ops.ce_loss``), and the deepest-scale attention
-runs its autograd op (``ops.attention``): on a card both are hand-written
-CUDA kernels.  Metrics stay on the device: nothing in a step waits for it.
+loss on the network's channel-major logits [N, C, H*W] (``logits_layout=
+"BODY"``, as the JAX step does at ``flat_scales > 0``), so the masked loss
+takes the fused CE op (``ops.ce_loss``); the deepest-scale attention runs
+its autograd op (``ops.attention``) and the flat scales (``flat_scales >
+0``) their ops' backward (``ops.flatconv``, ``ops.flatres``): on a card
+all of them are hand-written CUDA kernels.  Metrics stay on the device:
+nothing in a step waits for it.
 
 Checkpoints are ``torch.save`` files holding the full train state (step,
 parameters and optimizer buffers), so a restore resumes training exactly.
@@ -27,7 +29,6 @@ import torch
 
 from msau_tpu_torch.config import ModelConfig, TrainConfig
 from msau_tpu_torch.models.msau import MSAUWrapper, build_model
-from msau_tpu_torch.ops.flatconv import BACKWARD_TODO
 from msau_tpu_torch.train.loss import masked_cross_entropy, unet_loss
 from msau_tpu_torch.train.optimizer import Optimizer, make_optimizer
 
@@ -49,22 +50,16 @@ class TrainState:
         return cls(step=0, params=params, opt_state=optimizer.init(params))
 
 
-def _refuse_flat(cfg: ModelConfig) -> None:
-    if cfg.flat_scales > 0:
-        raise NotImplementedError(BACKWARD_TODO)
-
-
 def _loss(model: MSAUWrapper, batch, masked: bool, aux_weight: float):
-    """The step's loss and metrics on the network's NCHW logits; the
-    masked loss sees them as [N, C, H*W] and takes the fused CE op."""
-    _, logits, aux = model(batch["input"], logits_layout="NCHW")
-    labels, valid = batch["label"], batch.get("valid")
+    """The step's loss and metrics on the network's channel-major logits
+    [N, C, H*W]: the masked loss takes the fused CE op."""
+    _, logits, aux = model(batch["input"], logits_layout="BODY")
+    n = logits.shape[0]
+    labels = batch["label"].reshape(n, -1)
+    valid = batch.get("valid")
+    valid = None if valid is None else valid.reshape(n, -1)
     if masked:
-        n, c = logits.shape[:2]
-        return masked_cross_entropy(
-            logits.reshape(n, c, -1), aux.reshape(n, c, -1),
-            labels.reshape(n, -1),
-            None if valid is None else valid.reshape(n, -1), channel_axis=1)
+        return masked_cross_entropy(logits, aux, labels, valid, channel_axis=1)
     return unet_loss(logits, labels, aux_logits=aux, valid=valid,
                      aux_weight=aux_weight, channel_axis=1)
 
@@ -78,7 +73,6 @@ def make_loss_and_grad(model: MSAUWrapper, *, masked: bool = True,
     batch: {"input": [N, H, W, C], "label": [N, H, W] int, "valid":
     [N, H, W] bool (optional)}.
     """
-    _refuse_flat(model.config)
     names, params = zip(*model.named_parameters())
 
     def loss_and_grad(batch):
@@ -146,7 +140,6 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer(mesh=...): multi-device training is ROADMAP Queue 1 "
                 "item 13")
-        _refuse_flat(model_config)
         self.model_config = model_config
         self.cfg = train_config or TrainConfig()
         self.device = torch.device(device)

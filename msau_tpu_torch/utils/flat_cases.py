@@ -1,6 +1,6 @@
 """The flat-layout ops' cases on the card: the shapes the flagship's serve
-path runs each op at, and ragged ones, with seeded operands, shared by
-``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``."""
+path and train step run each op at, and ragged ones, with seeded operands,
+shared by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
@@ -51,6 +51,9 @@ FLAT_CASES = [
           w=5, k=3, d=1, act="relu", lrn=False),
     _case("flat_conv2d", "ragged 83x57 4x4", 0, n=1, c=8, cout=17, h=83,
           w=57, k=4, d=1, act=None, lrn=False),
+    # feat_root 16's dil_conv_2: an LRN over 64 channels
+    _case("flat_conv2d", "LRN 64 ch 128^2 (feat_root 16)", 0, n=1, c=32,
+          cout=64, h=128, w=128, k=3, d=4, act=None, lrn=True),
     _case("concat_conv1x1", "couple 8 ch 512^2", 4, n=1, c=8, cb=8, cout=8,
           h=512, w=512, act="relu"),
     _case("concat_conv1x1", "couple 16 ch 256^2", 4, n=1, c=16, cb=16,
@@ -174,3 +177,138 @@ def flat_case_fns(case: dict, tensors, dtype: torch.dtype
         return (lambda: flatres.flat_res_block_cuda(*args),
                 lambda: flatres.flat_res_block_plain(*args))
     raise ValueError(f"unknown flat op {op!r}")
+
+
+# The backward kernels' cases: one per forward case, named after it, with
+# ``per_step`` the launches of one flagship train step at flat_scales 3
+# (its forward counts; the stage-0 entry conv needs no dx: the chargrid
+# has no gradient).  The ragged forward cases carry over with per_step 0.
+_BWD_OF = {"flat_conv2d": ("flat_conv_bwd", "flat_conv_dx"),
+           "concat_conv1x1": ("flat_conv_bwd", "flat_conv_dx"),
+           "flat_maxpool2": ("flat_maxpool2_bwd",),
+           "flat_deconv2": ("flat_deconv2_dx", "flat_deconv2_dw"),
+           "flat_res_block": ("flat_res_block_bwd",)}
+FLAT_BWD_CASES = [
+    dict(case, op=op, fwd_op=case["op"],
+         per_step=0 if (op == "flat_conv_dx"
+                        and case["name"] == "dil_conv_0 stage 0")
+         else case["per_request"])
+    for case in FLAT_CASES if case["op"] in _BWD_OF
+    for op in _BWD_OF[case["op"]]]
+
+
+def flat_bwd_case_tensors(case: dict, rng: np.random.Generator,
+                          device: torch.device, dtype: torch.dtype,
+                          n: Optional[int] = None):
+    """The forward case's operands (``flat_case_tensors``) and a cotangent
+    of its output, in ``dtype``.  The pool's input is quantized after a
+    relu (many zeros, repeated values), so its windows hold ties."""
+    fwd = dict(case, op=case["fwd_op"])
+    arrays = list(flat_case_arrays(fwd, rng, n))
+    nn, c, h, w = arrays[0].shape
+    if case["fwd_op"] == "flat_maxpool2":
+        arrays[0] = np.round(np.maximum(arrays[0], 0) * 2) / 2
+        out = (nn, c, -(-h // 2), -(-w // 2))
+    elif case["fwd_op"] == "flat_deconv2":
+        out = (nn, case["cout"], case["ho"], case["wo"])
+    else:
+        out = (nn, case.get("cout", c), h, w)
+    arrays.append(rng.normal(size=out).astype(np.float32))
+    return [None if a is None else
+            torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+                device, dtype if a.ndim > 1 else torch.float32)
+            for a in arrays]
+
+
+def flat_bwd_case_fns(case: dict, tensors) -> Tuple[Callable, Callable]:
+    """(kernel, plain): zero-argument calls of a backward case's CUDA
+    wrapper and plain version on ``flat_bwd_case_tensors``, each returning
+    a tuple of tensors (None entries dropped)."""
+    op = case["op"]
+
+    def pair(kernel, plain, *args, **kw):
+        drop = lambda out: tuple(t for t in (out if isinstance(out, tuple)
+                                             else (out,)) if t is not None)
+        return (lambda: drop(kernel(*args, **kw)),
+                lambda: drop(plain(*args, **kw)))
+
+    if op == "flat_maxpool2_bwd":
+        x, g = tensors
+        return pair(flatconv.flat_maxpool2_bwd_cuda,
+                    flatconv.flat_maxpool2_bwd_plain, x, g)
+    if op in ("flat_conv_bwd", "flat_conv_dx"):
+        a, b, w, bias, g = tensors
+        if op == "flat_conv_dx":
+            couts = (a.shape[1],) if b is None else (a.shape[1], b.shape[1])
+            return pair(flatconv.flat_conv_dx_cuda,
+                        flatconv.flat_conv_dx_plain, g, w, couts,
+                        dilation=case.get("d", 1))
+        kw = dict(dilation=case.get("d", 1), act=case["act"],
+                  lrn_size=case["cout"] if case.get("lrn") else 0)
+        return pair(flatconv.flat_conv_bwd_cuda, flatconv.flat_conv_bwd_plain,
+                    a, b, w, bias, g, **kw)
+    if op == "flat_deconv2_dx":
+        x, w, _, g = tensors
+        return pair(flatconv.flat_deconv2_dx_cuda,
+                    flatconv.flat_deconv2_dx_plain, g, w, tuple(x.shape[-2:]))
+    if op == "flat_deconv2_dw":
+        x, w, _, g = tensors
+        return pair(flatconv.flat_deconv2_dw_cuda,
+                    flatconv.flat_deconv2_dw_plain, x, g, tuple(w.shape))
+    if op == "flat_res_block_bwd":
+        return pair(flatres.flat_res_block_bwd_cuda,
+                    flatres.flat_res_block_bwd_plain, *tensors, case["act"])
+    raise ValueError(f"unknown flat backward op {op!r}")
+
+
+def flat_bwd_output_kinds(case: dict) -> Tuple[str, ...]:
+    """Each output of a backward case: "act" (an activation-shaped
+    cotangent in the activation dtype) or "param" (an f32 weight or bias
+    gradient, a sum over every pixel)."""
+    op = case["op"]
+    if op == "flat_conv_bwd":
+        epi = case["act"] is not None or case.get("lrn")
+        return ("act",) * bool(epi) + ("param", "param")
+    if op == "flat_conv_dx":
+        return ("act",) * (2 if case.get("cb") else 1)
+    if op == "flat_deconv2_dw":
+        return ("param",)
+    if op == "flat_res_block_bwd":
+        return ("act",) + ("param",) * 4
+    return ("act",)
+
+
+# Tolerances of a backward kernel against its plain version: an "act"
+# output's largest error over max(1, its largest |value|), a "param"
+# output's over its largest |value|.  f32: sum order.  A weight gradient
+# sums up to 16 x 512^2 = 4.2M products of O(1) operands into values near
+# sqrt(4.2M): f32 sums taken in two orders (per-block partials here,
+# cuDNN's wgrad there) differ by ~1e-4 of the largest (2.4e-4 on an
+# H100 at batch 16), hence 1e-3.  bf16: both sides round the same
+# f32 values, and a rounding that flips on one side moves a sum by an
+# ulp.  The pool backward only routes values: exact.
+FLAT_BWD_TOL = {"float32": {"act": 1e-5, "param": 1e-3},
+                "bfloat16": {"act": 2e-2, "param": 2e-2}}
+
+
+def flat_bwd_errors(case: dict, got, want, dtype_name: str):
+    """-> [(kind, scaled error, tolerance)] per output; raises on a shape,
+    dtype or count mismatch."""
+    kinds = flat_bwd_output_kinds(case)
+    if len(got) != len(kinds) or len(want) != len(kinds):
+        raise AssertionError(f"{case['op']} {case['name']}: {len(got)} / "
+                             f"{len(want)} outputs, want {len(kinds)}")
+    out = []
+    for kind, a, b in zip(kinds, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{case['op']} {case['name']}: {a.shape} "
+                                 f"{a.dtype} vs {b.shape} {b.dtype}")
+        b64 = b.double()
+        scale = float(b64.abs().max()) if b.numel() else 0.0
+        scale = max(1.0, scale) if kind == "act" else max(scale, 1e-30)
+        err = (float((a.double() - b64).abs().max()) / scale
+               if b.numel() else 0.0)
+        tol = (0.0 if case["op"] == "flat_maxpool2_bwd"
+               else FLAT_BWD_TOL[dtype_name][kind])
+        out.append((kind, err, tol))
+    return out

@@ -20,11 +20,11 @@ from jax.experimental import pallas as pl
 from msau_tpu.models.flat_layers import make_scale_geoms
 from msau_tpu.ops import flatconv as jfc
 from msau_tpu_torch.ops.flatconv import (
-    BACKWARD_TODO,
     concat_conv1x1,
     concat_conv1x1_plain,
     flat_conv2d,
     flat_conv2d_plain,
+    flat_deconv2,
     flat_deconv2_plain,
     flat_maxpool2,
     flat_maxpool2_plain,
@@ -32,7 +32,11 @@ from msau_tpu_torch.ops.flatconv import (
     to_nchw_plain,
 )
 from msau_tpu_torch.utils.flat_cases import (
+    FLAT_BWD_CASES,
     FLAT_CASES,
+    flat_bwd_case_fns,
+    flat_bwd_case_tensors,
+    flat_bwd_errors,
     flat_case_fns,
     flat_case_tensors,
 )
@@ -254,16 +258,53 @@ def test_to_nchw_casts_in_the_same_pass():
     assert torch.equal(got, x.permute(0, 3, 1, 2).bfloat16())
 
 
-def test_backward_raises():
-    """No gradient flows silently through a flat op."""
-    x = torch.randn(1, 4, 6, 6, requires_grad=True)
-    w = torch.randn(4, 4, 3, 3, requires_grad=True)
-    b = torch.zeros(4, requires_grad=True)
-    for y in (flat_conv2d(x, w, b, act="relu"), flat_maxpool2(x),
-              concat_conv1x1(x, x, torch.randn(4, 8, 1, 1), b)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 rows 7"):
-            y.sum().backward()
-    assert "19" in BACKWARD_TODO
+def _grads(fn, *xs):
+    """torch.autograd.grad of fn(*xs) against a seeded cotangent."""
+    xs = [x.detach().clone().requires_grad_() for x in xs]
+    y = fn(*xs)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(5))
+    return torch.autograd.grad(y, xs, g)
+
+
+@pytest.mark.parametrize("op", ["conv_lrn", "conv_elu_pair", "end_conv",
+                                 "concat1x1", "pool", "deconv"])
+def test_gradient_flows_through_each_flat_op(op):
+    """Each flat op's backward (plain versions on the CPU) against torch
+    autograd of the same function written with torch ops; f32, 1e-5 of
+    each gradient's scale."""
+    rng = np.random.default_rng(len(op))
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    F = torch.nn.functional
+    if op == "conv_lrn":
+        args = (t(2, 6, 9, 11), t(12, 6, 3, 3) * 0.3, t(12))
+        ours = lambda x, w, b: flat_conv2d(x, w, b, dilation=2, lrn_size=8)
+        ref = lambda x, w, b: F.local_response_norm(
+            F.conv2d(x, w, b, padding=2, dilation=2), 8)
+    elif op == "conv_elu_pair":
+        args = (t(2, 4, 7, 5), t(2, 3, 7, 5), t(8, 7, 3, 3) * 0.3, t(8))
+        ours = lambda a, b, w, bias: flat_conv2d((a, b), w, bias, act="elu")
+        ref = lambda a, b, w, bias: F.elu(F.conv2d(torch.cat([a, b], 1), w,
+                                                   bias, padding=1))
+    elif op == "end_conv":
+        args = (t(1, 8, 9, 6), t(17, 8, 4, 4) * 0.3, t(17))
+        ours = lambda x, w, b: flat_conv2d(x, w, b)
+        ref = lambda x, w, b: F.conv2d(F.pad(x, (1, 2, 1, 2)), w, b)
+    elif op == "concat1x1":
+        args = (t(2, 5, 6, 7), t(2, 5, 6, 7), t(5, 10, 1, 1), t(5))
+        ours = lambda a, b, w, bias: concat_conv1x1(a, b, w, bias, act="relu")
+        ref = lambda a, b, w, bias: F.relu(F.conv2d(torch.cat([a, b], 1), w,
+                                                    bias))
+    elif op == "pool":
+        args = (t(2, 3, 9, 7),)
+        ours = flat_maxpool2
+        ref = lambda x: F.max_pool2d(x, 2, 2, ceil_mode=True)
+    else:
+        args = (t(2, 6, 5, 7), t(6, 4, 3, 3), t(4))
+        ours = lambda x, w, b: flat_deconv2(x, w, b, (9, 14))
+        ref = lambda x, w, b: F.conv_transpose2d(x, w, b, stride=2, padding=1,
+                                                 output_padding=(0, 1))
+    for got, want in zip(_grads(ours, *args), _grads(ref, *args)):
+        _close(got, want.numpy())
 
 
 def test_bf16_ops_round_once_from_f32():
@@ -279,6 +320,23 @@ def test_bf16_ops_round_once_from_f32():
                              torch.from_numpy(b), act="elu", lrn_size=8)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want.bfloat16())
+
+
+@pytest.mark.parametrize("case", [c for c in FLAT_BWD_CASES if not c["per_step"]],
+                         ids=lambda c: f"{c['op']}-{c['name']}")
+def test_card_bwd_cases_take_the_plain_version_on_the_cpu(case):
+    """The backward kernels' ragged card cases on CPU tensors: the CUDA
+    wrapper refuses them, the plain version gives outputs of the kinds and
+    shapes the card check compares."""
+    tensors = flat_bwd_case_tensors(case, np.random.default_rng(0),
+                                    torch.device("cpu"), torch.float32)
+    kernel, plain = flat_bwd_case_fns(case, tensors)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel()
+    got = plain()
+    errs = flat_bwd_errors(case, got, got, "float32")
+    assert [e[1] for e in errs] == [0.0] * len(got)
+    assert all(torch.isfinite(t).all() for t in got)
 
 
 @pytest.mark.parametrize("case", [c for c in FLAT_CASES if not c["per_request"]],

@@ -150,3 +150,72 @@ def test_train_path_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "TrainConfig", "InferConfig"])
+def test_config_copies_match(name):
+    """The port's config dataclasses: the original's field names, order and
+    defaults, and the model_kwargs round trip."""
+    from msau_tpu import config as o_config
+    from msau_tpu_torch import config
+
+    ours, orig = getattr(config, name), getattr(o_config, name)
+    fields = [(f.name, f.default, f.default_factory)
+              for f in dataclasses.fields(ours)]
+    assert fields == [(f.name, f.default, f.default_factory)
+                      for f in dataclasses.fields(orig)]
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(orig())
+    if name == "ModelConfig":
+        kw = {"featRoot": 16, "scale_space_num": 4, "n_class": 17,
+              "max_box_sizes": 9, "num_blocks": 2, "unknown": 1}
+        a, b = ours.from_model_kwargs(kw), orig.from_model_kwargs(kw)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert a.to_model_kwargs() == b.to_model_kwargs()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_char_records_copy_matches(seed):
+    """Seeded lines (some empty) through the port's records and the JAX
+    package's numpy path."""
+    from msau_tpu.native import _char_records_numpy
+    from msau_tpu_torch.data.native import char_records
+
+    rng = np.random.default_rng(seed)
+    n = 12
+    x1, y1 = rng.integers(0, 400, n), rng.integers(0, 400, n)
+    boxes = np.stack([x1, y1, x1 + rng.integers(1, 200, n),
+                      y1 + rng.integers(1, 30, n)], 1).astype(np.int32)
+    lens = rng.integers(0, 9, n)
+    lens[seed] = 0
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    ids = rng.integers(0, 64, int(offsets[-1])).astype(np.int32)
+    got = char_records(boxes, offsets, ids, 1.2)
+    want = _char_records_numpy(boxes, offsets, ids, 1.2)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    empty = char_records(boxes[:2], np.zeros(3, np.int32),
+                         np.zeros(0, np.int32), 1.2)
+    assert [e.shape for e in empty] == [(0, 5), (0,), (0,)]
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """Every module of msau_tpu_torch, and chip_smoke, imported in a fresh
+    interpreter: neither jax nor any msau_tpu module gets loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import msau_tpu_torch\n"
+        "for m in pkgutil.walk_packages(msau_tpu_torch.__path__, "
+        "'msau_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'msau_tpu' or "
+        "m.startswith('msau_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('msau_tpu_torch')]))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 20

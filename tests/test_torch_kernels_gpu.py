@@ -19,6 +19,12 @@ deconv and the fused residual block within 1e-5 of max(1, max |want|) in
 f32 (sum order) and 2e-2 of it in bf16 (both sides sum the same bf16
 operands in f32 and round once; the residual block also rounds conv1's
 output, where one flipped rounding moves conv2's sum by a bf16 ulp).
+Their backward kernels (``utils.flat_cases.FLAT_BWD_CASES``): the pool's
+exact; every other output within ``FLAT_BWD_TOL`` (activation-shaped
+cotangents 1e-5 of max(1, max |want|) in f32, 2e-2 in bf16; weight and bias
+gradients, sums over every pixel of the batch in another order than
+cuDNN's, 1e-3 of max |want| in f32, 2e-2 in bf16), and the same bits on a
+second run.
 """
 
 import numpy as np
@@ -44,7 +50,11 @@ from msau_tpu_torch.ops.ccl import (
 )
 from msau_tpu_torch.ops.paint import paint_boxes_cuda, paint_boxes_plain
 from msau_tpu_torch.utils.flat_cases import (
+    FLAT_BWD_CASES,
     FLAT_CASES,
+    flat_bwd_case_fns,
+    flat_bwd_case_tensors,
+    flat_bwd_errors,
     flat_case_fns,
     flat_case_tensors,
 )
@@ -162,3 +172,22 @@ def test_flat_kernels_match_plain(cuda, case, dtype):
     else:
         tol = 1e-5 if dtype == torch.float32 else 2e-2
         assert _scaled_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLAT_BWD_CASES,
+                         ids=[f"{c['op']}-{c['name']}" for c in FLAT_BWD_CASES])
+def test_flat_bwd_kernels_match_plain(cuda, case, dtype):
+    tensors = flat_bwd_case_tensors(case, np.random.default_rng(13), cuda,
+                                    dtype, n=min(case["n"], 2))
+    kernel, plain = flat_bwd_case_fns(case, tensors)
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    for kind, err, tol in flat_bwd_errors(case, got, want,
+                                          str(dtype).split(".")[-1]):
+        assert err <= tol, (kind, err, tol)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

@@ -146,20 +146,21 @@ def test_lrn_matches_flax():
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("flat_scales", 2),
-                                         ("spatial_shards", 2),
+@pytest.mark.parametrize("field,value", [("spatial_shards", 2),
                                          ("model", "msau_box"),
                                          ("use_lstm", True),
                                          ("use_spn", True)])
 def test_unported_options_raise(field, value):
-    """flat_scales > 0 serves (see the parity tests above) but does not
-    train: the flat ops' backward kernels are the next slice."""
     cfg = ModelConfig(**{**CFG, field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if field == "flat_scales":
-            Trainer(cfg, device="cpu")
-        else:
-            build_model(cfg, torch.Generator().manual_seed(0))
+        build_model(cfg, torch.Generator().manual_seed(0))
+
+
+def test_trainer_builds_at_flat_scales():
+    """flat_scales > 0 trains (tests/test_torch_flat_train.py): the
+    trainer no longer refuses it."""
+    tr = Trainer(ModelConfig(**{**CFG, "flat_scales": 2}), device="cpu")
+    assert tr.model.config.flat_scales == 2
 
 
 def test_bf16_config_casts_f32_params_at_use():
@@ -198,5 +199,24 @@ def test_logits_layout(models):
     assert torch.equal(nhwc[2], nchw[2].permute(0, 2, 3, 1))
     torch.testing.assert_close(nhwc[0], nchw[0].permute(0, 2, 3, 1),
                                rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(x, logits_layout="BODY")
+    with pytest.raises(ValueError, match="logits_layout"):
+        tm(x, logits_layout="NWHC")
+
+
+@pytest.mark.parametrize("fs", [0, 2])
+def test_body_logits_are_channel_major(models, fs):
+    """"BODY": [N, C, H*W] f32 logits and aux, the NCHW ones flattened (the
+    port's counterpart of the JAX body-flat [N, C, LB]), probs over dim 1."""
+    _, _, tm = models
+    m = build_model(ModelConfig(**CFG, flat_scales=fs),
+                    torch.Generator().manual_seed(0))
+    m.load_state_dict(tm.state_dict())
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(2, 20, 28, 6)).astype(np.float32))
+    with torch.no_grad():
+        body = m(x, logits_layout="BODY")
+        nchw = m(x, logits_layout="NCHW")
+    assert body[1].shape == (2, 5, 20 * 28) and body[1].dtype == torch.float32
+    assert torch.equal(body[1], nchw[1].flatten(2))
+    assert torch.equal(body[2], nchw[2].flatten(2))
+    torch.testing.assert_close(body[0].sum(1), torch.ones(2, 20 * 28))

@@ -40,6 +40,7 @@ from msau_tpu_torch.train.optimizer import make_optimizer, staircase_schedule
 from msau_tpu_torch.train.trainer import (
     Trainer,
     TrainState,
+    make_eval_step,
     make_loss_and_grad,
     make_train_step,
 )
@@ -314,15 +315,29 @@ def test_trainer_rejects_a_mesh():
         Trainer(ModelConfig(**CFG), mesh=object(), device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["make_loss_and_grad", "make_train_step"])
-def test_flat_scales_train_entry_points_raise(entry):
-    """The flat-layout ops have no backward yet: make_loss_and_grad and
-    make_train_step refuse flat_scales > 0, naming the ROADMAP rows still
-    to port."""
+@pytest.mark.parametrize("entry", ["make_loss_and_grad", "make_train_step",
+                                   "make_eval_step"])
+def test_flat_scales_train_entry_points_run(entry):
+    """make_loss_and_grad, make_train_step and make_eval_step at
+    flat_scales > 0 (their parity with JAX and with flat_scales 0 is in
+    tests/test_torch_flat_train.py): finite loss, an f32 gradient for every
+    parameter the loss reaches."""
     model = build_model(ModelConfig(**CFG, flat_scales=1),
                         torch.Generator().manual_seed(0))
-    args = (model,) if entry == "make_loss_and_grad" else (
-        model, make_optimizer(TrainConfig()))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 rows 7"):
-        {"make_loss_and_grad": make_loss_and_grad,
-         "make_train_step": make_train_step}[entry](*args)
+    x, y = make_structured_batch(np.random.default_rng(4), 2, 24, 5, 6)
+    batch = {"input": torch.from_numpy(x), "label": torch.from_numpy(y)}
+    if entry == "make_loss_and_grad":
+        loss, metrics, grads = make_loss_and_grad(model)(batch)
+        assert torch.isfinite(loss) and set(metrics) >= {"loss", "accuracy"}
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                   for g in grads.values())
+        assert float(grads["net.block_0.down.dil_conv_0.Conv_0.weight"]
+                     .abs().max()) > 0
+    elif entry == "make_train_step":
+        opt = make_optimizer(TrainConfig(lr_decay_staircase=False))
+        state, metrics = make_train_step(model, opt)(
+            TrainState.create(model, opt), batch)
+        assert state.step == 1 and torch.isfinite(metrics["grad_norm"])
+    else:
+        metrics = make_eval_step(model)(dict(model.named_parameters()), batch)
+        assert torch.isfinite(metrics["loss"])
