@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and CUDA versions, and build the hand-written kernels from csrc/
      (nvcc, sm_90a) with the build time;
   1. each kernel against its plain PyTorch version on the card, with its
-     device time (torch.profiler) beside
+     device time (torch.profiler; CUDA events where the profiler stays
+     empty, counted in the report) beside
      the plain version's and, where one torch call computes the same
      function, that call's, and its bound (the larger of its operations
      over the FP32 peak and its bytes over the memory rate):
@@ -33,6 +34,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (pool, conv stage 1 and dx, deconv dx and dw, residual block) on every
      FLAT_BWD_CASES entry, the train step's instances at batch 16, in f32
      and bf16 (FLAT_BWD_TOL), each run twice for equal bits;
+       streaming attention  N=2, T=16384, Cb=8, C=64 (config 5's deepest
+                  scale) with f32 and bf16 operands, a ragged T = 8200 and
+                  T = 66, against the blockwise plain versions: the f32
+                  output within 1e-5 of max(1, max |want|) for both operand
+                  types, the backward (the rows kernel on the f32 cotangent,
+                  its row tiles in groups) within 1e-4 of the largest
+                  |gradient| (2e-2 for bf16 gradients) and the same bits on
+                  a second run; at T = 4096 the blockwise plain version and
+                  the kernel against the materialised [T, T] form (1e-5);
   2. the serve path, KVModel.predict, of the flagship model (img_channels 64,
      17 classes, 4 scales, feat_root 8, res_depth 2, 3 stages) at
      flat_scales 0 and 3, f32 and bf16, with the same seeded random weights
@@ -46,7 +56,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      card and on the CPU agree to 1e-4; the bf16 flat_scales 3
      probabilities lie from the bf16 flat_scales 0 ones at most 2.5 times
      as far (mean abs) as those lie from their f32 counterparts; p50 of
-     each predict stage, flat_scales 0 and 3 side by side;
+     each predict stage, flat_scales 0 and 3 side by side; then config 5's
+     model (the flagship's widths at flat_scales 2: 1024^2 pages put 16384
+     tokens at the deepest scale, where the model takes the streaming
+     attention) on a page that lands in the 1024 bucket (2814 lines), f32
+     and bf16, 3 requests each: launches per request (paint 3, streaming
+     attention 3, resident attention 0, CCL 1, conv 15, residual block 12,
+     concat 1x1 8, deconv 6, pool 6, entry layout 1), the decode tables
+     equal to the plain-version pipeline's, p50 of each stage, and the f32
+     probabilities on the page's chargrid within 2e-3 (mean 1e-6) of the
+     CPU's plain versions with the same weights;
   3. the train path: the same model through Trainer.init_state and its
      train step (masked CE, Adam lr 1e-4, clip 1.0) at batch 16, 512^2, on
      the bench's structured batch, at flat_scales 3 (the bench's setting)
@@ -65,7 +84,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
      plus 1e-6 of the model's; loss rel 1e-5, grad_norm rel 1e-3), the
      card's flat_scales 3 against its 0 within twice that, and the card's
      flat_scales 0 against the CPU's f32 step within 1x (grad_norm rel
-     1e-4); see train_step_check.
+     1e-4); see train_step_check.  Then config 5 through Trainer (batch 2,
+     1024^2, remat, flat_scales 2; bf16, then f32): 2 warm-up and 5 timed
+     steps, launches per step (PER_STEP_CONFIG5: the forward kernels of a
+     stage twice, since remat recomputes it), the bf16 loss below its first
+     value after 20 steps, a device profile, and the attention backward's
+     scratch beside what was allocated while it ran and the step's peak;
+     train_step_check also holds the card's flat_scales 2 step with the
+     streaming attention forced (attention_impl="pallas") to the exact one.
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 and 3, its
@@ -111,21 +137,56 @@ def _profile_once(fn, iters):
     return per_call / 1e3, (min(launches), max(launches))
 
 
-def _device_time(fn, iters, attempts=8):
+# how the calls of _device_time were timed in this run, and whether the
+# profiler last failed a call outright
+TIMER = {"profiler_calls": 0, "event_calls": 0, "profiler_down": False}
+
+
+def _event_time(fn, iters):
+    """CUDA events around ``iters`` back-to-back calls -> (ms per call,
+    (ms, ms)).  Between the kernels of a call it also counts the gaps the
+    host leaves, so a kernel of a few microseconds reads as the host's
+    launch rate: the fallback only, marked in TIMER."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    return ms, (ms, ms)
+
+
+def _device_time(fn, iters, attempts=3):
     """``_profile_once`` after two warm-up calls.  A session that recorded
     no device time (about one in a hundred on the H100's host) is run again
-    after a pause, up to ``attempts`` times; then this raises."""
+    after a pause, up to ``attempts`` times.  Now and then the profiler
+    stays empty for minutes, every session started within a few seconds of
+    the last one lost (one run lost 159 sessions): a call that used up its
+    attempts takes CUDA events (``_event_time``), and until the profiler
+    records again each later call gives it one session and no pause, so the
+    run ends inside its time limit; TIMER counts both, and the report and
+    the line before the kernels' say how many calls fell back."""
     for _ in range(2):
         fn()
-    for i in range(attempts):
+    for i in range(1 if TIMER["profiler_down"] else attempts):
         got = _profile_once(fn, iters)
         if got is not None:
+            TIMER["profiler_calls"] += 1
+            TIMER["profiler_down"] = False
             return got
         print(f"[timer] torch.profiler recorded no device time ({i + 1})",
               flush=True)
-        time.sleep(0.5 * 2 ** min(i, 3))
-    raise RuntimeError(f"torch.profiler recorded no device time in "
-                       f"{attempts} sessions")
+        if not TIMER["profiler_down"] and i + 1 < attempts:
+            time.sleep(0.5 * 2 ** i)
+    TIMER["profiler_down"] = True
+    TIMER["event_calls"] += 1
+    print("[timer] timed by CUDA events instead", flush=True)
+    return _event_time(fn, iters)
 
 
 def _cuda_ms(fn, iters):
@@ -403,6 +464,145 @@ def check_train_kernels(dev):
         "library_ms": None, "times": times,
         "bound": _bound(0, n * length * (2 * c + 2) * 4)}
     return out
+
+
+# (N, T, operand dtype) of the streaming attention's cases: config 5's
+# deepest scale (1024^2 pages, batch 2), a ragged T above the streaming
+# threshold and a small one.  The forward's output is f32 whatever the
+# operands, so both dtypes are held to FUSED_FWD_TOL of max(1, max |want|)
+# (bf16 operands are upcast alike on both sides and nothing is rounded on
+# the way out); the backward's gradients come out in the operands' dtype
+FUSED_CASES = ((2, 16384, "float32"), (2, 16384, "bfloat16"),
+               (1, 8200, "float32"), (3, 66, "float32"))
+FUSED_FWD_TOL = 1e-5
+FUSED_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest |gradient|
+
+
+def check_fused_attention(dev):
+    """Phase 1, the streaming attention (forward kernels, and the rows
+    kernel on their f32 cotangent) against the blockwise plain versions ->
+    {kernel: {max_abs_err, ms, plain_ms, cases, ...}}."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.ops.attention import (
+        fused_attention_bwd_cuda,
+        fused_attention_bwd_plain,
+        fused_attention_cuda,
+        fused_attention_plain_stats,
+        resident_attention_plain_stats,
+    )
+    from msau_tpu_torch.utils.kernel_inputs import attention_inputs
+
+    cb, c = 8, 64
+    fwd = {"cases": {}, "times": {}, "library_ms": None}
+    bwd = {"cases": {}, "times": {}, "library_ms": None}
+    # the blockwise oracle itself, and the kernel, against the materialised
+    # [T, T] form at the flagship's T
+    f, g, h = (torch.from_numpy(a).to(dev) for a in
+               attention_inputs(np.random.default_rng(4096), 1, 4096, cb, c))
+    full = resident_attention_plain_stats(f, g, h)[0]
+    oracle = _scaled_err(fused_attention_plain_stats(f, g, h)[0], full)
+    kernel = _scaled_err(fused_attention_cuda(f, g, h)[0], full)
+    fwd["cases"]["T4096_vs_materialised"] = {
+        "blockwise_plain_scaled_err": oracle, "kernel_scaled_err": kernel,
+        "tol": FUSED_FWD_TOL}
+    if max(oracle, kernel) > FUSED_FWD_TOL:
+        raise AssertionError(f"fused attention against the materialised form "
+                             f"at T = 4096: {fwd['cases']}")
+    print(f"[phase 1] fused attention T4096 against the materialised form: "
+          f"blockwise plain {oracle:.3e}, kernel {kernel:.3e}", flush=True)
+    for n, t, key in FUSED_CASES:
+        dtype = getattr(torch, key)
+        rng = np.random.default_rng(t)
+        f, g, h = (torch.from_numpy(a).to(dev, dtype)
+                   for a in attention_inputs(rng, n, t, cb, c))
+        dout = torch.from_numpy(rng.normal(size=(n, t, c)).astype(
+            np.float32)).to(dev)
+        name = f"N{n}_T{t}_{key}"
+        got, m, l = fused_attention_cuda(f, g, h)
+        torch.cuda.synchronize()
+        want, wm, wl = fused_attention_plain_stats(f, g, h)
+        err = {"max_abs_err": _max_abs(got, want),
+               "scaled_err": _scaled_err(got, want),
+               "m_max_abs_err": _max_abs(m, wm),
+               "l_max_rel_err": float(((l - wl).abs() / wl).max()),
+               "tol": FUSED_FWD_TOL}
+        fwd["cases"][name] = err
+        if (got.dtype != torch.float32 or err["scaled_err"] > FUSED_FWD_TOL
+                or err["m_max_abs_err"] > 1e-5 or err["l_max_rel_err"] > 1e-5):
+            raise AssertionError(f"fused attention fwd {name}: {err}")
+        grads = fused_attention_bwd_cuda(f, g, h, m, l, dout)
+        again = fused_attention_bwd_cuda(f, g, h, m, l, dout)
+        scratch = fused_attention_bwd_cuda.scratch_bytes
+        torch.cuda.synchronize()
+        wgrads = fused_attention_bwd_plain(f, g, h, m, l, dout)
+        tol = FUSED_BWD_TOL[key]
+        berr = {"tol": tol, "bit_identical": all(
+            torch.equal(a, b) for a, b in zip(grads, again)),
+            "scratch_mib": scratch / 2**20}
+        for gname, a, b in zip(("df", "dg", "dh"), grads, wgrads):
+            berr[gname] = {"max_abs_err": _max_abs(a, b),
+                           "scaled_err": _scaled_err(a, b)}
+            if a.dtype != dtype or berr[gname]["scaled_err"] > tol:
+                raise AssertionError(f"fused attention bwd {name} {gname}: "
+                                     f"{berr[gname]} (tol {tol})")
+        if not berr["bit_identical"]:
+            raise AssertionError(f"fused attention bwd {name}: a second run "
+                                 "gave other bits")
+        bwd["cases"][name] = berr
+        del got, want, grads, again, wgrads
+        if t == FUSED_CASES[0][1]:
+            fwd["times"][name] = {
+                "ms": _cuda_ms(lambda: fused_attention_cuda(f, g, h), 10),
+                "plain_ms": _cuda_ms(
+                    lambda: fused_attention_plain_stats(f, g, h), 3)}
+            bwd["times"][name] = {
+                "ms": _cuda_ms(lambda: fused_attention_bwd_cuda(
+                    f, g, h, m, l, dout), 5),
+                "plain_ms": _cuda_ms(lambda: fused_attention_bwd_plain(
+                    f, g, h, m, l, dout), 3)}
+            if key == "float32":
+                # one page (the serve path's launch), other splits of the
+                # summed axis, and the backward with every tile in one group
+                fwd["times"]["N1"] = {"ms": _cuda_ms(
+                    lambda: fused_attention_cuda(f[:1], g[:1], h[:1]), 10)}
+                fwd["times"]["by_splits"] = {
+                    str(k): _cuda_ms(lambda: fused_attention_cuda(
+                        f, g, h, splits=k), 5) for k in (1, 2, 4)}
+                fused_attention_bwd_cuda(f, g, h, m, l, dout, group=10**6)
+                bwd["times"]["one_group"] = {
+                    "scratch_mib": fused_attention_bwd_cuda.scratch_bytes / 2**20,
+                    "ms": _cuda_ms(lambda: fused_attention_bwd_cuda(
+                        f, g, h, m, l, dout, group=10**6), 5)}
+        print(f"[phase 1] fused attention {name}: fwd scaled err "
+              f"{err['scaled_err']:.3e} (tol {FUSED_FWD_TOL}); bwd " + ", ".join(
+                  f"{k} {berr[k]['scaled_err']:.3e}" for k in ("df", "dg", "dh"))
+              + f" (tol {tol}), same bits on a rerun, scratch "
+              f"{berr['scratch_mib']:.1f} MiB", flush=True)
+        torch.cuda.empty_cache()
+    n, t, key = FUSED_CASES[0]
+    main = f"N{n}_T{t}_{key}"
+    isz = 4
+    # the score product once and A^T h; f, g, h in, out, m, l (f32) out
+    fwd.update(max_abs_err=fwd["cases"][main]["max_abs_err"],
+               ms=fwd["times"][main]["ms"],
+               plain_ms=fwd["times"][main]["plain_ms"],
+               bound=_bound(n * 2 * t * t * (cb + c),
+                            n * t * ((2 * cb + c) * isz + (c + 2) * 4)),
+               timed_on=f"{main} (config 5's train step)")
+    # as resident_attention_bwd's: s recomputed, dh = A dout, h dout^T,
+    # dg = ds f, df = ds^T g; f, g, h, dout, m, l in, df, dg, dh out
+    bwd.update(max_abs_err=max(bwd["cases"][main][k]["max_abs_err"]
+                               for k in ("df", "dg", "dh")),
+               ms=bwd["times"][main]["ms"],
+               plain_ms=bwd["times"][main]["plain_ms"],
+               bound=_bound(n * 2 * t * t * (3 * cb + 2 * c),
+                            n * t * (4 * cb + 3 * c + 2) * 4),
+               timed_on=f"{main} (config 5's train step)")
+    print(f"[phase 1] fused attention times: fwd {json.dumps(fwd['times'])}; "
+          f"bwd {json.dumps(bwd['times'])}", flush=True)
+    return {"fused_attention_fwd": fwd, "fused_attention_bwd": bwd}
 
 
 # kernel -> (its source, the TPU kernel it replaces) for the flat-layout ops
@@ -707,61 +907,165 @@ SERVE_PER_REQUEST = {
 BF16_FLAT_FACTOR = 2.5
 
 
-def serve_path(dev):
-    """Phase 2 -> (launch counts, stage p50s by model, checks)."""
-    import numpy as np
+# config 5 of BASELINE.md (scripts/bench_configs.py: 1024^2, bf16, batch 2,
+# remat, flat_scales 2): the flagship's widths; the deepest scale holds
+# 128 x 128 = 16384 tokens, so "auto" takes the streaming attention
+CONFIG5 = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
+               feat_root=8, num_blocks=3, final_act="softmax", remat=True,
+               flat_scales=2, attention_impl="auto")
+# kernel launches per request of config 5's serve path, read off
+# models/msau.py at flat_scales 2: per stage 2 dil + 2 merge + 1 end convs,
+# 4 residual blocks, 2 deconvs, 2 pools, and 4 couplings in stages 1 and 2
+SERVE_PER_REQUEST_1024 = {
+    "paint": 3, "fused_attention_fwd": 3, "ccl_multiclass": 1,
+    "flat_conv2d": 15, "flat_res_block": 12, "concat_conv1x1": 8,
+    "flat_deconv2": 6, "flat_maxpool2": 6, "to_nchw": 1}
+# the card's f32 probabilities at 1024^2 against the CPU's plain versions
+# on the same chargrid.  At 64x64 the bound is 1e-4 (below); this random
+# model amplifies one-ulp differences at a few pixels, and over 17 M
+# probabilities three runs read a largest error of 2.9e-4 to 3.6e-4 with a
+# mean of 5.7e-8, and another CPU sums in another order (its f32 step lay
+# 2.3x further from the exact one): the largest error is held to 2e-3 and
+# the mean to 1e-6, which a fault in any kernel of the path exceeds
+FORWARD_1024_TOL = 2e-3
+FORWARD_1024_MEAN_TOL = 1e-6
+
+
+def _bench_kv(model_kwargs, dtype, dev, bucket, page):
+    """A KVModel of ``model_kwargs`` with the bench charset and seeded
+    random weights (the same at every flat_scales and dtype), warmed up at
+    ``bucket`` and on ``page``."""
     import torch
 
     from msau_tpu_torch.config import InferConfig, ModelConfig
-    from msau_tpu_torch import ops
     from msau_tpu_torch.data.charset import Charset
-    from msau_tpu_torch.data.pages import page_from_label_dict
-    from msau_tpu_torch.data.rasterize import paint_boxes
-    from msau_tpu_torch.data.synth import BENCH_CHARSET, make_page
-    from msau_tpu_torch.infer.decode import decode_fields_device, pack_decode_out
+    from msau_tpu_torch.data.synth import BENCH_CHARSET
     from msau_tpu_torch.infer.kv_model import KVModel
+
+    kv = KVModel(model_config=ModelConfig(**model_kwargs, dtype=dtype),
+                 infer_config=InferConfig(n_class=17), device=dev)
+    kv.charset = Charset(chars=" $" + BENCH_CHARSET)
+    assert kv.charset.n_token == 64
+    kv.load(n_class=17, generator=torch.Generator().manual_seed(0))
+    kv.warmup_bucket(bucket)
+    kv.predict(page, return_maps=False)   # the page itself, unmeasured
+    return kv
+
+
+def _serve_requests(kv, page, n_req, per_request, label, total):
+    """``n_req`` requests with the launch counters reset just before and
+    read just after -> p50 ms of each predict stage; the launches per
+    request are held to ``per_request`` and added into ``total``."""
+    import numpy as np
+
+    from msau_tpu_torch import ops
+
+    rows = []
+    ops.reset_launch_counts()
+    for _ in range(n_req):
+        t = {}
+        kv.predict(page, return_maps=False, timings=t)
+        rows.append(t)
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        want = per_request.get(name, 0) * n_req
+        if n != want:
+            raise AssertionError(f"{label}: {name} launched {n} times in "
+                                 f"{n_req} requests, want {want}")
+        total[name] += n
+    print(f"[phase 2] {label}: launches per request "
+          f"{ {k: v / n_req for k, v in counts.items() if v} }", flush=True)
+    return {k: float(np.median([r[k] for r in rows]))
+            for k in ("prep", "device", "strings")}
+
+
+def _decode_check(kv, page, hb, dev, label):
+    """One request with its maps: finite probabilities of the bucket's
+    shape that sum to 1, and decode tables equal to the same pipeline's
+    with the plain versions (CPU) on the same probabilities -> (check,
+    probs [H, W, C] f32)."""
+    import torch
+
+    from msau_tpu_torch.data.rasterize import paint_boxes
+    from msau_tpu_torch.infer.decode import decode_fields_device, pack_decode_out
+    from msau_tpu_torch.ops.paint import paint_boxes_plain
+
+    res, extras = kv.predict(page, return_maps=True)
+    probs = extras["pred"]
+    progs = extras["programs"]
+    wb = hb
+    assert probs.shape == (hb, wb, 17), probs.shape
+    assert torch.isfinite(probs).all()
+    assert torch.allclose(probs.sum(-1), torch.ones((), device=dev), atol=1e-4)
+    num_lines = -(-max(len(extras["scaled_lines"]), 1) // 128) * 128
+    planes = {}
+    for name in ("line_id", "char_id"):
+        prog = getattr(progs, name).padded(
+            -(-max(len(getattr(progs, name).values), 1) // 512) * 512)
+        b, v = torch.from_numpy(prog.boxes), torch.from_numpy(prog.values)
+        b, v = b.to(dev), v.to(dev)
+        on_card = paint_boxes(b, v, hb, wb)
+        # the plain version, a select per box, takes 24 s per 1024^2 plane
+        # on the CPU: it runs on the card and its plane goes to the CPU
+        plain = paint_boxes_plain(b, v, hb, wb).cpu()
+        assert torch.equal(on_card.cpu(), plain), name
+        planes[name] = (on_card, plain)
+    kw = dict(n_class=17, num_lines=num_lines, k=8,
+              min_area=kv.cfg.min_component_area)
+    mlc = kv._multiline_classes()
+    card = decode_fields_device(probs, planes["line_id"][0],
+                                planes["char_id"][0], mlc, **kw)
+    host = decode_fields_device(probs.cpu(), planes["line_id"][1],
+                                planes["char_id"][1], mlc, **kw)
+    same = torch.equal(pack_decode_out(card).cpu(), pack_decode_out(host))
+    assert torch.equal(card["chosen_class"].cpu(), host["chosen_class"])
+    assert torch.equal(card["chosen_class"], extras["chosen_class"])
+    if not same:
+        raise AssertionError(f"{label}: decode tables differ from the "
+                             "plain-version pipeline")
+    check = {"decode_tables_equal_plain": True,
+             "active_fields": int(card["active"].sum()),
+             "n_results": len(res), "lines": len(extras["scaled_lines"])}
+    print(f"[phase 2] {label}: decode tables equal the plain pipeline's; "
+          f"{check['active_fields']} active classes", flush=True)
+    return check, probs.float()
+
+
+def _cpu_twin(kv):
+    """The KVModel's network on the CPU with the same weights."""
+    import torch
+
     from msau_tpu_torch.models.msau import build_model
+
+    twin = build_model(kv.model_config, torch.Generator().manual_seed(0)).eval()
+    twin.load_state_dict({k: v.cpu() for k, v in kv.model.state_dict().items()})
+    return twin
+
+
+def serve_path(dev):
+    """Phase 2, the flagship at 512^2 -> (launch counts, stage p50s by
+    model, checks)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.synth import make_page
 
     base = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
                 feat_root=8, num_blocks=3, final_act="softmax")
     page = page_from_label_dict(
         make_page(np.random.default_rng(3), n_cols=5, rows_per_col=10))
-    models = {}
-    for fs in SERVE_PER_REQUEST:
-        for dtype in ("float32", "bfloat16"):
-            kv = KVModel(model_config=ModelConfig(**base, flat_scales=fs,
-                                                  dtype=dtype),
-                         infer_config=InferConfig(n_class=17), device=dev)
-            kv.charset = Charset(chars=" $" + BENCH_CHARSET)
-            assert kv.charset.n_token == 64
-            # the same seed draws the same weights at every flat_scales
-            kv.load(n_class=17, generator=torch.Generator().manual_seed(0))
-            kv.warmup_bucket(512)
-            kv.predict(page, return_maps=False)   # the bench page, unmeasured
-            models[(fs, dtype)] = kv
+    # the same seed draws the same weights at every flat_scales
+    models = {(fs, dtype): _bench_kv(dict(base, flat_scales=fs), dtype, dev,
+                                     512, page)
+              for fs in SERVE_PER_REQUEST for dtype in ("float32", "bfloat16")}
 
-    n_req = 5
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
     timings = {}
     for (fs, dtype), kv in models.items():
-        rows = []
-        ops.reset_launch_counts()
-        for _ in range(n_req):
-            t = {}
-            kv.predict(page, return_maps=False, timings=t)
-            rows.append(t)
-        counts = ops.launch_counts()
-        for name, n in counts.items():
-            want = SERVE_PER_REQUEST[fs].get(name, 0) * n_req
-            if n != want:
-                raise AssertionError(f"fs={fs} {dtype}: {name} launched {n} "
-                                     f"times in {n_req} requests, want {want}")
-            total[name] += n
-        timings[f"fs{fs}_{dtype}"] = {
-            k: float(np.median([r[k] for r in rows]))
-            for k in ("prep", "device", "strings")}
-        print(f"[phase 2] fs={fs} {dtype}: launches per request "
-              f"{ {k: v / n_req for k, v in counts.items() if v} }", flush=True)
+        timings[f"fs{fs}_{dtype}"] = _serve_requests(
+            kv, page, 5, SERVE_PER_REQUEST[fs], f"fs={fs} {dtype}", total)
     for dtype in ("float32", "bfloat16"):
         print(f"[phase 2] {dtype} predict p50 ms: " + " | ".join(
             f"fs={fs} " + ", ".join(f"{k} {v:.3f}" for k, v in
@@ -772,42 +1076,8 @@ def serve_path(dev):
     checks, probs_of = {}, {}
     for (fs, dtype), kv in models.items():
         key = f"fs{fs}_{dtype}"
-        res, extras = kv.predict(page, return_maps=True)
-        probs = extras["pred"]
-        progs = extras["programs"]
-        hb, wb = 512, 512
-        assert probs.shape == (hb, wb, 17), probs.shape
-        assert torch.isfinite(probs).all()
-        assert torch.allclose(probs.sum(-1), torch.ones((), device=dev), atol=1e-4)
-        probs_of[(fs, dtype)] = probs.float()
-        num_lines = -(-max(len(extras["scaled_lines"]), 1) // 128) * 128
-        planes = {}
-        for name in ("line_id", "char_id"):
-            prog = getattr(progs, name).padded(
-                -(-max(len(getattr(progs, name).values), 1) // 512) * 512)
-            b, v = torch.from_numpy(prog.boxes), torch.from_numpy(prog.values)
-            on_card = paint_boxes(b.to(dev), v.to(dev), hb, wb)
-            plain = paint_boxes(b, v, hb, wb)
-            assert torch.equal(on_card.cpu(), plain), name
-            planes[name] = (on_card, plain)
-        kw = dict(n_class=17, num_lines=num_lines, k=8,
-                  min_area=kv.cfg.min_component_area)
-        mlc = kv._multiline_classes()
-        card = decode_fields_device(probs, planes["line_id"][0],
-                                    planes["char_id"][0], mlc, **kw)
-        host = decode_fields_device(probs.cpu(), planes["line_id"][1],
-                                    planes["char_id"][1], mlc, **kw)
-        same = torch.equal(pack_decode_out(card).cpu(), pack_decode_out(host))
-        assert torch.equal(card["chosen_class"].cpu(), host["chosen_class"])
-        assert torch.equal(card["chosen_class"], extras["chosen_class"])
-        if not same:
-            raise AssertionError(f"{key}: decode tables differ from the "
-                                 "plain-version pipeline")
-        checks[key] = {"decode_tables_equal_plain": True,
-                       "active_fields": int(card["active"].sum()),
-                       "n_results": len(res)}
-        print(f"[phase 2] {key}: decode tables equal the plain pipeline's; "
-              f"{checks[key]['active_fields']} active classes", flush=True)
+        checks[key], probs_of[(fs, dtype)] = _decode_check(kv, page, 512, dev,
+                                                           key)
 
     # f32 at 512^2: flat_scales 3 against 0 (reported), and at 64x64 the
     # card's fs=0 and fs=3 forwards against each other and against the CPU
@@ -821,10 +1091,7 @@ def serve_path(dev):
     small = {}
     for fs in SERVE_PER_REQUEST:
         kv = models[(fs, "float32")]
-        cpu_model = build_model(kv.model_config,
-                                torch.Generator().manual_seed(0)).eval()
-        cpu_model.load_state_dict({k: v.cpu() for k, v in
-                                   kv.model.state_dict().items()})
+        cpu_model = _cpu_twin(kv)
         with torch.inference_mode():
             small[(fs, "card")] = kv.model(x.to(dev))[0].cpu()
             small[(fs, "cpu")] = cpu_model(x)[0]
@@ -856,6 +1123,63 @@ def serve_path(dev):
     return total, timings, checks
 
 
+def serve_path_1024(dev):
+    """Phase 2, config 5's model serving one page that lands in the 1024
+    bucket (10 columns x 20 rows of fields: 2814 lines), f32 and bf16 ->
+    (launch counts, stage p50s by dtype, checks)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.rasterize import paint_boxes, round_up
+    from msau_tpu_torch.data.synth import make_page
+
+    page = page_from_label_dict(
+        make_page(np.random.default_rng(3), n_cols=10, rows_per_col=20))
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    timings, checks, models = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        kv = models[dtype] = _bench_kv(CONFIG5, dtype, dev, 1024, page)
+        key = f"config5_{dtype}"
+        timings[key] = _serve_requests(kv, page, 3, SERVE_PER_REQUEST_1024,
+                                       f"config 5 {dtype} 1024^2", total)
+        print(f"[phase 2] config 5 {dtype} 1024^2 predict p50 ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in timings[key].items()), flush=True)
+        checks[key], _ = _decode_check(kv, page, 1024, dev, key)
+
+    # the f32 forward on the page's 1024^2 chargrid: the card (flat kernels
+    # at scales 0 and 1, cuDNN below, the streaming attention) against the
+    # CPU's plain versions with the same weights
+    kv = models["float32"]
+    _, extras = kv.predict(page, return_maps=False)
+    prog = extras["programs"].char
+    prog = prog.padded(round_up(max(len(prog.values), 1), 512))
+    ids = paint_boxes(torch.from_numpy(prog.boxes).to(dev),
+                      torch.from_numpy(prog.values).to(dev), 1024, 1024)
+    tokens = torch.arange(64, dtype=torch.int32, device=dev)
+    x = (ids[..., None] == tokens).to(torch.float32)[None]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        on_card = kv.model(x)[0].cpu()
+        on_cpu = _cpu_twin(kv)(x.cpu())[0]
+    err = _max_abs(on_card, on_cpu)
+    mean_err = float((on_card - on_cpu).abs().mean())
+    checks["forward_f32_1024_card_vs_cpu"] = {
+        "max_abs_err": err, "tol": FORWARD_1024_TOL,
+        "mean_abs_err": mean_err, "mean_tol": FORWARD_1024_MEAN_TOL,
+        "seconds": time.perf_counter() - t0}
+    print(f"[phase 2] config 5 f32 forward at 1024^2, card vs CPU: max abs "
+          f"err {err:.3e} (tol {FORWARD_1024_TOL}), mean {mean_err:.3e} (tol "
+          f"{FORWARD_1024_MEAN_TOL}), "
+          f"{checks['forward_f32_1024_card_vs_cpu']['seconds']:.1f} s",
+          flush=True)
+    if not (err <= FORWARD_1024_TOL and mean_err <= FORWARD_1024_MEAN_TOL):
+        raise AssertionError(f"config 5 f32 forward at 1024^2: card vs CPU "
+                             f"max abs err {err}, mean {mean_err}")
+    return total, timings, checks
+
+
 FLAGSHIP = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
                 feat_root=8, num_blocks=3, final_act="softmax", remat=False)
 # kernel launches per flagship train step at each flat_scales, as read off
@@ -875,6 +1199,24 @@ PER_STEP = {
 }
 TRAIN_BATCH = (16, 512)  # images per step, side
 TIMED_STEPS = {3: 10, 0: 5}
+# config 5's step (CONFIG5 at batch 2, 1024^2), as read off models/msau.py
+# at flat_scales 2 with remat: every kernel inside a stage runs its forward
+# twice (torch.utils.checkpoint recomputes the stage in the backward), the
+# three end convs, the entry layout and the loss once.  Forward per stage:
+# 2 dil + 2 merge convs, 4 residual blocks, 2 deconvs, 2 pools, 4 couplings
+# (stages 1 and 2), 1 streaming attention.  Backward: conv stage 1 for 6
+# dil + 6 merge + 3 end + 8 coupling convs; conv dx for all but stage 0's
+# entry conv (14) and the 8 couplings; the last stage's attention output
+# feeds nothing, so 2 attention backwards
+PER_STEP_CONFIG5 = {
+    "fused_attention_fwd": 6, "fused_attention_bwd": 2,
+    "masked_ce_fwd": 2, "masked_ce_bwd": 2, "to_nchw": 1,
+    "flat_conv2d": 27, "flat_res_block": 24, "concat_conv1x1": 16,
+    "flat_deconv2": 12, "flat_maxpool2": 12,
+    "flat_conv_bwd": 23, "flat_conv_dx": 22, "flat_res_block_bwd": 12,
+    "flat_deconv2_dx": 6, "flat_deconv2_dw": 6, "flat_maxpool2_bwd": 6}
+CONFIG5_BATCH = (2, 1024)
+CONFIG5_TIMED = 5        # scripts/bench_configs.py times 5 steps
 CHECK_BATCH = (2, 128)   # the card-vs-CPU step
 
 
@@ -897,7 +1239,7 @@ KERNEL_FAMILIES = (
                                            _OURS + "nhwc_to_nchw_kernel<")),
     ("weight-gradient partial sums", ("msau::sum_partials_kernel",)),
     ("attention fwd / bwd", (_OURS + "stats_kernel<", _OURS + "accum_kernel<",
-                             _OURS + "rows_kernel<")),
+                             _OURS + "rows_kernel<", _OURS + "stream_")),
     ("masked CE fwd / bwd, attention and CE partials",
      (_OURS + "fwd_kernel<", _OURS + "bwd_kernel<", _OURS + "combine_kernel<")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "cutlass", "gemm", "conv2d", "wgrad",
@@ -944,9 +1286,41 @@ def _profile_steps(step, steps):
             "top_kernels_ms": {k[:120]: per(v) for k, v in top}}
 
 
-def train_path(dev):
-    """Phase 3, the flagship train step at TRAIN_BATCH at flat_scales 3 and
-    0 -> (launch counts, results by "fs{fs}_{dtype}")."""
+def _attention_bwd_memory(step, dev):
+    """One more step with the streaming attention's backward wrapped to read
+    the allocator where it runs -> MiB: its scratch (df slices and their
+    accumulator) and the most that was allocated during one of its launches,
+    scratch included, to set beside the step's peak."""
+    import torch
+
+    from msau_tpu_torch.ops import attention
+
+    real = attention.fused_attention_bwd_cuda
+    live = []
+
+    def probe(*args):
+        out = real(*args)   # its scratch is freed when it returns
+        live.append(torch.cuda.memory_allocated(dev) + probe.scratch_bytes)
+        return out
+
+    # the wrapper keeps its count and scratch size on the module's name
+    probe.launches, probe.scratch_bytes = real.launches, 0
+    attention.fused_attention_bwd_cuda = probe
+    try:
+        step()
+    finally:
+        attention.fused_attention_bwd_cuda = real
+        real.launches, real.scratch_bytes = probe.launches, probe.scratch_bytes
+    return {"scratch_mib": real.scratch_bytes / 2**20,
+            "allocated_during_mib": max(live) / 2**20, "launches": len(live)}
+
+
+def _train_run(dev, label, model_kwargs, dtype, batch_hw, timed, per_step,
+               total):
+    """One model through Trainer at ``batch_hw``: 2 warm-up steps, ``timed``
+    timed steps with the launch counters reset just before (held to
+    ``per_step`` and added into ``total``), 20 steps in all when bf16 (the
+    loss must fall), then a device profile of 3 more -> results."""
     import numpy as np
     import torch
 
@@ -955,80 +1329,98 @@ def train_path(dev):
     from msau_tpu_torch.data.synth import make_structured_batch
     from msau_tpu_torch.train.trainer import Trainer
 
-    (bs, hw), warm = TRAIN_BATCH, 2
+    (bs, hw), warm = batch_hw, 2
     x, y = make_structured_batch(np.random.default_rng(0), bs, hw, 17, 64)
     tcfg = TrainConfig(learning_rate=1e-4, lr_decay_staircase=False)
+    tr = Trainer(ModelConfig(**model_kwargs, dtype=dtype), tcfg, device=dev)
+    tr.init_state(x, seed=0)
+    batch = tr.put_batch({"input": x, "label": y,
+                          "valid": np.ones(y.shape, bool)})
+    # the bench feeds the batch in the compute dtype (bench.py:88)
+    batch["input"] = batch["input"].to(tr.model.compute_dtype)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        losses.append(float(metrics["loss"]))
+    warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+    losses.append(float(metrics["loss"]))  # closes the timed window
+    dt = (time.perf_counter() - t0) / timed
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        if n != per_step.get(name, 0) * timed:
+            raise AssertionError(
+                f"{label} {dtype}: {name} launched {n} times in {timed} "
+                f"steps, want {per_step.get(name, 0) * timed}")
+        total[name] += n
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = {"ms_per_step": dt * 1e3, "img_per_s": bs / dt,
+           "peak_mem_gib": peak / 2**30, "warmup_s": warm_s,
+           "timed_steps": timed, "first_loss": losses[0],
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches_per_step": {k: v / timed for k, v in counts.items()
+                                 if v}}
+    if dtype == "bfloat16":
+        for _ in range(20 - warm - timed):
+            tr.state, metrics = tr.train_step(tr.state, batch)
+        losses.append(float(metrics["loss"]))
+        res["loss_after_20"] = losses[-1]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label} bf16 loss did not fall in 20 "
+                                 f"steps: {losses[0]} -> {losses[-1]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label} {dtype}: non-finite loss {losses}")
+    res["losses"] = losses
+
+    def step():
+        tr.state, _ = tr.train_step(tr.state, batch)
+
+    res["profile"] = _profile_steps(step, 3)
+    if per_step.get("fused_attention_bwd"):
+        mem = res["attention_bwd_memory"] = _attention_bwd_memory(step, dev)
+        print(f"[phase 3] {label} {dtype}: the attention backward's scratch "
+              f"{mem['scratch_mib']:.1f} MiB; {mem['allocated_during_mib']:.1f}"
+              f" MiB allocated while it ran, the step's peak "
+              f"{1024 * res['peak_mem_gib']:.1f} MiB", flush=True)
+    print(f"[phase 3] {label} {dtype} bs {bs} {hw}^2: "
+          f"{res['ms_per_step']:.2f} ms/step, {res['img_per_s']:.3f} "
+          f"img/s, peak {res['peak_mem_gib']:.2f} GiB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches/step "
+          f"{res['launches_per_step']}", flush=True)
+    prof = res["profile"]
+    print(f"[phase 3] {label} {dtype} profile (3 steps): wall "
+          f"{prof['wall_ms']:.2f} ms/step, device busy "
+          f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f} "
+          f"%), {prof['kernels']:.0f} kernels/step; by family "
+          + json.dumps({k: round(v, 3) for k, v in
+                        prof["families_ms"].items()}), flush=True)
+    del tr, batch, metrics
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_path(dev):
+    """Phase 3: the flagship train step at TRAIN_BATCH at flat_scales 3 and
+    0, then config 5's at CONFIG5_BATCH -> (launch counts, results by
+    "fs{fs}_{dtype}" and "config5_{dtype}")."""
+    from msau_tpu_torch import ops
+
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
     results = {}
     for fs in PER_STEP:
-        timed = TIMED_STEPS[fs]
         for dtype in ("bfloat16", "float32"):
-            tr = Trainer(ModelConfig(**FLAGSHIP, flat_scales=fs, dtype=dtype),
-                         tcfg, device=dev)
-            tr.init_state(x, seed=0)
-            batch = tr.put_batch({"input": x, "label": y,
-                                  "valid": np.ones(y.shape, bool)})
-            # the bench feeds the batch in the compute dtype (bench.py:88)
-            batch["input"] = batch["input"].to(tr.model.compute_dtype)
-            torch.cuda.reset_peak_memory_stats(dev)
-            losses = []
-            t0 = time.perf_counter()
-            for _ in range(warm):
-                tr.state, metrics = tr.train_step(tr.state, batch)
-                losses.append(float(metrics["loss"]))
-            warm_s = time.perf_counter() - t0
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            for _ in range(timed):
-                tr.state, metrics = tr.train_step(tr.state, batch)
-            losses.append(float(metrics["loss"]))  # closes the timed window
-            dt = (time.perf_counter() - t0) / timed
-            counts = ops.launch_counts()
-            for name, n in counts.items():
-                if n != PER_STEP[fs].get(name, 0) * timed:
-                    raise AssertionError(
-                        f"fs={fs} {dtype}: {name} launched {n} times in "
-                        f"{timed} steps, want "
-                        f"{PER_STEP[fs].get(name, 0) * timed}")
-                total[name] += n
-            peak = torch.cuda.max_memory_allocated(dev)
-            res = {"ms_per_step": dt * 1e3, "img_per_s": bs / dt,
-                   "peak_mem_gib": peak / 2**30, "warmup_s": warm_s,
-                   "timed_steps": timed, "first_loss": losses[0],
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "launches_per_step": {k: v / timed for k, v in counts.items()
-                                         if v}}
-            if dtype == "bfloat16":
-                for _ in range(20 - warm - timed):
-                    tr.state, metrics = tr.train_step(tr.state, batch)
-                losses.append(float(metrics["loss"]))
-                res["loss_after_20"] = losses[-1]
-                if not losses[-1] < losses[0]:
-                    raise AssertionError(f"fs={fs} bf16 loss did not fall in "
-                                         f"20 steps: {losses[0]} -> {losses[-1]}")
-            if not all(np.isfinite(losses)):
-                raise AssertionError(f"fs={fs} {dtype}: non-finite loss {losses}")
-            res["losses"] = losses
-
-            def step():
-                tr.state, _ = tr.train_step(tr.state, batch)
-
-            res["profile"] = _profile_steps(step, 3)
-            results[f"fs{fs}_{dtype}"] = res
-            print(f"[phase 3] fs={fs} {dtype} bs {bs} {hw}^2: "
-                  f"{res['ms_per_step']:.2f} ms/step, {res['img_per_s']:.3f} "
-                  f"img/s, peak {res['peak_mem_gib']:.2f} GiB, loss "
-                  f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches/step "
-                  f"{res['launches_per_step']}", flush=True)
-            prof = res["profile"]
-            print(f"[phase 3] fs={fs} {dtype} profile (3 steps): wall "
-                  f"{prof['wall_ms']:.2f} ms/step, device busy "
-                  f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f} "
-                  f"%), {prof['kernels']:.0f} kernels/step; by family "
-                  + json.dumps({k: round(v, 3) for k, v in
-                                prof["families_ms"].items()}), flush=True)
-            del tr, batch, metrics
-            torch.cuda.empty_cache()
+            results[f"fs{fs}_{dtype}"] = _train_run(
+                dev, f"fs={fs}", dict(FLAGSHIP, flat_scales=fs), dtype,
+                TRAIN_BATCH, TIMED_STEPS[fs], PER_STEP[fs], total)
+    for dtype in ("bfloat16", "float32"):
+        results[f"config5_{dtype}"] = _train_run(
+            dev, "config 5", CONFIG5, dtype, CONFIG5_BATCH, CONFIG5_TIMED,
+            PER_STEP_CONFIG5, total)
     return total, results
 
 
@@ -1057,7 +1449,11 @@ def train_step_check(dev):
     float64 at flat_scales 0 and 3 (equal to F64_FACTOR of the bound: the
     flat plain versions compute the fs=0 function).  Read against it: the
     card's f32 steps at flat_scales 3 (the flat kernels) and 0 (cuDNN), and
-    the CPU's f32 steps at both (no kernel at all).
+    the CPU's f32 steps at both (no kernel at all).  Config 5's path at this
+    size (flat_scales 2 with ``attention_impl="pallas"``, which forces the
+    streaming attention and its backward at T = 256) is held the same way:
+    its float64 step equals the fs=0 one to F64_FACTOR, and the card's f32
+    step lies within F32_VS_EXACT of it.
 
     Bounds: loss rel 1e-5; each gradient within 1e-3 of that tensor's
     largest |gradient| plus 1e-6 of the model's, times a fixed factor; the
@@ -1085,8 +1481,9 @@ def train_step_check(dev):
              "valid": torch.ones(y.shape, dtype=torch.bool)}
     card = str(dev)
 
-    def step(fs, where, dtype):
-        cfg = ModelConfig(**FLAGSHIP, flat_scales=fs, dtype=dtype)
+    def step(fs, where, dtype, impl="auto"):
+        cfg = ModelConfig(**FLAGSHIP, flat_scales=fs, dtype=dtype,
+                          attention_impl=impl)
         model = build_model(cfg, torch.Generator().manual_seed(0))
         model = model.to(where, getattr(torch, dtype))
         loss, _, grads = make_loss_and_grad(model)(
@@ -1096,7 +1493,10 @@ def train_step_check(dev):
 
     out = {run: step(*run) for run in (
         (0, "cpu", "float64"), (3, "cpu", "float64"), (0, "cpu", "float32"),
-        (3, "cpu", "float32"), (0, card, "float32"), (3, card, "float32"))}
+        (3, "cpu", "float32"), (0, card, "float32"), (3, card, "float32"),
+        # config 5's path at this size: flat_scales 2 and the streaming
+        # attention forced ("pallas": T = 256 here), exact and on the card
+        (2, "cpu", "float64", "pallas"), (2, card, "float32", "pallas"))}
     # which kernel moves the card's fs=3 step: the same step with the
     # forward conv (K1) on its plain version, cuDNN and torch's pow
     kernel = flatconv.flat_conv2d_cuda
@@ -1110,6 +1510,11 @@ def train_step_check(dev):
     for name, a, b, factor, norm_tol, loss_tol in (
             ("fs3_vs_fs0_f64_cpu", exact(3), exact(0), F64_FACTOR, 1e-12,
              1e-12),
+            ("fs2_streaming_vs_fs0_f64_cpu", (2, "cpu", "float64", "pallas"),
+             exact(0), F64_FACTOR, 1e-12, 1e-12),
+            ("fs2_streaming_card_vs_exact", (2, card, "float32", "pallas"),
+             (2, "cpu", "float64", "pallas"), F32_VS_EXACT,
+             GRAD_NORM_VS_EXACT, 1e-5),
             ("fs0_card_vs_cpu", (0, card, "float32"), (0, "cpu", "float32"),
              1.0, 1e-4, 1e-5),
             ("fs0_cpu_vs_exact", (0, "cpu", "float32"), exact(0), None,
@@ -1199,14 +1604,34 @@ def main() -> int:
         p = p.padded(round_up(max(len(p.values), 1), 512))
         bench_progs[name] = (p.boxes, p.values)
 
-    kernels = check_kernels(dev, bench_progs)
-    kernels.update(check_train_kernels(dev))
-    kernels.update(check_flat_kernels(dev))
-    kernels.update(check_flat_bwd_kernels(dev))
-    counts, timings, checks = serve_path(dev)
-    train_counts, train = train_path(dev)
-    checks["train_step"] = train_step_check(dev)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{name}] done in {seconds[name]:.1f} s", flush=True)
+        return out
+
+    kernels = timed("phase 1 serve kernels", check_kernels, dev, bench_progs)
+    kernels.update(timed("phase 1 train kernels", check_train_kernels, dev))
+    kernels.update(timed("phase 1 streaming attention",
+                         check_fused_attention, dev))
+    kernels.update(timed("phase 1 flat kernels", check_flat_kernels, dev))
+    kernels.update(timed("phase 1 flat backward kernels",
+                         check_flat_bwd_kernels, dev))
+    counts, timings, checks = timed("phase 2 512^2", serve_path, dev)
+    counts_1024, timings_1024, checks_1024 = timed(
+        "phase 2 1024^2", serve_path_1024, dev)
+    counts = {k: counts[k] + counts_1024[k] for k in counts}
+    timings.update(timings_1024)
+    checks.update(checks_1024)
+    train_counts, train = timed("phase 3 train", train_path, dev)
+    checks["train_step"] = timed("phase 3 step check", train_step_check, dev)
     launches = {k: counts[k] + train_counts[k] for k in counts}
+    if not (counts["fused_attention_fwd"] and train_counts["fused_attention_fwd"]):
+        raise AssertionError("the streaming attention did not launch in both "
+                             "the serve and the train phase")
     print(f"[phase 3] launches: serve {counts}, train {train_counts}",
           flush=True)
 
@@ -1225,6 +1650,12 @@ def main() -> int:
                           "msau_tpu/ops/ce_loss.py:61"),
         **FLAT_KERNELS,
         **{name: v[:2] for name, v in FLAT_BWD_KERNELS.items()},
+        "fused_attention_fwd": ("msau_tpu_torch/csrc/fused_attention.cu",
+                                "msau_tpu/ops/pallas_attn.py:41 (and :66)"),
+        # the rows kernel's second use: the JAX package's streaming backward
+        # (pallas_attn.py:158) is blockwise XLA with this kernel's formula
+        "fused_attention_bwd": ("msau_tpu_torch/csrc/attention_bwd.cu",
+                                "msau_tpu/ops/pallas_attn.py:262"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1237,11 +1668,14 @@ def main() -> int:
         for name, (src, rep) in sources.items()]}
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": lib.build_seconds,
-              "ptxas": lib.build_log, "kernels": kernels,
+              "ptxas": lib.build_log, "seconds": seconds, "timer": TIMER,
+              "kernels": kernels,
               "launches": {"serve": counts, "train": train_counts},
               "predict_p50_ms": timings, "train": train, "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)
+    print(f"[timer] {TIMER['profiler_calls']} calls timed by torch.profiler, "
+          f"{TIMER['event_calls']} by CUDA events", flush=True)
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

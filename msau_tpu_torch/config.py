@@ -4,8 +4,10 @@ and ``InferConfig`` with the JAX package's field names and defaults
 The port keeps its own copy: it imports nothing of ``msau_tpu``.
 ``tests/test_torch_host_copies.py`` pins the copy to the original.
 
-Fields that are TPU knobs (``attention_impl``, ``matmul_precision``,
-``donate_state``, the mesh layout) are accepted and ignored by the port.
+Fields that are TPU knobs (``matmul_precision``, ``donate_state``, the mesh
+layout) are accepted and ignored by the port.  ``attention_impl`` picks the
+deepest scale's attention op as in the JAX package
+(``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class ModelConfig:
     max_box_size: int = 28
     num_box_per_channel: int = 3
     dtype: str = "float32"             # "float32" | "bfloat16" (| "float64": CPU reference)
-    attention_impl: str = "auto"       # accepted and ignored by the port
+    attention_impl: str = "auto"       # "auto" | "resident" | "pallas" | "xla"
     remat: bool = False                # recompute each U-Net stage in backward
     flat_scales: int = 0               # shallow scales through the flat ops
     spatial_shards: int = 1            # H shards on the flat scales

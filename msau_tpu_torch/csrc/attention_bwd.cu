@@ -8,10 +8,14 @@
 //   dg_i  = sum_j ds_ij f_j,   df_j = sum_i ds_ij g_i
 //
 // f, g, df, dg: [N, T, Cb]; h, dout, dh: [N, T, C]; f32 or bf16 in and out,
-// f32 arithmetic throughout.
+// f32 arithmetic throughout.  dout has the operands' type (the resident
+// forward returns it) or is f32 beside bf16 operands (the streaming forward
+// of fused_attention.cu always returns f32).
 //
 // Replaces the TPU kernel msau_tpu/ops/pallas_attn.py:_res_bwd_kernel
-// (launcher _resident_bwd).  That kernel holds a whole score row block
+// (launcher _resident_bwd).  The streaming path's backward in the JAX
+// package (_fused_bwd, blockwise XLA from the saved m and l) is this
+// formula in f32 too, so the same kernel serves it.  That kernel holds a whole score row block
 // [Bi, T] in VMEM, does everything in one pass, and carries df across a
 // SEQUENTIAL grid.  A Hopper block cannot hold [Bi, T] (16 rows at T = 4096
 // is 256 KB of f32) and its blocks run in no order.
@@ -36,6 +40,11 @@
 //                 tile's df partial sum_{i in block} ds_ij g_i, written to its
 //                 own f32 slice [tile, N, T, Cb].
 //  (b) combine_kernel: df = sum of the tile partials in tile order, cast.
+// The slices grow with T^2 (256 MiB at N = 2, T = 16384), so the launcher
+// may take the row tiles in groups of `group`: each group reuses the
+// [group, N, T, Cb] scratch and its sum is added, in group order, into an
+// f32 [N, T, Cb] accumulator that the last group casts into df.  The order
+// is fixed, so a rerun gives the same bits.
 // Scores are recomputed in both sweeps (Cb FMAs and an exp each) rather than
 // stored.  The ragged edge of T is masked: missing rows have g = h = 0 and
 // 1/l = 0 (a = 0); missing keys have f = dout = 0 and a forced to 0.
@@ -89,13 +98,15 @@ struct Shape {
   static_assert(CB % KG == 0, "Cb must be 1, 2 or a multiple of 4");
 };
 
-template <typename T, int CB, int C>
+// T: the type of f, g, h and the gradients; TD: dout's.  The block takes row
+// tile tile0 + blockIdx.x and writes df slice blockIdx.x.
+template <typename T, typename TD, int CB, int C>
 __global__ void __launch_bounds__(kThreads)
 rows_kernel(const T* __restrict__ f, const T* __restrict__ g,
-            const T* __restrict__ h, const T* __restrict__ dout,
+            const T* __restrict__ h, const TD* __restrict__ dout,
             const float* __restrict__ m_in, const float* __restrict__ l_in,
             T* __restrict__ dg, T* __restrict__ dh,
-            float* __restrict__ df_partial, int t, int n_batch) {
+            float* __restrict__ df_partial, int t, int n_batch, int tile0) {
   using S = Shape<CB, C>;
   extern __shared__ __align__(16) float smem[];
   float* s_gt = smem + S::GT;
@@ -110,15 +121,14 @@ rows_kernel(const T* __restrict__ f, const T* __restrict__ g,
   float* s_a = smem + S::A;
 
   const int n = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int i0 = tile * S::BI;
+  const int i0 = (tile0 + (int)blockIdx.x) * S::BI;
   const int tid = threadIdx.x;
   const int ti = tid / 8;  // rows ti*RI .. of the block
   const int tc = tid % 8;  // columns tc*RC (sweep 1) or keys tc*RJ (sweep 2)
   const T* fn = f + (int64_t)n * t * CB;
   const T* gn = g + (int64_t)n * t * CB;
   const T* hn = h + (int64_t)n * t * C;
-  const T* don = dout + (int64_t)n * t * C;
+  const TD* don = dout + (int64_t)n * t * C;
 
   // this block's rows
   for (int e = tid; e < S::BI * CB; e += kThreads) {
@@ -214,7 +224,7 @@ rows_kernel(const T* __restrict__ f, const T* __restrict__ g,
   for (int q = 0; q < S::NDG; ++q)
 #pragma unroll
     for (int k = 0; k < S::KG; ++k) acc_dg[q][k] = 0.f;
-  float* pn = df_partial + ((int64_t)tile * n_batch + n) * t * CB;
+  float* pn = df_partial + ((int64_t)blockIdx.x * n_batch + n) * t * CB;
 
   for (int j0 = 0; j0 < t; j0 += S::BJ) {
     __syncthreads();  // the previous tile is consumed; s_rho is visible
@@ -322,48 +332,64 @@ rows_kernel(const T* __restrict__ f, const T* __restrict__ g,
   }
 }
 
+// One group's slices summed in tile order onto the earlier groups' sum
+// (acc, f32; not read by the first group, not written by the last, which
+// casts the total into out).
 template <typename T>
 __global__ void combine_kernel(const float* __restrict__ partial,
-                               T* __restrict__ out, int64_t count, int tiles) {
+                               float* __restrict__ acc, T* __restrict__ out,
+                               int64_t count, int tiles, bool first, bool last) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= count) return;
-  float s = 0.f;
+  float s = first ? 0.f : acc[e];
   for (int k = 0; k < tiles; ++k) s += partial[k * count + e];
-  store(out + e, s);
+  if (last)
+    store(out + e, s);
+  else
+    acc[e] = s;
 }
 
-template <typename T, int CB, int C>
+template <typename T, typename TD, int CB, int C>
 int launch(const void* f, const void* g, const void* h, const void* dout,
            const void* m, const void* l, void* df, void* dg, void* dh,
-           void* partial, int tiles, int n, int t, cudaStream_t stream) {
+           void* partial, void* acc, int tiles, int group, int n, int t,
+           cudaStream_t stream) {
   using S = Shape<CB, C>;
-  if (tiles != (t + S::BI - 1) / S::BI) return (int)cudaErrorInvalidValue;
+  if (tiles != (t + S::BI - 1) / S::BI || group < 1 ||
+      (group < tiles && acc == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int smem = S::TOTAL * (int)sizeof(float);
-  auto kernel = rows_kernel<T, CB, C>;
+  auto kernel = rows_kernel<T, TD, CB, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(tiles, n), kThreads, smem, stream>>>(
-      (const T*)f, (const T*)g, (const T*)h, (const T*)dout, (const float*)m,
-      (const float*)l, (T*)dg, (T*)dh, (float*)partial, t, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const int64_t count = (int64_t)n * t * CB;
-  combine_kernel<T><<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
-      (const float*)partial, (T*)df, count, tiles);
-  return (int)cudaGetLastError();
+  for (int tile0 = 0; tile0 < tiles; tile0 += group) {
+    const int cnt = tiles - tile0 < group ? tiles - tile0 : group;
+    kernel<<<dim3(cnt, n), kThreads, smem, stream>>>(
+        (const T*)f, (const T*)g, (const T*)h, (const TD*)dout, (const float*)m,
+        (const float*)l, (T*)dg, (T*)dh, (float*)partial, t, n, tile0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    combine_kernel<T><<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
+        (const float*)partial, (float*)acc, (T*)df, count, cnt, tile0 == 0,
+        tile0 + cnt >= tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-template <typename T>
+template <typename T, typename TD>
 int dispatch(const void* f, const void* g, const void* h, const void* dout,
              const void* m, const void* l, void* df, void* dg, void* dh,
-             void* partial, int tiles, int n, int t, int cb, int c,
-             cudaStream_t stream) {
+             void* partial, void* acc, int tiles, int group, int n, int t,
+             int cb, int c, cudaStream_t stream) {
   // the widths of ops/attention.py:KERNEL_WIDTHS (Cb = max(C / 8, 1))
 #define MSAU_ATTN_BWD_CASE(CB_, C_)                                          \
   if (cb == CB_ && c == C_)                                                  \
-    return launch<T, CB_, C_>(f, g, h, dout, m, l, df, dg, dh, partial,      \
-                              tiles, n, t, stream);
+    return launch<T, TD, CB_, C_>(f, g, h, dout, m, l, df, dg, dh, partial,  \
+                                  acc, tiles, group, n, t, stream);
   MSAU_ATTN_BWD_CASE(1, 8)
   MSAU_ATTN_BWD_CASE(2, 16)
   MSAU_ATTN_BWD_CASE(4, 32)
@@ -376,16 +402,35 @@ int dispatch(const void* f, const void* g, const void* h, const void* dout,
 }  // namespace
 
 // partial: [tiles, N, T, Cb] f32 scratch, tiles = ceil(T / rows per block),
-// allocated by the caller.
+// allocated by the caller.  dout has the operands' type.
 extern "C" int msau_resident_attention_bwd(
     const void* f, const void* g, const void* h, const void* dout,
     const void* m, const void* l, void* df, void* dg, void* dh, void* partial,
     int tiles, int n, int t, int cb, int c, int is_bf16, void* stream) {
   if (n <= 0 || t <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16
-             ? dispatch<__nv_bfloat16>(f, g, h, dout, m, l, df, dg, dh, partial,
-                                       tiles, n, t, cb, c, s)
-             : dispatch<float>(f, g, h, dout, m, l, df, dg, dh, partial, tiles,
-                               n, t, cb, c, s);
+  return is_bf16 ? dispatch<__nv_bfloat16, __nv_bfloat16>(
+                       f, g, h, dout, m, l, df, dg, dh, partial, nullptr,
+                       tiles, tiles, n, t, cb, c, s)
+                 : dispatch<float, float>(f, g, h, dout, m, l, df, dg, dh,
+                                          partial, nullptr, tiles, tiles, n, t,
+                                          cb, c, s);
+}
+
+// The streaming path's backward: dout is f32 whatever the operands' type.
+// partial: [min(group, tiles), N, T, Cb] f32 scratch; acc: [N, T, Cb] f32
+// scratch, needed when group < tiles.
+extern "C" int msau_fused_attention_bwd(
+    const void* f, const void* g, const void* h, const void* dout,
+    const void* m, const void* l, void* df, void* dg, void* dh, void* partial,
+    void* acc, int tiles, int group, int n, int t, int cb, int c, int is_bf16,
+    void* stream) {
+  if (n <= 0 || t <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? dispatch<__nv_bfloat16, float>(
+                       f, g, h, dout, m, l, df, dg, dh, partial, acc, tiles,
+                       group, n, t, cb, c, s)
+                 : dispatch<float, float>(f, g, h, dout, m, l, df, dg, dh,
+                                          partial, acc, tiles, group, n, t, cb,
+                                          c, s);
 }

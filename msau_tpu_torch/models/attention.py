@@ -9,8 +9,12 @@ Semantics mirror the reference SAGAN-style block:
     y       = out + x                              (residual)
 
 There is no 1/sqrt(d) scaling and no output projection.  The product runs in
-``ops.attention.resident_attention``, an autograd op: the CUDA kernels
-(forward and backward) on a card, the plain einsum forms on the CPU.
+one of two autograd ops of ``ops.attention``, picked by ``impl`` and the
+token count as the JAX block picks: ``resident_attention`` (whole rows at
+once, output in the activation's dtype) or ``fused_attention`` (streamed,
+for grids of 8192 tokens and more, f32 output).  Each launches its CUDA
+kernels (forward and backward) on a card and takes its plain version on the
+CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ import torch
 import torch.nn as nn
 
 from msau_tpu_torch.models.layers import Conv
-from msau_tpu_torch.ops.attention import resident_attention
+from msau_tpu_torch.ops.attention import fused_attention, resident_attention
+
+# token count from which "auto" takes the streaming op: 1024^2 pages put
+# 16384 tokens at the deepest scale (``_PALLAS_MIN_TOKENS`` in the JAX block)
+STREAMING_MIN_TOKENS = 8192
+IMPLS = ("auto", "resident", "pallas", "xla")
 
 
 def add_timing_signal_2d(x: torch.Tensor, min_timescale: float = 1.0,
@@ -52,11 +61,25 @@ def add_timing_signal_2d(x: torch.Tensor, min_timescale: float = 1.0,
 
 class SelfAttentionBlock(nn.Module):
     """SAGAN-style residual self-attention over the flattened 2-D grid;
-    NCHW in and out."""
+    NCHW in and out.
 
-    def __init__(self, input_channels: int, num_heads: int = 8, *,
-                 gen: torch.Generator):
+    ``impl`` (``ModelConfig.attention_impl``) picks the op as the JAX block
+    does: "auto" and "resident" take ``resident_attention`` below
+    ``STREAMING_MIN_TOKENS`` tokens and the streaming ``fused_attention``
+    from there on; "pallas" takes the streaming op at any size.  "xla"
+    names the JAX package's einsum, a library path the port does not have
+    on a card: it dispatches like "auto", and the einsum form stays what it
+    is here, the resident op's plain version on the CPU.  The JAX block's
+    ``T % 256`` and TPU-backend gates are TPU tactics and are not ported:
+    both ops take any T.
+    """
+
+    def __init__(self, input_channels: int, num_heads: int = 8,
+                 impl: str = "auto", *, gen: torch.Generator):
         super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
+        self.impl = impl
         c = input_channels
         cb = max(c // num_heads, 1)
         # flax nn.Conv default kernel init (lecun_normal) and zero bias
@@ -71,6 +94,14 @@ class SelfAttentionBlock(nn.Module):
         def tokens(t):  # [N, C', H, W] -> [N, T, C']
             return t.permute(0, 2, 3, 1).reshape(n, hh * ww, -1).contiguous()
 
-        o = resident_attention(tokens(self.f(x)), tokens(self.g(x)),
-                               tokens(self.h(x)))
+        f, g, h = tokens(self.f(x)), tokens(self.g(x)), tokens(self.h(x))
+        if self.impl == "pallas" or hh * ww >= STREAMING_MIN_TOKENS:
+            # the streaming op returns f32 whatever x's dtype; the residual
+            # is added in f32, as the JAX block adds it, and the sum is
+            # cast to the activation's dtype once, here, where flax casts
+            # it at the next layer's input: the layers after this one
+            # follow their input's dtype and would otherwise all run in f32
+            o = fused_attention(f, g, h).reshape(n, hh, ww, c)
+            return (o.permute(0, 3, 1, 2) + x).to(x.dtype)
+        o = resident_attention(f, g, h)
         return o.reshape(n, hh, ww, c).permute(0, 3, 1, 2) + x

@@ -23,7 +23,7 @@ Modules work in NCHW; the public forward takes NHWC input and returns
 through the flat-layout ops (``ops.flatconv``, ``ops.flatres``: hand-written
 CUDA kernels on a card, forward and backward) as the JAX package runs them
 through its Pallas kernels; the deepest scale keeps
-torch convs and the resident attention.  The tensors stay NCHW at every
+torch convs and the attention op.  The tensors stay NCHW at every
 scale and the parameter tree is the same for every fs.
 
 Compute dtype follows flax's ``dtype=``: the input is cast to
@@ -33,8 +33,10 @@ activations; logits come out in f32.  "float64" (parameters cast to
 float64 too, ``model.double()``) runs the plain versions on the CPU with no
 f32 rounding: the exact reference a float32 step is held to.  ``remat`` recomputes each U-Net stage
 in the backward (``torch.utils.checkpoint``, as ``nn.remat(UNetBlock)``).
-``attention_impl`` is accepted and ignored: the deepest scale always takes
-``ops.attention.resident_attention``.
+``attention_impl`` picks the deepest scale's attention op as in the JAX
+package (``models.attention.SelfAttentionBlock``): the resident op below
+8192 tokens and the streaming op from there on ("auto"), or the streaming
+op at any size ("pallas").
 """
 
 from __future__ import annotations
@@ -111,7 +113,8 @@ class DownSamplingUNetBlock(nn.Module):
                     gen=gen, flat=flat))
             if layer == S - 1:
                 self.add_module(f"attention_{layer}",
-                                SelfAttentionBlock(feats, gen=gen))
+                                SelfAttentionBlock(
+                                    feats, impl=cfg.attention_impl, gen=gen))
             c_in = feats
             feats *= pool
 

@@ -1,11 +1,14 @@
 """Device ops of the port: the hand-written CUDA kernels' wrappers (paint,
-resident attention forward and backward, multiclass CCL, fused masked CE
+resident attention forward and backward, streaming attention forward and
+backward, multiclass CCL, fused masked CE
 forward and backward, and the flat-layout ops: entry layout, max pool, conv
 with its fused epilogue, concat 1x1 conv, stride-2 deconv and the fused
 residual block, with their backward: pool, conv stage 1 and dx, deconv dx
 and dw, residual block) and the torch-op morphology."""
 
 from msau_tpu_torch.ops.attention import (
+    fused_attention_bwd_cuda,
+    fused_attention_cuda,
     resident_attention_bwd_cuda,
     resident_attention_cuda,
 )
@@ -49,6 +52,8 @@ KERNEL_WRAPPERS = {
     "flat_deconv2_dx": flat_deconv2_dx_cuda,
     "flat_deconv2_dw": flat_deconv2_dw_cuda,
     "flat_res_block_bwd": flat_res_block_bwd_cuda,
+    "fused_attention_fwd": fused_attention_cuda,
+    "fused_attention_bwd": fused_attention_bwd_cuda,
 }
 
 

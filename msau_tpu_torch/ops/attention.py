@@ -4,7 +4,11 @@ With flattened spatial tokens, A = softmax_rows(g fᵀ) and out = Aᵀ h — the
 softmax runs over the *output* axis and the sum over the *input* axis (the
 transpose of standard attention), with no 1/√d scaling.
 
-``resident_attention`` is the entry point, a ``torch.autograd.Function``
+Two entry points compute it, as in the JAX package.  ``resident_attention``
+serves the deepest scale below 8192 tokens; ``fused_attention`` (further
+down) is the streaming form for longer grids, with f32 output.
+
+``resident_attention`` is a ``torch.autograd.Function``
 (``ResidentAttention``) whose forward saves (f, g, h, m, l) with m, l each
 query row's score max and sum-exp, and whose backward recomputes A from
 them.  A CUDA tensor launches the hand-written kernels: the forward
@@ -15,11 +19,23 @@ takes the plain versions (``resident_attention_plain_stats``, the einsum
 form of ``msau_tpu.models.attention.self_attention_xla``, and
 ``resident_attention_bwd_plain``), so CPU training runs the same backward
 formula that the kernel implements.
+
+``fused_attention`` (``FusedAttention``) is the port of
+``msau_tpu.ops.pallas_attn.fused_attention``: operands upcast to f32, m, l
+and every sum in f32, an f32 output whatever the operands' type, and
+gradients cast back to the operands' types.  Nothing in it holds a [T, T]
+tensor.  A CUDA tensor launches ``csrc/fused_attention.cu`` (port of the
+TPU kernels ``_stats_kernel`` and ``_accum_kernel``) and, in the backward,
+the rows kernel of ``csrc/attention_bwd.cu`` with an f32 cotangent (the
+JAX package's ``_fused_bwd`` is that kernel's formula in f32).  A CPU
+tensor takes the blockwise plain versions
+(``fused_attention_plain_stats``, ``fused_attention_bwd_plain``), which
+stream blocks of ``block`` keys.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -144,6 +160,22 @@ def bwd_row_block(c: int) -> int:
     return 32 if c >= 128 else 64
 
 
+def _check_bwd_operands(name: str, f: torch.Tensor, h: torch.Tensor,
+                        m: torch.Tensor, l: torch.Tensor, dout: torch.Tensor,
+                        dout_dtype: torch.dtype) -> None:
+    """Validate a backward kernel's m, l ([N, T] f32) and dout (h's shape,
+    ``dout_dtype``)."""
+    n, t = f.shape[:2]
+    cuda_lib.require_cuda(f"{name} dout", dout, dout_dtype, 3)
+    for arg, st in (("m", m), ("l", l)):
+        cuda_lib.require_cuda(f"{name} {arg}", st, torch.float32, 2)
+        if st.shape != (n, t) or st.device != f.device:
+            raise ValueError(f"{name}: {arg} must be [{n}, {t}] on "
+                             f"{f.device}")
+    if dout.shape != h.shape or dout.device != f.device:
+        raise ValueError(f"{name}: dout must match h")
+
+
 def resident_attention_bwd_cuda(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
     l: torch.Tensor, dout: torch.Tensor
@@ -152,15 +184,7 @@ def resident_attention_bwd_cuda(
     in the input dtype.  ``resident_attention_bwd_cuda.launches`` counts
     calls."""
     n, t, cb, c = _check_operands("resident_attention_bwd", f, g, h)
-    cuda_lib.require_cuda("resident_attention_bwd dout", dout, h.dtype, 3)
-    for name, st in (("m", m), ("l", l)):
-        cuda_lib.require_cuda(f"resident_attention_bwd {name}", st,
-                              torch.float32, 2)
-        if st.shape != (n, t) or st.device != f.device:
-            raise ValueError(f"resident_attention_bwd: {name} must be "
-                             f"[{n}, {t}] on {f.device}")
-    if dout.shape != h.shape or dout.device != f.device:
-        raise ValueError("resident_attention_bwd: dout must match h")
+    _check_bwd_operands("resident_attention_bwd", f, h, m, l, dout, h.dtype)
     df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
     tiles = -(-t // bwd_row_block(c))
     partial = torch.empty((tiles, n, t, cb), dtype=torch.float32,
@@ -180,7 +204,7 @@ resident_attention_bwd_cuda.launches = 0
 
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"resident_attention: unsupported device {t.device}")
+        raise ValueError(f"attention: unsupported device {t.device}")
     return t.device.type
 
 
@@ -213,3 +237,204 @@ def resident_attention(f: torch.Tensor, g: torch.Tensor,
     """A = softmax_rows(g fᵀ), out = Aᵀ h, differentiable; the device of
     ``f`` picks the implementation."""
     return ResidentAttention.apply(f, g, h)
+
+
+# ---------------------------------------------------------------------------
+# Streaming attention: no [T, T] tensor anywhere, f32 output
+# ---------------------------------------------------------------------------
+
+# keys per block of the plain versions (the TPU kernels' default block)
+FUSED_BLOCK = 256
+
+
+def fused_attention_plain_stats(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+    block: int = FUSED_BLOCK
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The blockwise plain forward -> (out [N, T, C], m, l [N, T]), all in
+    the wide dtype (f32; float64 for float64 operands).  Two passes over
+    blocks of ``block`` keys j: the online (max, sum-exp) of every query
+    row, then out_j = sum_i exp(s_ij - m_i) / l_i h_i block by block, so
+    the largest temporary is [N, T, block].  The last block is as short as
+    T leaves it, so any T runs."""
+    acc = wide_dtype(h)
+    ff, gf, hf = f.to(acc), g.to(acc), h.to(acc)
+    n, t, _ = f.shape
+    m = torch.full((n, t), float("-inf"), dtype=acc, device=f.device)
+    l = torch.zeros((n, t), dtype=acc, device=f.device)
+    for j0 in range(0, t, block):
+        s = torch.einsum("nic,njc->nij", gf, ff[:, j0:j0 + block])
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    out = torch.empty_like(hf)
+    inv_l = 1.0 / l
+    for j0 in range(0, t, block):
+        s = torch.einsum("nic,njc->nij", gf, ff[:, j0:j0 + block])
+        p = torch.exp(s - m[..., None]) * inv_l[..., None]
+        out[:, j0:j0 + block] = torch.einsum("nij,nic->njc", p, hf)
+    return out, m, l
+
+
+def fused_attention_bwd_plain(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
+    l: torch.Tensor, dout: torch.Tensor, block: int = FUSED_BLOCK
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(df, dg, dh) in the input dtypes from the forward's m and l, two
+    sweeps over blocks of ``block`` keys (``resident_attention_bwd_plain``'s
+    formula with no [N, T, T] tensor; port of ``_fused_bwd``): dh = A dout,
+    then rho, and per block ds, dg += ds f_blk, df_blk = dsᵀ g."""
+    acc = wide_dtype(h)
+    ff, gf, hf, dof = (x.to(acc) for x in (f, g, h, dout))
+    t = f.shape[1]
+    m, inv_l = m.to(acc)[..., None], (1.0 / l.to(acc))[..., None]
+
+    def a_block(j0):
+        s = torch.einsum("nic,njc->nij", gf, ff[:, j0:j0 + block])
+        return torch.exp(s - m) * inv_l
+
+    dh = torch.zeros_like(hf)
+    for j0 in range(0, t, block):
+        dh += torch.einsum("nij,njc->nic", a_block(j0), dof[:, j0:j0 + block])
+    rho = (hf * dh).sum(dim=-1, keepdim=True)
+    dg, df = torch.zeros_like(gf), torch.empty_like(ff)
+    for j0 in range(0, t, block):
+        u = torch.einsum("nic,njc->nij", hf, dof[:, j0:j0 + block])
+        ds = a_block(j0) * (u - rho)
+        dg += torch.einsum("nij,njc->nic", ds, ff[:, j0:j0 + block])
+        df[:, j0:j0 + block] = torch.einsum("nij,nic->njc", ds, gf)
+    return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
+
+
+def fused_j_block(c: int) -> int:
+    """Output rows per block of the streaming accumulation pass
+    (``AccShape::BJ`` in ``csrc/fused_attention.cu``)."""
+    return 64 if c >= 128 else 128
+
+
+def _fused_splits(n: int, t: int, c: int, device: torch.device) -> int:
+    """How many contiguous i ranges the streaming accumulation pass splits
+    into: the count that brings its grid (one block per 128 output rows,
+    split and image) nearest to four blocks per SM, at most 16.  At N = 2,
+    T = 16384 that is 2 (512 blocks on 132 SMs); one split writes the
+    output itself and needs no scratch."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row_blocks = n * -(-t // fused_j_block(c))
+    return max(1, min(16, -(-t // 32), round(4 * sms / row_blocks)))
+
+
+def fused_attention_cuda(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+    splits: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the streaming kernel (stats, accumulate, combine) -> (out
+    [N, T, C] f32, m, l [N, T] f32).  ``splits`` overrides the grid's split
+    of the summed axis (for measurements).
+    ``fused_attention_cuda.launches`` counts calls."""
+    n, t, cb, c = _check_operands("fused_attention", f, g, h)
+    out = torch.empty((n, t, c), dtype=torch.float32, device=f.device)
+    m = torch.empty((n, t), dtype=torch.float32, device=f.device)
+    l = torch.empty((n, t), dtype=torch.float32, device=f.device)
+    if splits is None:
+        splits = _fused_splits(n, t, c, f.device)
+    partial = (torch.empty((splits, n, t, c), dtype=torch.float32,
+                           device=f.device) if splits > 1 else None)
+    code = cuda_lib.library().msau_fused_attention_fwd(
+        f.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(),
+        None if partial is None else partial.data_ptr(), splits, n, t, cb, c,
+        int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
+    cuda_lib.check("msau_fused_attention_fwd", code)
+    fused_attention_cuda.launches += 1
+    return out, m, l
+
+
+fused_attention_cuda.launches = 0
+
+
+def fused_bwd_group(n: int, t: int, c: int, device: torch.device) -> int:
+    """Row tiles per group of the streaming backward: the tiles split into
+    the fewest equal groups whose launches (one block per tile and image)
+    each fit the card at once, at three blocks per SM (61 KB of shared
+    memory each at C = 64).  The df scratch is one f32 [N, T, Cb] slice
+    per tile of a group instead of per tile: half the slices at N = 2,
+    T = 16384, at the same number of block waves."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-t // bwd_row_block(c))
+    groups = -(-tiles * n // (3 * sms))
+    return -(-tiles // groups)
+
+
+def fused_attention_bwd_cuda(
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
+    l: torch.Tensor, dout: torch.Tensor, group: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel on the streaming forward's f32 cotangent
+    -> (df, dg, dh) in the operands' dtype.  ``group`` overrides the row
+    tiles per group (for measurements).
+    ``fused_attention_bwd_cuda.launches`` counts calls;
+    ``fused_attention_bwd_cuda.scratch_bytes`` is the last call's scratch."""
+    n, t, cb, c = _check_operands("fused_attention_bwd", f, g, h)
+    _check_bwd_operands("fused_attention_bwd", f, h, m, l, dout,
+                        torch.float32)
+    df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
+    tiles = -(-t // bwd_row_block(c))
+    if group is None:
+        group = fused_bwd_group(n, t, c, f.device)
+    group = min(group, tiles)
+    partial = torch.empty((group, n, t, cb), dtype=torch.float32,
+                          device=f.device)
+    acc = (torch.empty((n, t, cb), dtype=torch.float32, device=f.device)
+           if group < tiles else None)
+    code = cuda_lib.library().msau_fused_attention_bwd(
+        f.data_ptr(), g.data_ptr(), h.data_ptr(), dout.data_ptr(),
+        m.data_ptr(), l.data_ptr(), df.data_ptr(), dg.data_ptr(),
+        dh.data_ptr(), partial.data_ptr(),
+        None if acc is None else acc.data_ptr(), tiles, group, n, t, cb, c,
+        int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
+    cuda_lib.check("msau_fused_attention_bwd", code)
+    fused_attention_bwd_cuda.launches += 1
+    fused_attention_bwd_cuda.scratch_bytes = 4 * (
+        partial.numel() + (0 if acc is None else acc.numel()))
+    return df, dg, dh
+
+
+fused_attention_bwd_cuda.launches = 0
+fused_attention_bwd_cuda.scratch_bytes = 0
+
+
+class FusedAttention(torch.autograd.Function):
+    """out = Aᵀh in f32 with A = softmax_rows(g fᵀ), streamed; saves
+    (f, g, h, m, l) and returns (df, dg, dh) in the input dtypes, as
+    ``pallas_attn.py``'s ``jax.custom_vjp`` (``_fused_fwd`` /
+    ``_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, f, g, h, block):
+        if _device_kind(f) == "cuda":
+            out, m, l = fused_attention_cuda(f, g, h)
+        else:
+            out, m, l = fused_attention_plain_stats(f, g, h, block)
+        ctx.save_for_backward(f, g, h, m, l)
+        ctx.block = block
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        f, g, h, m, l = ctx.saved_tensors
+        # the output is f32 (float64 on the CPU's exact path), and so is
+        # its cotangent; autograd may hand it over strided
+        if _device_kind(f) == "cuda":
+            dout = dout.to(torch.float32).contiguous()
+            return (*fused_attention_bwd_cuda(f, g, h, m, l, dout), None)
+        return (*fused_attention_bwd_plain(f, g, h, m, l, dout, ctx.block),
+                None)
+
+
+def fused_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                    block: int = FUSED_BLOCK) -> torch.Tensor:
+    """A = softmax_rows(g fᵀ), out = Aᵀ h in f32 (float64 for float64
+    operands), differentiable, with no [T, T] tensor; the device of ``f``
+    picks the implementation.  ``block``: keys per block of the plain
+    versions (the kernel has its own tiles)."""
+    return FusedAttention.apply(f, g, h, block)

@@ -51,6 +51,13 @@ SIGNATURES = {
     # stream
     "msau_resident_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
+    # f, g, h, out (f32), m, l, partial, splits, n, t, cb, c, is_bf16, stream
+    "msau_fused_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P),
+    # f, g, h, dout (f32), m, l, df, dg, dh, partial, acc, tiles, group, n, t,
+    # cb, c, is_bf16, stream
+    "msau_fused_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P),
     # logits, labels, mask, partial, ce_out, correct_out, blocks, n, c,
     # length, is_bf16, stream
     "msau_masked_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -25,6 +25,13 @@ cotangents 1e-5 of max(1, max |want|) in f32, 2e-2 in bf16; weight and bias
 gradients, sums over every pixel of the batch in another order than
 cuDNN's, 1e-3 of max |want| in f32, 2e-2 in bf16), and the same bits on a
 second run.
+The streaming attention (``fused_attention_cuda``): f32 output whatever the
+operands, 1e-5 of max(1, max |want|) against the blockwise plain version in
+f32 and for bf16 operands alike (both sides upcast the same bf16 values and
+compute in f32; nothing is rounded on the way out); its backward (the rows
+kernel on an f32 cotangent, row tiles in groups) 1e-4 of the largest
+|gradient| in f32 and 2e-2 for bf16 operands (gradients rounded to bf16),
+the same bits on a second run and with the tiles in several groups.
 """
 
 import numpy as np
@@ -32,6 +39,11 @@ import pytest
 import torch
 
 from msau_tpu_torch.ops.attention import (
+    fused_attention,
+    fused_attention_bwd_cuda,
+    fused_attention_bwd_plain,
+    fused_attention_cuda,
+    fused_attention_plain_stats,
     resident_attention_bwd_cuda,
     resident_attention_bwd_plain,
     resident_attention_cuda,
@@ -132,6 +144,84 @@ def test_attention_bwd_kernel_matches_plain(cuda, n, t, dtype, tol):
     for name, a, b in zip(("df", "dg", "dh"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name
         assert _scaled_err(a, b) <= tol, (name, _scaled_err(a, b))
+
+
+# (N, T, Cb, C): config 5's deepest scale, ragged T above and below the
+# streaming threshold, and the other instantiated widths
+FUSED_SHAPES = [(2, 16384, 8, 64), (1, 8200, 8, 64), (3, 66, 8, 64),
+                (2, 300, 1, 8), (2, 300, 2, 16), (1, 520, 4, 32),
+                (1, 300, 16, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t,cb,c", FUSED_SHAPES)
+def test_fused_attention_kernel_matches_plain(cuda, n, t, cb, c, dtype):
+    f, g, h = (torch.from_numpy(a).to(cuda, dtype) for a in
+               attention_inputs(np.random.default_rng(t), n, t, cb, c))
+    got, m, l = fused_attention_cuda(f, g, h)
+    torch.cuda.synchronize()
+    want, wm, wl = fused_attention_plain_stats(f, g, h)
+    assert got.dtype == torch.float32 and got.shape == (n, t, c)
+    assert _scaled_err(got, want) <= 1e-5
+    torch.testing.assert_close(m, wm, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 5])
+def test_fused_attention_kernel_any_split(cuda, splits):
+    f, g, h = (torch.from_numpy(a).to(cuda) for a in
+               attention_inputs(np.random.default_rng(1), 2, 1000, 8, 64))
+    got, _, _ = fused_attention_cuda(f, g, h, splits=splits)
+    torch.cuda.synchronize()
+    want, _, _ = fused_attention_plain_stats(f, g, h)
+    assert _scaled_err(got, want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,t,cb,c", FUSED_SHAPES)
+def test_fused_attention_bwd_kernel_matches_plain(cuda, n, t, cb, c, dtype,
+                                                  tol):
+    rng = np.random.default_rng(t)
+    f, g, h = (torch.from_numpy(a).to(cuda, dtype)
+               for a in attention_inputs(rng, n, t, cb, c))
+    dout = torch.from_numpy(rng.normal(size=(n, t, c)).astype(np.float32)
+                            ).to(cuda)
+    _, m, l = fused_attention_plain_stats(f, g, h)
+    got = fused_attention_bwd_cuda(f, g, h, m, l, dout)
+    again = fused_attention_bwd_cuda(f, g, h, m, l, dout)
+    grouped = fused_attention_bwd_cuda(f, g, h, m, l, dout, group=3)
+    torch.cuda.synchronize()
+    want = fused_attention_bwd_plain(f, g, h, m, l, dout)
+    for name, a, b, a2, a3 in zip(("df", "dg", "dh"), got, want, again,
+                                  grouped):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _scaled_err(a, b) <= tol, (name, _scaled_err(a, b))
+        assert torch.equal(a, a2), name
+        assert _scaled_err(a3, b) <= tol, (name, "grouped")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_autograd_on_card(cuda, dtype):
+    """The autograd op end to end on the card against itself on the CPU."""
+    rng = np.random.default_rng(2)
+    f, g, h = (torch.from_numpy(a).to(dtype)
+               for a in attention_inputs(rng, 2, 600, 8, 64))
+    w = torch.from_numpy(rng.normal(size=(2, 600, 64)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (f, g, h)]
+        out = fused_attention(*leaves)
+        assert out.dtype == torch.float32
+        (out * w.to(dev)).sum().backward()
+        grads[str(dev)] = [x.grad.cpu() for x in leaves]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert a.dtype == dtype and _scaled_err(a, b) <= tol
 
 
 @pytest.mark.gpu
