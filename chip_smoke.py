@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      empty, counted in the report) beside
      the plain version's and, where one torch call computes the same
      function, that call's, and its bound (the larger of its operations
-     over the FP32 peak and its bytes over the memory rate):
+     over the FP32 peak, or for the deconv forward and weight gradient in
+     bf16 the tensor-core peak, and its bytes over the memory rate):
        paint      512^2, B = 4096 (random overlapping / cross-tile / empty /
                   zero-padded boxes, and the bench page's programs), exact;
        attention  N=1, T=4096, Cb=8, C=64 in f32 (1e-5) and bf16 (2e-2), and
@@ -29,11 +30,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      every case of utils/flat_cases.py: each instance the flagship's
      flat_scales=3 request runs, ragged shapes (odd sizes, an image smaller
      than a tile) and an LRN over 64 channels, in f32 (1e-5 of max(1, max
-     |want|)) and bf16 (2e-2 of it), layout and pool exact; the conv and
-     the residual block also timed at batch 16; and their backward kernels
+     |want|)) and bf16 (2e-2 of it), layout and pool exact; the conv, the
+     residual block and the deconv also timed at batch 16 (the deconv with
+     its library call); and their backward kernels
      (pool, conv stage 1 and dx, deconv dx and dw, residual block) on every
      FLAT_BWD_CASES entry, the train step's instances at batch 16, in f32
-     and bf16 (FLAT_BWD_TOL), each run twice for equal bits;
+     and bf16 (FLAT_BWD_TOL), each run twice for equal bits, and the
+     weight gradients' partial-row sums timed alone (partial_sums);
        streaming attention  N=2, T=16384, Cb=8, C=64 (config 5's deepest
                   scale) with f32 and bf16 operands, a ragged T = 8200 and
                   T = 66, against the blockwise plain versions: the f32
@@ -107,12 +110,13 @@ import sys
 import time
 
 
-def _profile_once(fn, iters):
+def _profile_once(fn, iters, keys=None):
     """One torch.profiler session over ``iters`` calls of ``fn`` -> (device
     ms per call: each kernel's summed time over the launches it recorded,
     times its launches per call, since the profiler now and then loses a
     launch's record; (min, max) ms of one launch of the kernel that took the
-    most time), or None when the session recorded no device time."""
+    most time), or None when the session recorded no device time.  With
+    ``keys``, only the kernels whose name holds one of them count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,16 +126,21 @@ def _profile_once(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    per_call, top, top_us = 0.0, None, 0.0
+    per_call, top, top_us, recorded = 0.0, None, 0.0, False
     for evt in prof.key_averages():
         if evt.device_type == cuda and evt.count:
+            recorded = True
+            if keys is not None and not any(k in evt.key for k in keys):
+                continue
             total = getattr(evt, "self_device_time_total",
                             getattr(evt, "self_cuda_time_total", 0.0))
             per_call += total / evt.count * round(evt.count / iters)
             if total > top_us:
                 top, top_us = evt.key, total
-    if per_call <= 0:
+    if not recorded or (keys is None and per_call <= 0):
         return None
+    if top is None:
+        return 0.0, (0.0, 0.0)
     launches = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                 if e.device_type == cuda and e.key == top]
     return per_call / 1e3, (min(launches), max(launches))
@@ -194,17 +203,22 @@ def _cuda_ms(fn, iters):
     return _device_time(fn, iters)[0]
 
 
-# The least time the card could take for a kernel's work: the
-# larger of the operations over the FP32 peak (the kernels run on the FP32
-# pipes, bf16 operands included) and the bytes moved, each input read once
-# and each output written once, over the memory rate.  H100 SXM data sheet.
+# The least time the card could take for a kernel's work: the larger of
+# the operations over the peak of the pipes that run them and the bytes
+# moved, each input read once and each output written once, over the
+# memory rate.  Every kernel runs its arithmetic on the FP32 pipes, bf16
+# operands included, but the deconv forward and weight gradient with the
+# 3x3 kernel, whose bf16 operands go to the tensor cores (DTYPE_AWARE).
+# H100 SXM data sheet.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dw")
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     """-> (bound_ms, "operations" or "bytes")."""
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -621,7 +635,7 @@ FLAT_KERNELS = {
                        "msau_tpu/ops/flatres.py:400"),
 }
 FLAT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of max(1, max |want|)
-TIMED_BATCH = 16   # the flagship train step's batch: K1 and K2 timed there
+TIMED_BATCH = 16   # the flagship train step's batch: K1, K2 and K6 timed there
 # the backward kernels: source, the TPU kernels they replace, and the case
 # of utils/flat_cases.FLAT_BWD_CASES the kernels line reports (f32, batch
 # 16; where one torch call computes the same function, an instance that
@@ -647,8 +661,10 @@ FLAT_BWD_KERNELS = {
 
 def _flat_bound(case, n, itemsize):
     """(bound_ms, bound_by) of a flat op's case (forward or backward op) at
-    batch n; LRN and activation arithmetic is left out (a few operations
-    per output against the conv's hundreds)."""
+    batch n and operand size ``itemsize``; LRN and activation arithmetic is
+    left out (a few operations per output against the conv's hundreds).
+    The DTYPE_AWARE ops' bf16 operations with the 3x3 kernel count at the
+    tensor-core peak (other odd K take the general kernels, FP32 pipes)."""
     op, c, cb = case["op"], case["c"], case.get("cb", 0)
     h, w = case["h"], case["w"]
     hw, cin = h * w, c + cb
@@ -670,8 +686,10 @@ def _flat_bound(case, n, itemsize):
                       + 4 * cout * (cin * k * k + 1))
     if op.startswith("flat_deconv2"):
         moved = n * (c * hw + cout * case["ho"] * case["wo"]) * itemsize
-        return _bound(2 * n * hw * c * cout * 9,
-                      moved + (4 * c * cout * 9 if op.endswith("dw") else 0))
+        tensor = op in DTYPE_AWARE and itemsize == 2 and k == 3
+        return _bound(2 * n * hw * c * cout * k * k,
+                      moved + (4 * c * cout * k * k if op.endswith("dw") else 0),
+                      PEAK_BF16_FLOPS if tensor else PEAK_F32_FLOPS)
     if op == "flat_res_block":
         return _bound(2 * 2 * 9 * c * c * hw * n, 2 * n * c * hw * itemsize)
     if op == "flat_res_block_bwd":
@@ -705,14 +723,16 @@ def _flat_library(case, tensors):
         h, wd = x.shape[-2:]
         op_hw = [case["ho"] - (2 * h - 1), case["wo"] - (2 * wd - 1)]
         return lambda: F.conv_transpose2d(x, w, b.to(x.dtype), stride=2,
-                                          padding=1, output_padding=op_hw)
+                                          padding=w.shape[-1] // 2,
+                                          output_padding=op_hw)
     if op in ("flat_deconv2_dx", "flat_deconv2_dw"):
         x, w, _, g = tensors
         h, wd = x.shape[-2:]
         op_hw = [case["ho"] - (2 * h - 1), case["wo"] - (2 * wd - 1)]
         mask = [op.endswith("dx"), op.endswith("dw"), False]
+        p = w.shape[-1] // 2
         return lambda: torch.ops.aten.convolution_backward(
-            g, x, w, None, [2, 2], [1, 1], [1, 1], True, op_hw, 1, mask)
+            g, x, w, None, [2, 2], [p, p], [1, 1], True, op_hw, 1, mask)
     if op in ("flat_conv_bwd", "flat_conv_dx"):
         a, b, w, _, g = tensors
         k, d = w.shape[-1], case.get("d", 1)
@@ -770,6 +790,11 @@ def check_flat_kernels(dev):
             if case["per_request"]:
                 entry["ms"] = _cuda_ms(kernel, 20)
                 entry["plain_ms"] = _cuda_ms(plain, 10)
+                if case["op"] in DTYPE_AWARE:
+                    lib = _flat_library(case, tensors)
+                    entry["library_ms"] = _cuda_ms(lib, 20)
+                    entry["bound"] = _flat_bound(case, tensors[0].shape[0],
+                                                 tensors[0].element_size())
                 for field, ms in (("request_ms", entry["ms"]),
                                   ("request_plain_ms", entry["plain_ms"])):
                     rec[field][key] = (rec[field].get(key, 0.0)
@@ -789,7 +814,7 @@ def check_flat_kernels(dev):
         print(f"[phase 1] {case['op']} {case['name']}: " + "; ".join(report),
               flush=True)
     for case in FLAT_CASES:
-        if case["op"] not in ("flat_conv2d", "flat_res_block") \
+        if case["op"] not in ("flat_conv2d", "flat_res_block", "flat_deconv2") \
                 or not case["per_request"]:
             continue
         for key in FLAT_TOL:
@@ -797,11 +822,16 @@ def check_flat_kernels(dev):
             tensors = flat_case_tensors(case, np.random.default_rng(12), dev,
                                         dtype, n=TIMED_BATCH)
             kernel, plain = flat_case_fns(case, tensors, dtype)
-            t = {"ms": _cuda_ms(kernel, 10), "plain_ms": _cuda_ms(plain, 5)}
+            lib = _flat_library(case, tensors)
+            t = {"ms": _cuda_ms(kernel, 10), "plain_ms": _cuda_ms(plain, 5),
+                 "library_ms": None if lib is None else _cuda_ms(lib, 10),
+                 "bound": _flat_bound(case, TIMED_BATCH,
+                                      tensors[0].element_size())}
             out[case["op"]]["batch16"][f"{case['name']} {key}"] = t
             print(f"[phase 1] {case['op']} {case['name']} {key} batch "
                   f"{TIMED_BATCH}: {t['ms']:.4f} ms vs plain "
-                  f"{t['plain_ms']:.4f}", flush=True)
+                  f"{t['plain_ms']:.4f}, library {t['library_ms']}, bound "
+                  f"{t['bound'][0]:.4f} ({t['bound'][1]})", flush=True)
             del tensors
     for name, rec in out.items():
         print(f"[phase 1] {name} per request ms: {json.dumps(rec['request_ms'])}"
@@ -857,6 +887,7 @@ def check_flat_bwd_kernels(dev):
                 entry["plain_ms"] = _cuda_ms(plain, 5)
                 lib = _flat_library(case, tensors)
                 entry["library_ms"] = None if lib is None else _cuda_ms(lib, 20)
+                entry["bound"] = _flat_bound(case, n, tensors[0].element_size())
                 for field, ms in (("step_ms", entry["ms"]),
                                   ("step_plain_ms", entry["plain_ms"]),
                                   ("step_library_ms", entry["library_ms"])):
@@ -889,6 +920,51 @@ def check_flat_bwd_kernels(dev):
               f"{json.dumps(rec['step_ms'])} vs plain "
               f"{json.dumps(rec['step_plain_ms'])}, library "
               f"{json.dumps(rec['step_library_ms'])}", flush=True)
+    return out
+
+
+# the kernels that add a weight gradient's per-block partial rows
+PARTIAL_SUM_KERNELS = ("sum_partials_kernel", "dw_sum_kernel")
+
+
+def partial_sums(dev, iters=10):
+    """The partial-row sums inside the weight-gradient kernels of one
+    flagship fs=3 train step (f32, batch 16): device ms per call of the
+    PARTIAL_SUM_KERNELS by backward case, and per step by op.  It reads the
+    msau_tpu_torch it imports, so run from another checkout's root
+    (``importlib`` on this file) it times that version on the same card."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.utils.flat_cases import (
+        FLAT_BWD_CASES,
+        flat_bwd_case_fns,
+        flat_bwd_case_tensors,
+    )
+
+    out = {"cases": {}, "step_ms": {}}
+    for case in FLAT_BWD_CASES:
+        if not case["per_step"] or case["op"] not in (
+                "flat_conv_bwd", "flat_res_block_bwd", "flat_deconv2_dw"):
+            continue
+        tensors = flat_bwd_case_tensors(case, np.random.default_rng(13), dev,
+                                        torch.float32, n=TIMED_BATCH)
+        kernel, _ = flat_bwd_case_fns(case, tensors)
+        for _ in range(2):
+            kernel()
+        got = None
+        for _ in range(3):
+            got = _profile_once(kernel, iters, PARTIAL_SUM_KERNELS)
+            if got is not None:
+                break
+        ms = None if got is None else got[0]
+        out["cases"][f"{case['op']} {case['name']}"] = ms
+        if ms is not None:
+            out["step_ms"][case["op"]] = (out["step_ms"].get(case["op"], 0.0)
+                                          + case["per_step"] * ms)
+        del tensors
+    print(f"[phase 1] partial sums per train step ms (f32): "
+          f"{json.dumps(out['step_ms'])}", flush=True)
     return out
 
 
@@ -1232,8 +1308,10 @@ KERNEL_FAMILIES = (
     ("flat res block bwd", (_OURS + "res_block_bwd_kernel<",)),
     ("flat res block fwd", (_OURS + "res_block_kernel<",)),
     ("flat deconv dx / dw", (_OURS + "deconv2_dx_kernel<",
-                             _OURS + "deconv2_dw_kernel<")),
-    ("flat deconv fwd", (_OURS + "deconv2_kernel<",)),
+                             _OURS + "deconv2_dw_")),
+    ("flat deconv fwd", (_OURS + "deconv2_f32_kernel<",
+                         _OURS + "deconv2_bf16_kernel<",
+                         _OURS + "deconv2_general_kernel<")),
     ("flat pool fwd / bwd, entry layout", (_OURS + "maxpool2_kernel<",
                                            _OURS + "maxpool2_bwd_kernel<",
                                            _OURS + "nhwc_to_nchw_kernel<")),
@@ -1620,6 +1698,7 @@ def main() -> int:
     kernels.update(timed("phase 1 flat kernels", check_flat_kernels, dev))
     kernels.update(timed("phase 1 flat backward kernels",
                          check_flat_bwd_kernels, dev))
+    sums = timed("phase 1 partial sums", partial_sums, dev)
     counts, timings, checks = timed("phase 2 512^2", serve_path, dev)
     counts_1024, timings_1024, checks_1024 = timed(
         "phase 2 1024^2", serve_path_1024, dev)
@@ -1669,7 +1748,7 @@ def main() -> int:
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": lib.build_seconds,
               "ptxas": lib.build_log, "seconds": seconds, "timer": TIMER,
-              "kernels": kernels,
+              "kernels": kernels, "partial_sums": sums,
               "launches": {"serve": counts, "train": train_counts},
               "predict_p50_ms": timings, "train": train, "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:

@@ -114,7 +114,9 @@ class InferConfig:
     min_component_area: int = 5
     closing_size: Tuple[int, int] = (1, 3)
     iou_threshold: float = 0.7         # field match criterion
-    max_ccl_iters: int = 64            # bound for the CCL fixpoint
+    # the JAX decoder's bound on CCL sweeps; read by nothing in the port,
+    # whose CCL runs to convergence (kept for config parity)
+    max_ccl_iters: int = 64
 
 
 __all__ = ["InferConfig", "ModelConfig", "TrainConfig"]

@@ -89,6 +89,84 @@ static inline int sum_partials(const float* part, int nblocks, int64_t stride,
   return (int)cudaGetLastError();
 }
 
+// ---- Hopper data movement and bf16 tensor-core products (sm_80+ PTX) ----
+
+// 16 bytes global -> shared, asynchronously, of which the first ``bytes``
+// (0 to 16) are read and the rest written as zeros (``src`` must still be a
+// device address).
+__device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+// 16 bytes global -> shared, asynchronously; ``valid`` false writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  cp_async16_bytes(dst, src, valid ? 16 : 0);
+}
+// 4 bytes global -> shared, asynchronously, zeros when ``valid`` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix: four (x4) or two (x2) 8x8 b16 matrices; lane i gives the
+// address of row i % 8 of matrix i / 8 (16 bytes, 16-byte aligned).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s)
+               : "memory");
+}
+
+// d += a b with mma.sync m16n8k16: bf16 operands, f32 accumulators.  a:
+// A (16 x 16, row-major) as ldmatrix.x4 gives it; b: B (16 x 8) as
+// ldmatrix.x2 of its transpose gives it; d[0..1] row lane/4, d[2..3] row
+// lane/4 + 8, columns 2 (lane % 4) and + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A shared-memory stride, in b16 elements, at least ``n`` and equal to 8
+// modulo 64 (16 bytes modulo 128): the eight rows of an ldmatrix matrix
+// taken at that stride fall in distinct bank groups.
+__host__ __device__ constexpr int ldsm_stride(int n) { return n + ((72 - n % 64) % 64); }
+
 // d act(a) / da from the preactivation a (jax.nn.elu's derivative: exp(a)
 // below 0).
 __device__ __forceinline__ float act_grad(float a, int act) {

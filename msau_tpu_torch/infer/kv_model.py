@@ -37,6 +37,7 @@ from msau_tpu_torch.infer.decode import (
 )
 from msau_tpu_torch.infer.schema import FieldSchema, post_process_kv
 from msau_tpu_torch.models.msau import DTYPES, build_model, check_supported
+from msau_tpu_torch.utils.checkpoint import read_params
 from msau_tpu_torch.utils.transplant import flax_to_torch
 
 INFER_SPECIALS = (" ", "$")
@@ -85,7 +86,8 @@ class KVModel:
 
         Weights come from ``params`` (a flax parameter tree with numpy
         leaves, or a torch state_dict), from ``model_weight`` (a
-        ``torch.save``d state_dict), or are drawn fresh from ``generator``;
+        ``torch.save``d state_dict, or a ``Trainer.save`` checkpoint
+        directory or file), or are drawn fresh from ``generator``;
         with none of them the model stays unbuilt.  ``warmup``: bucket
         size(s) to run once before the first request.
         """
@@ -118,7 +120,7 @@ class KVModel:
             )
         check_supported(self.model_config)
         if model_weight is not None:
-            params = torch.load(model_weight, map_location="cpu")
+            params = read_params(model_weight)
         if params is not None or generator is not None:
             model = build_model(self.model_config,
                                 generator or torch.Generator().manual_seed(0))

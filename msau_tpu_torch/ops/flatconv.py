@@ -584,6 +584,8 @@ def flat_deconv2_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(bias.shape)} do not fit {cin} inputs")
     cout, k = w.shape[1], w.shape[-1]
     w, bias = cast_params("flat_deconv2", x, w, bias)
+    if w.data_ptr() % 16:   # the bf16 kernel stages w in 16-byte copies
+        w = w.clone()
     ho, wo = target_hw
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)
     code = cuda_lib.library().msau_flat_deconv2(
@@ -659,7 +661,9 @@ def flat_deconv2_dw_cuda(x: torch.Tensor, g: torch.Tensor,
     n, cin, h, wd = x.shape
     _check_deconv_bwd("flat_deconv2_dw", x.shape, g, w_shape)
     cout, k = w_shape[1], w_shape[-1]
-    stride = cin * cout * k * k
+    # each block's partial row holds its sums tile by tile: channels
+    # padded to the tiles (16 input x 8 output channels at most)
+    stride = -(-cin // 16) * 16 * -(-cout // 8) * 8 * k * k
     dw = torch.empty(w_shape, dtype=torch.float32, device=x.device)
     code = cuda_lib.library().msau_flat_deconv2_dw(
         x.data_ptr(), g.data_ptr(), partial_scratch(stride, x.device).data_ptr(),

@@ -31,8 +31,7 @@ from msau_tpu_torch.config import ModelConfig, TrainConfig
 from msau_tpu_torch.models.msau import MSAUWrapper, build_model
 from msau_tpu_torch.train.loss import masked_cross_entropy, unet_loss
 from msau_tpu_torch.train.optimizer import Optimizer, make_optimizer
-
-CHECKPOINT_FILE = "train_state.pt"
+from msau_tpu_torch.utils.checkpoint import CHECKPOINT_FILE
 
 
 @dataclasses.dataclass

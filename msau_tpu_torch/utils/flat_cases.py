@@ -72,6 +72,23 @@ FLAT_CASES = [
           h=42, w=29, ho=83, wo=57),
     _case("flat_deconv2", "ragged 42x29 to 84x57", 0, n=1, c=32, cout=16,
           h=42, w=29, ho=84, wo=57),
+    # the deconv kernels' tile edges: output channels not a multiple of 8,
+    # 3 input channels, 128 (several staged chunks), more than 32 output
+    # channels (two passes), batch 16, and output channels past what one
+    # dw staging holds (two dw launches in each dtype)
+    _case("flat_deconv2", "cin 3 cout 12 19x23 to 38x45", 0, n=1, c=3,
+          cout=12, h=19, w=23, ho=38, wo=45),
+    _case("flat_deconv2", "cin 128 16x40 to 31x80", 0, n=1, c=128, cout=8,
+          h=16, w=40, ho=31, wo=80),
+    _case("flat_deconv2", "cout 40 10x9 to 20x17", 0, n=2, c=24, cout=40,
+          h=10, w=9, ho=20, wo=17),
+    _case("flat_deconv2", "batch 16 12x16 to 24x32", 0, n=16, c=32, cout=16,
+          h=12, w=16, ho=24, wo=32),
+    _case("flat_deconv2", "cout 240 6x7 to 12x14", 0, n=2, c=16, cout=240,
+          h=6, w=7, ho=12, wo=14),
+    # filter_size 5: the general kernels, forward and dw (dx takes any K)
+    _case("flat_deconv2", "5x5 21x17 to 41x34", 0, n=2, c=12, cout=8, h=21,
+          w=17, ho=41, wo=34, k=5),
     _case("flat_res_block", "8 ch 512^2", 6, n=1, c=8, h=512, w=512,
           act="relu"),
     _case("flat_res_block", "16 ch 256^2", 6, n=1, c=16, h=256, w=256,
@@ -112,9 +129,9 @@ def flat_case_arrays(case: dict, rng: np.random.Generator,
         wt = normal(cout, c + cb, k, k, scale=(k * k * (c + cb)) ** -0.5)
         return normal(n, c, h, w), b, wt, normal(cout, scale=0.1)
     if op == "flat_deconv2":
-        cout = case["cout"]
-        wt = (normal(c, cout, 3, 3) + np.arange(9, dtype=np.float32).reshape(
-            3, 3)) * (9 * c) ** -0.5
+        cout, k = case["cout"], case.get("k", 3)
+        wt = (normal(c, cout, k, k) + np.arange(k * k, dtype=np.float32)
+              .reshape(k, k)) * (k * k * c) ** -0.5
         return (normal(n, c, h, w), wt.astype(np.float32),
                 normal(cout, scale=0.1))
     if op == "flat_res_block":

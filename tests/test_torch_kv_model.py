@@ -134,3 +134,46 @@ def test_predict_at_flat_scales_2_gives_the_decode_tables_of_0(charset_file):
     assert torch.equal(ex2["chosen_class"], ex0["chosen_class"])
     assert [tuple(v) for v in ex2["values"]] == [tuple(v) for v in ex0["values"]]
     assert res2 == res0
+
+
+def test_model_weight_reads_a_trainer_checkpoint(charset_file, tmp_path):
+    """Trainer.save -> KVModel.load(model_weight=) -> predict: the directory
+    and its train_state.pt both give the predictions of the trainer's own
+    parameters."""
+    from msau_tpu_torch.config import InferConfig, ModelConfig, TrainConfig
+    from msau_tpu_torch.data.synth import make_structured_batch
+    from msau_tpu_torch.train.trainer import Trainer
+
+    def kv_model(mc):
+        return KVModel(model_config=mc,
+                       infer_config=InferConfig(n_class=N_CLASS),
+                       schema=FieldSchema(class_names=NAMES,
+                                          multiple_lines_fields=(5,)),
+                       device="cpu")
+
+    n_token = kv_model(None).load(charset=charset_file).charset.n_token
+    mc = ModelConfig(img_channels=n_token, n_class=N_CLASS, scale_space_num=2,
+                     res_depth=1, feat_root=4, num_blocks=2)
+    x, y = make_structured_batch(np.random.default_rng(2), 2, 64, N_CLASS,
+                                 n_token)
+    tr = Trainer(mc, TrainConfig(learning_rate=1e-3,
+                                 lr_decay_staircase=False), device="cpu")
+    tr.init_state(x, seed=0)
+    batch = tr.put_batch({"input": x, "label": y,
+                          "valid": np.ones(y.shape, bool)})
+    for _ in range(2):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    assert tr.state.step == 2
+    tr.save(str(tmp_path / "ckpt"))
+
+    own = kv_model(mc).load(charset=charset_file, n_class=N_CLASS,
+                            params={k: v.detach().clone()
+                                    for k, v in tr.state.params.items()})
+    want_res, want = own.predict(FIXTURE)
+    for path in (tmp_path / "ckpt", tmp_path / "ckpt" / "train_state.pt"):
+        kv = kv_model(mc).load(model_weight=str(path), charset=charset_file,
+                               n_class=N_CLASS)
+        res, got = kv.predict(FIXTURE)
+        assert torch.equal(got["pred"], want["pred"])
+        assert torch.equal(got["chosen_class"], want["chosen_class"])
+        assert res == want_res
