@@ -13,8 +13,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      empty, counted in the report) beside
      the plain version's and, where one torch call computes the same
      function, that call's, and its bound (the larger of its operations
-     over the FP32 peak, or for the deconv forward and weight gradient in
-     bf16 the tensor-core peak, and its bytes over the memory rate):
+     over the FP32 peak, or for the deconv forward, dx and weight gradient
+     in bf16 the tensor-core peak, and its bytes over the memory rate):
        paint      512^2, B = 4096 (random overlapping / cross-tile / empty /
                   zero-padded boxes, and the bench page's programs), exact;
        attention  N=1, T=4096, Cb=8, C=64 in f32 (1e-5) and bf16 (2e-2), and
@@ -33,10 +33,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      |want|)) and bf16 (2e-2 of it), layout and pool exact; the conv, the
      residual block and the deconv also timed at batch 16 (the deconv with
      its library call); and their backward kernels
-     (pool, conv stage 1 and dx, deconv dx and dw, residual block) on every
-     FLAT_BWD_CASES entry, the train step's instances at batch 16, in f32
-     and bf16 (FLAT_BWD_TOL), each run twice for equal bits, and the
-     weight gradients' partial-row sums timed alone (partial_sums);
+     (pool, conv stage 1 and dx, the concat 1x1 conv's one pass, deconv dx
+     and dw, residual block) on every FLAT_BWD_CASES entry, the train
+     step's instances at batch 16, in f32 and bf16 (FLAT_BWD_TOL), each run
+     twice for equal bits (the concat 1x1 pass also beside the split path
+     it replaced, conv stage 1 then the dx conv, on the same inputs; a
+     coupling wider than the one pass takes runs that split path), and
+     the weight gradients' partial-row sums timed alone (partial_sums);
        streaming attention  N=2, T=16384, Cb=8, C=64 (config 5's deepest
                   scale) with f32 and bf16 operands, a ragged T = 8200 and
                   T = 66, against the blockwise plain versions: the f32
@@ -76,9 +79,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      steps, then 10 (fs 3) or 5 (fs 0) timed steps with the launch counters
      reset just before (img/s, ms/step, peak memory).  Checks: the launches
      per step (PER_STEP: at flat_scales 3 the six forward kernels and conv
-     stage 1 33, conv dx 32, residual block bwd 18, deconv dx 9, deconv dw
-     9, pool bwd 9; at both 3 attention forwards, 2 attention backwards, 2
-     CE forwards and 2 CE backwards); the loss finite, and below its first
+     stage 1 21, conv dx 20, concat 1x1 bwd 12, residual block bwd 18,
+     deconv dx 9, deconv dw 9, pool bwd 9; at both 3 attention forwards, 2
+     attention backwards, 2 CE forwards and 2 CE backwards); the loss
+     finite, and below its first
      value after 20 bf16 steps; and one step at 128^2, batch 2, from the
      same weights, held to the exact step (the CPU's plain versions in
      float64, at flat_scales 0 and 3 equal to 1e-6 of the bound): the
@@ -207,13 +211,15 @@ def _cuda_ms(fn, iters):
 # the operations over the peak of the pipes that run them and the bytes
 # moved, each input read once and each output written once, over the
 # memory rate.  Every kernel runs its arithmetic on the FP32 pipes, bf16
-# operands included, but the deconv forward and weight gradient with the
-# 3x3 kernel, whose bf16 operands go to the tensor cores (DTYPE_AWARE).
+# operands included, but the deconv forward, dx and weight gradient with
+# the 3x3 kernel and the coupling conv's one-pass backward, whose bf16
+# operands go to the tensor cores (DTYPE_AWARE).
 # H100 SXM data sheet.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dw")
+DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
+               "concat_conv1x1_bwd")
 
 
 def _bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -644,11 +650,14 @@ FLAT_BWD_KERNELS = {
     "flat_maxpool2_bwd": ("msau_tpu_torch/csrc/pool.cu",
                           "msau_tpu/ops/flatconv.py:1896", "8 ch 512^2"),
     "flat_conv_bwd": ("msau_tpu_torch/csrc/flatconv_bwd.cu",
-                      "msau_tpu/ops/flatconv.py:600 (and :544, :2108)",
+                      "msau_tpu/ops/flatconv.py:600 (and :544)",
                       "merge_conv_0"),
     "flat_conv_dx": ("msau_tpu_torch/csrc/flatconv.cu",
                      "msau_tpu/ops/flatconv.py:472 (as _conv_body, :990)",
                      "merge_conv_0"),
+    "concat_conv1x1_bwd": ("msau_tpu_torch/csrc/concat1x1_bwd.cu",
+                           "msau_tpu/ops/flatconv.py:2108",
+                           "couple 8 ch 512^2"),
     "flat_deconv2_dx": ("msau_tpu_torch/csrc/deconv_bwd.cu",
                         "msau_tpu/ops/flatconv.py:1451 (and :1223)",
                         "16->8 to 512^2"),
@@ -663,8 +672,9 @@ def _flat_bound(case, n, itemsize):
     """(bound_ms, bound_by) of a flat op's case (forward or backward op) at
     batch n and operand size ``itemsize``; LRN and activation arithmetic is
     left out (a few operations per output against the conv's hundreds).
-    The DTYPE_AWARE ops' bf16 operations with the 3x3 kernel count at the
-    tensor-core peak (other odd K take the general kernels, FP32 pipes)."""
+    The DTYPE_AWARE ops' bf16 operations (the deconv's with the 3x3 kernel;
+    other odd K take the general kernels, FP32 pipes) count at the
+    tensor-core peak."""
     op, c, cb = case["op"], case["c"], case.get("cb", 0)
     h, w = case["h"], case["w"]
     hw, cin = h * w, c + cb
@@ -679,6 +689,13 @@ def _flat_bound(case, n, itemsize):
                                   else (hw + q)) * itemsize)
     if op in ("flat_conv2d", "concat_conv1x1", "flat_conv_dx"):
         return _bound(conv, n * hw * (cin + cout) * itemsize)
+    if op == "concat_conv1x1_bwd":
+        # z (where act is set), dx and dw; a, b and g read, da and db
+        # written once
+        return _bound(conv * (3 if case.get("act") else 2),
+                      n * hw * (2 * cin + cout) * itemsize
+                      + 4 * cout * (cin + 1),
+                      PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
     if op == "flat_conv_bwd":
         epi = case.get("act") is not None or case.get("lrn")
         return _bound(conv * (2 if epi else 1),
@@ -839,12 +856,16 @@ def check_flat_kernels(dev):
     return out
 
 
-def check_flat_bwd_kernels(dev):
+def check_flat_bwd_kernels(dev, ops=None):
     """Phase 1, the flat-layout backward kernels on every FLAT_BWD_CASES
     entry in f32 and bf16, the train step's instances at batch 16, each
     run twice for equal bits -> {kernel: {max_abs_err, ms, plain_ms,
     library_ms, bound, cases, step_ms, ...}}; ``step_ms``: the sum of
-    device times over one flagship train step's instances, per dtype."""
+    device times over one flagship train step's instances, per dtype.
+    ``ops``: only those kernels' cases, a probe quicker than the whole
+    script: ``python3 -c "import chip_smoke as cs, torch;
+    cs.check_flat_bwd_kernels(torch.device('cuda', 0),
+    ['concat_conv1x1_bwd'])"``."""
     import numpy as np
     import torch
 
@@ -857,8 +878,10 @@ def check_flat_bwd_kernels(dev):
 
     out = {name: {"max_abs_err": 0.0, "cases": {}, "step_ms": {},
                   "step_plain_ms": {}, "step_library_ms": {}}
-           for name in FLAT_BWD_KERNELS}
+           for name in FLAT_BWD_KERNELS if ops is None or name in ops}
     for case in FLAT_BWD_CASES:
+        if case["op"] not in out:
+            continue
         rec, report = out[case["op"]], []
         n = TIMED_BATCH if case["per_step"] else case["n"]
         for key in FLAT_TOL:
@@ -876,7 +899,8 @@ def check_flat_bwd_kernels(dev):
             if not bits or any(e > tol for _, e, tol in errs):
                 raise AssertionError(
                     f"{case['op']} {case['name']} {key}: errors {errs}, "
-                    f"same bits on a second run: {bits}")
+                    f"same bits on a second run: {bits}"
+                    + _relu_flips(case, tensors, got, want))
             entry = {"n": n, "max_abs_err": abs_err, "bit_identical": True,
                      "errors": [{"kind": k, "scaled_err": e, "tol": t}
                                 for k, e, t in errs]}
@@ -888,6 +912,12 @@ def check_flat_bwd_kernels(dev):
                 lib = _flat_library(case, tensors)
                 entry["library_ms"] = None if lib is None else _cuda_ms(lib, 20)
                 entry["bound"] = _flat_bound(case, n, tensors[0].element_size())
+                if case["op"] == "concat_conv1x1_bwd":
+                    from msau_tpu_torch.ops import flatconv
+                    entry["split_ms"] = _cuda_ms(
+                        lambda: flatconv.concat_conv1x1_bwd_split(
+                            *tensors, act=case["act"]), 20)
+                    msg += f"; split path {entry['split_ms']:.4f} ms"
                 for field, ms in (("step_ms", entry["ms"]),
                                   ("step_plain_ms", entry["plain_ms"]),
                                   ("step_library_ms", entry["library_ms"])):
@@ -902,6 +932,8 @@ def check_flat_bwd_kernels(dev):
                                library_ms=entry["library_ms"],
                                bound=_flat_bound(case, n, 4),
                                timed_on=f"{case['name']} float32 batch {n}")
+                    if "split_ms" in entry:
+                        rec["split_ms"] = entry["split_ms"]
                 lo, hi = entry["launch_ms_range"]
                 msg += (f"; {entry['ms']:.4f} ms (one launch of its largest "
                         f"kernel {lo:.4f}-{hi:.4f}) vs plain "
@@ -921,6 +953,24 @@ def check_flat_bwd_kernels(dev):
               f"{json.dumps(rec['step_plain_ms'])}, library "
               f"{json.dumps(rec['step_library_ms'])}", flush=True)
     return out
+
+
+def _relu_flips(case, tensors, got, want):
+    """For a coupling conv's relu case: the pixels whose da misses 1e-3 of
+    the plain version, and the largest of their least |z| (a relu mask
+    flipped at z near 0 shows as a tiny |z|); else ''."""
+    import torch
+
+    if case["op"] != "concat_conv1x1_bwd" or case["act"] != "relu":
+        return ""
+    a, b, w, bias, _ = tensors
+    z = torch.einsum("oc,nchw->nohw", w.double()[:, :, 0, 0],
+                     torch.cat([a, b], 1).double())
+    z = (z + bias.double()[:, None, None]).abs().amin(1)
+    bad = ((got[0].double() - want[0].double()).abs().amax(1)
+           > 1e-3 * max(1.0, float(want[0].abs().max())))
+    return (f"; {int(bad.sum())} pixels of da off, least |z| there at most "
+            f"{float(z[bad].max()) if bad.any() else None}")
 
 
 # the kernels that add a weight gradient's per-block partial rows
@@ -945,7 +995,8 @@ def partial_sums(dev, iters=10):
     out = {"cases": {}, "step_ms": {}}
     for case in FLAT_BWD_CASES:
         if not case["per_step"] or case["op"] not in (
-                "flat_conv_bwd", "flat_res_block_bwd", "flat_deconv2_dw"):
+                "flat_conv_bwd", "concat_conv1x1_bwd", "flat_res_block_bwd",
+                "flat_deconv2_dw"):
             continue
         tensors = flat_bwd_case_tensors(case, np.random.default_rng(13), dev,
                                         torch.float32, n=TIMED_BATCH)
@@ -1262,14 +1313,15 @@ FLAGSHIP = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
 # the model; every other kernel launches no time.  The last stage's
 # attention output feeds nothing, so autograd runs its forward but no
 # backward; the entry conv of stage 0 reads the chargrid, which has no
-# gradient, so it has no dx conv (20 + 12 coupling dx, 33 stage-1: 9 LRN
-# dil convs, 9 merge, 3 end, 12 coupling)
+# gradient, so it has no dx conv (20 dx, 21 stage-1: 9 LRN dil convs, 9
+# merge, 3 end; the 12 couplings take their one-pass backward)
 _ATTN_CE = {"resident_attention_fwd": 3, "resident_attention_bwd": 2,
             "masked_ce_fwd": 2, "masked_ce_bwd": 2}
 PER_STEP = {
     3: {**_ATTN_CE, "to_nchw": 1, "flat_conv2d": 21, "flat_res_block": 18,
         "concat_conv1x1": 12, "flat_deconv2": 9, "flat_maxpool2": 9,
-        "flat_conv_bwd": 33, "flat_conv_dx": 32, "flat_res_block_bwd": 18,
+        "flat_conv_bwd": 21, "flat_conv_dx": 20, "concat_conv1x1_bwd": 12,
+        "flat_res_block_bwd": 18,
         "flat_deconv2_dx": 9, "flat_deconv2_dw": 9, "flat_maxpool2_bwd": 9},
     0: dict(_ATTN_CE),
 }
@@ -1281,15 +1333,16 @@ TIMED_STEPS = {3: 10, 0: 5}
 # three end convs, the entry layout and the loss once.  Forward per stage:
 # 2 dil + 2 merge convs, 4 residual blocks, 2 deconvs, 2 pools, 4 couplings
 # (stages 1 and 2), 1 streaming attention.  Backward: conv stage 1 for 6
-# dil + 6 merge + 3 end + 8 coupling convs; conv dx for all but stage 0's
-# entry conv (14) and the 8 couplings; the last stage's attention output
-# feeds nothing, so 2 attention backwards
+# dil + 6 merge + 3 end convs; conv dx for all but stage 0's entry conv
+# (14); the one-pass backward of the 8 couplings; the last stage's
+# attention output feeds nothing, so 2 attention backwards
 PER_STEP_CONFIG5 = {
     "fused_attention_fwd": 6, "fused_attention_bwd": 2,
     "masked_ce_fwd": 2, "masked_ce_bwd": 2, "to_nchw": 1,
     "flat_conv2d": 27, "flat_res_block": 24, "concat_conv1x1": 16,
     "flat_deconv2": 12, "flat_maxpool2": 12,
-    "flat_conv_bwd": 23, "flat_conv_dx": 22, "flat_res_block_bwd": 12,
+    "flat_conv_bwd": 15, "flat_conv_dx": 14, "concat_conv1x1_bwd": 8,
+    "flat_res_block_bwd": 12,
     "flat_deconv2_dx": 6, "flat_deconv2_dw": 6, "flat_maxpool2_bwd": 6}
 CONFIG5_BATCH = (2, 1024)
 CONFIG5_TIMED = 5        # scripts/bench_configs.py times 5 steps
@@ -1305,10 +1358,10 @@ KERNEL_FAMILIES = (
     ("flat conv stage 1", (_OURS + "conv_bwd_kernel<",)),
     ("flat conv fwd and dx", (_OURS + "conv_kernel<",
                               _OURS + "conv_lrn_wide_kernel<")),
+    ("flat concat 1x1 bwd", (_OURS + "concat1x1_bwd",)),
     ("flat res block bwd", (_OURS + "res_block_bwd_kernel<",)),
     ("flat res block fwd", (_OURS + "res_block_kernel<",)),
-    ("flat deconv dx / dw", (_OURS + "deconv2_dx_kernel<",
-                             _OURS + "deconv2_dw_")),
+    ("flat deconv dx / dw", (_OURS + "deconv2_dx", _OURS + "deconv2_dw_")),
     ("flat deconv fwd", (_OURS + "deconv2_f32_kernel<",
                          _OURS + "deconv2_bf16_kernel<",
                          _OURS + "deconv2_general_kernel<")),

@@ -35,6 +35,31 @@ __device__ __forceinline__ void load_row(float (&dst)[N], const float* src) {
   }
 }
 
+// 4 consecutive floats of a row of n from column x, zero past the row's
+// end; ``vec``: the row and x allow one aligned vector load.
+__device__ inline void load4(float (&v)[4], const float* row, int x, int n, bool vec) {
+  if (vec && x + 4 <= n) {
+    const float4 u = *reinterpret_cast<const float4*>(row + x);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = x + e < n ? row[x + e] : 0.f;
+  }
+}
+// 4 floats to a row of n from column x (a vector store where ``vec``).
+__device__ inline void store4(float* row, int x, int n, bool vec, const float (&v)[4]) {
+  if (vec && x + 4 <= n) {
+    *reinterpret_cast<float4*>(row + x) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (x + e < n) row[x + e] = v[e];
+  }
+}
+
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // Activation codes of the flat-layout kernels: 0 none, 1 relu, 2 elu
@@ -149,6 +174,30 @@ __device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
                : "memory");
 }
 
+// stmatrix (sm_90): four 8x8 b16 matrices to shared memory, transposed;
+// the inverse of ldsm_x4_trans at the same lane addresses.
+__device__ __forceinline__ void stsm_x4_trans(void* p, const unsigned (&r)[4]) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(s),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+// An 8x8 b16 matrix held as ldmatrix gives it (lane i: row i / 4, columns
+// 2 (i % 4) and + 1), transposed in registers.
+__device__ __forceinline__ unsigned movm_trans(unsigned a) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+// two floats as a bf16 pair (x in the low half) and back
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 // d += a b with mma.sync m16n8k16: bf16 operands, f32 accumulators.  a:
 // A (16 x 16, row-major) as ldmatrix.x4 gives it; b: B (16 x 8) as
 // ldmatrix.x2 of its transpose gives it; d[0..1] row lane/4, d[2..3] row
@@ -160,6 +209,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b with mma.sync m16n8k8: a0, a1 the A registers of rows lane/4
+// and + 8 (k 2 (lane % 4) and + 1), b the B register; d as in mma_bf16.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], unsigned a0, unsigned a1, unsigned b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
 }
 
 // A shared-memory stride, in b16 elements, at least ``n`` and equal to 8

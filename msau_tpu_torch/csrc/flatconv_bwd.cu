@@ -9,11 +9,10 @@
 //
 // Replaces the TPU kernels msau_tpu/ops/flatconv.py:_epi_bwd_kernel
 // (launcher _epi_bwd_call: recompute, LRN / act backward, dw and db in one
-// pass), _dw_kernel (launcher _dw_call: the case with no epilogue, where
-// g0 = g, for the merge and end convs) and _cc_bwd_kernel (launcher
-// _cc_vjp_bwd: the two-input 1x1 coupling conv with relu / elu: its dwa,
-// dwb and dbias are this kernel's dw and db, its da and db the transposed
-// conv of g0).  Rounding as there: g arrives in the activation dtype; g0 is
+// pass) and _dw_kernel (launcher _dw_call: the case with no epilogue, where
+// g0 = g, for the merge and end convs); the coupling conv's backward
+// (_cc_bwd_kernel) is concat1x1_bwd.cu's one pass.  Rounding as there: g
+// arrives in the activation dtype; g0 is
 // written in that dtype and dw is summed from the rounded g0; db from the
 // f32 g0; every sum in f32.
 //

@@ -3,8 +3,8 @@ resident attention forward and backward, streaming attention forward and
 backward, multiclass CCL, fused masked CE
 forward and backward, and the flat-layout ops: entry layout, max pool, conv
 with its fused epilogue, concat 1x1 conv, stride-2 deconv and the fused
-residual block, with their backward: pool, conv stage 1 and dx, deconv dx
-and dw, residual block) and the torch-op morphology."""
+residual block, with their backward: pool, conv stage 1 and dx, the
+concat 1x1 conv's one pass, deconv dx and dw, residual block) and the torch-op morphology."""
 
 from msau_tpu_torch.ops.attention import (
     fused_attention_bwd_cuda,
@@ -15,6 +15,7 @@ from msau_tpu_torch.ops.attention import (
 from msau_tpu_torch.ops.ccl import connected_components_multiclass_cuda
 from msau_tpu_torch.ops.ce_loss import masked_ce_bwd_cuda, masked_ce_fwd_cuda
 from msau_tpu_torch.ops.flatconv import (
+    concat_conv1x1_bwd_cuda,
     concat_conv1x1_cuda,
     flat_conv2d_cuda,
     flat_conv_bwd_cuda,
@@ -49,6 +50,7 @@ KERNEL_WRAPPERS = {
     "flat_maxpool2_bwd": flat_maxpool2_bwd_cuda,
     "flat_conv_bwd": flat_conv_bwd_cuda,
     "flat_conv_dx": flat_conv_dx_cuda,
+    "concat_conv1x1_bwd": concat_conv1x1_bwd_cuda,
     "flat_deconv2_dx": flat_deconv2_dx_cuda,
     "flat_deconv2_dw": flat_deconv2_dw_cuda,
     "flat_res_block_bwd": flat_res_block_bwd_cuda,

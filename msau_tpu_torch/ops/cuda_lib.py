@@ -75,6 +75,12 @@ SIGNATURES = {
     # pt, pleft, act, lrn_size, alpha, beta, lrn_k, is_bf16, stream
     "msau_flat_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # a, b, w, bias, g, da, db, partial, out, n, ca, cb, h, w, cout, act,
+    # is_bf16, stream
+    "msau_concat_conv1x1_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P),
+    # ca, cb, cout, is_bf16 -> 1 where the one-pass kernel takes them
+    "msau_concat_conv1x1_bwd_fits": (_I, _I, _I, _I),
     # x, g, dx, nc, h, w, is_bf16, stream
     "msau_maxpool2_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, bias, y, n, cin, h, w, cout, k, ho, wo, is_bf16, stream

@@ -14,11 +14,13 @@ sizes, wide cin, geometries without an aligned tiling), so any H, W runs.
   flat_maxpool2       csrc/pool.cu          _mp_fwd_kernel
     backward          csrc/pool.cu          _mp_bwd_kernel
   flat_conv2d         csrc/flatconv.cu      _fwd_kernel
-  concat_conv1x1      csrc/flatconv.cu      _cc_fwd_kernel (KH = KW = 1)
-    stage 1 (g0, dw, db)  csrc/flatconv_bwd.cu  _epi_bwd_kernel, _dw_kernel,
-                                            _cc_bwd_kernel
+    stage 1 (g0, dw, db)  csrc/flatconv_bwd.cu  _epi_bwd_kernel, _dw_kernel
     dx                csrc/flatconv.cu      _fwd_kernel as the transposed
                                             conv (split outputs)
+  concat_conv1x1      csrc/flatconv.cu      _cc_fwd_kernel (KH = KW = 1)
+    backward          csrc/concat1x1_bwd.cu _cc_bwd_kernel (one pass: da,
+                                            db, dw, dbias; wider couplings:
+                                            stage 1 and dx as above)
   flat_deconv2        csrc/deconv.cu        _dc_fwd_kernel, _ups_fwd_kernel
     backward          csrc/deconv_bwd.cu    _dc_dx_kernel, _dc_dw_kernel,
                                             _ups_bwd_kernel
@@ -31,7 +33,9 @@ f32.  Each op is a ``torch.autograd.Function`` whose backward follows the
 JAX package's rounding: the incoming cotangent is cast to the activation
 dtype, a cotangent that feeds a conv or a weight gradient is rounded to it,
 and weight and bias gradients are f32 sums returned in the parameter's
-dtype.  A backward computes only the gradients autograd asks for.
+dtype.  A backward computes only the gradients autograd asks for, but the
+coupling conv's, whose one pass computes all four, as the TPU kernel's
+does.
 """
 
 from __future__ import annotations
@@ -482,20 +486,21 @@ flat_conv_dx_cuda.launches = 0
 
 
 class _FlatConv(torch.autograd.Function):
-    """y = fwd(a, b, w, bias, **opts), a conv of [a; b] with the fused
-    epilogue; the backward runs stage 1 (g0, dw, db) and the dx conv."""
+    """y = flat_conv2d of [a; b] with the fused epilogue (``opts``); the
+    backward runs stage 1 (g0, dw, db) and the dx conv."""
 
     @staticmethod
-    def forward(ctx, fwd, opts, a, b, w, bias):
+    def forward(ctx, opts, a, b, w, bias):
         ctx.opts = opts
         ctx.save_for_backward(a, b, w, bias)
-        return fwd(a, b, w, bias, **opts)
+        fn = flat_conv2d_cuda if on_cuda("flat_conv2d", a) else flat_conv2d_plain
+        return fn(a, b, w, bias, **opts)
 
     @staticmethod
     def backward(ctx, g):
         a, b, w, bias = ctx.saved_tensors
         opts = dict(ctx.opts)
-        need_a, need_b, need_w, need_bias = ctx.needs_input_grad[2:]
+        need_a, need_b, need_w, need_bias = ctx.needs_input_grad[1:]
         need_x = need_a or need_b
         cuda = on_cuda("flat_conv2d", a)
         dilation = opts.pop("dilation", 1)
@@ -512,13 +517,8 @@ class _FlatConv(torch.autograd.Function):
             parts = dx(g if g0 is None else g0, w, couts, dilation=dilation)
             da = parts[0] if need_a else None
             dbb = parts[1] if b is not None and need_b else None
-        return (None, None, da, dbb, _grad(dw, w, need_w),
+        return (None, da, dbb, _grad(dw, w, need_w),
                 _grad(db, bias, need_bias))
-
-
-def _flat_conv2d(a, b, w, bias, **kw):
-    fn = flat_conv2d_cuda if on_cuda("flat_conv2d", a) else flat_conv2d_plain
-    return fn(a, b, w, bias, **kw)
 
 
 def flat_conv2d(x, w: torch.Tensor, bias: torch.Tensor, *, dilation: int = 1,
@@ -529,21 +529,110 @@ def flat_conv2d(x, w: torch.Tensor, bias: torch.Tensor, *, dilation: int = 1,
     none).  ``x`` is [N, Cin, H, W] or a pair (a, b) read as their channel
     concat; ``w`` is [Cout, Cin, KH, KW]."""
     a, b = x if isinstance(x, tuple) else (x, None)
-    return _FlatConv.apply(_flat_conv2d, dict(
+    return _FlatConv.apply(dict(
         dilation=dilation, act=act, lrn_size=lrn_size, alpha=alpha, beta=beta,
         lrn_k=lrn_k), a, b, w, bias)
 
 
-def _concat_conv1x1(a, b, w, bias, *, act):
-    fn = (concat_conv1x1_cuda if on_cuda("concat_conv1x1", a)
-          else concat_conv1x1_plain)
-    return fn(a, b, w, bias, act=act)
+def concat_conv1x1_bwd_plain(a, b, w, bias, g, *, act=None):
+    """The coupling conv's backward -> (da, db in the activation dtype, dw
+    f32 [Cout, Ca + Cb, 1, 1], dbias f32 [Cout]): g0 = g act'(W [a; b] +
+    bias) in f32, rounded to the activation dtype for da, db and dw; dbias
+    sums the f32 g0."""
+    dt, ca = a.dtype, a.shape[1]
+    w2 = wide(w.to(dt).reshape(w.shape[0], -1))
+    x = wide(torch.cat([a, b], dim=1))
+    g0 = wide(g.to(dt))
+    code = act_code(act)
+    if code:   # Wa a + Wb b + bias, the two sums then the bias, as in JAX
+        z = (torch.einsum("oc,nchw->nohw", w2[:, :ca], x[:, :ca])
+             + torch.einsum("oc,nchw->nohw", w2[:, ca:], x[:, ca:])
+             + wide(bias)[:, None, None])
+        g0 = g0 * act_grad(z, code)
+    gc = wide(g0.to(dt))
+    dx = torch.einsum("oc,nohw->nchw", w2, gc).to(dt)
+    dw = torch.einsum("nohw,nchw->oc", gc, x).reshape(w.shape)
+    return (dx[:, :ca].contiguous(), dx[:, ca:].contiguous(), dw,
+            g0.sum((0, 2, 3)))
+
+
+def concat_conv1x1_bwd_split(a, b, w, bias, g, *, act=None):
+    """The coupling conv's backward in two launches of the general kernels:
+    conv stage 1 (g0, dw, dbias), then the dx conv of g0 split into da and
+    db; ``concat_conv1x1_bwd_cuda`` takes it for couplings wider than its
+    one pass takes."""
+    g0, dw, dbias = flat_conv_bwd_cuda(a, b, w, bias, g, act=act)
+    da, db = flat_conv_dx_cuda(g if g0 is None else g0, w,
+                               (a.shape[1], b.shape[1]))
+    return da, db, dw, dbias
+
+
+def concat_conv1x1_bwd_cuda(a, b, w, bias, g, *, act=None):
+    """Launch the coupling conv's one-pass backward kernel (see
+    ``concat_conv1x1_bwd_plain``); ``.launches`` counts its launches.
+    Channel counts that kernel does not take (``fits``: in f32 about 32 +
+    32 -> 32, in bf16 a and b padded to 8 each and at most 64 together, at
+    most 32 out) go to ``concat_conv1x1_bwd_split``."""
+    if b is None or tuple(w.shape[-2:]) != (1, 1):
+        raise ValueError("concat_conv1x1_bwd: two inputs and a 1x1 weight, "
+                         f"got weight {tuple(w.shape)}")
+    cb = _check_conv("concat_conv1x1_bwd", a, b, w, bias)
+    cuda_lib.require_cuda("concat_conv1x1_bwd cotangent", g, a.dtype, 4)
+    n, ca, h, wd = a.shape
+    cout = w.shape[0]
+    if g.shape != (n, cout, h, wd):
+        raise ValueError(f"concat_conv1x1_bwd: cotangent {tuple(g.shape)}")
+    lib = cuda_lib.library()
+    if not lib.msau_concat_conv1x1_bwd_fits(ca, cb, cout, is_bf16(a)):
+        return concat_conv1x1_bwd_split(a, b, w, bias, g, act=act)
+    w, bias = cast_params("concat_conv1x1_bwd", a, w, bias)
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    stride = cout * (ca + cb) + cout
+    out = torch.empty(stride, dtype=torch.float32, device=a.device)
+    code = lib.msau_concat_conv1x1_bwd(
+        a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        g.data_ptr(), da.data_ptr(), db.data_ptr(),
+        partial_scratch(stride, a.device).data_ptr(), out.data_ptr(), n, ca,
+        cb, h, wd, cout, act_code(act), is_bf16(a),
+        cuda_lib.stream_ptr(a.device))
+    cuda_lib.check("msau_concat_conv1x1_bwd", code)
+    concat_conv1x1_bwd_cuda.launches += 1
+    return da, db, out[:-cout].view(cout, ca + cb, 1, 1), out[-cout:]
+
+
+concat_conv1x1_bwd_cuda.launches = 0
+
+
+class _ConcatConv1x1(torch.autograd.Function):
+    """The coupling conv; its backward computes da, db, dw and dbias
+    together (``concat_conv1x1_bwd_cuda``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, w, bias, act):
+        ctx.act = act
+        ctx.save_for_backward(a, b, w, bias)
+        fn = (concat_conv1x1_cuda if on_cuda("concat_conv1x1", a)
+              else concat_conv1x1_plain)
+        return fn(a, b, w, bias, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, w, bias = ctx.saved_tensors
+        need_a, need_b, need_w, need_bias = ctx.needs_input_grad[:4]
+        fn = (concat_conv1x1_bwd_cuda if on_cuda("concat_conv1x1", a)
+              else concat_conv1x1_bwd_plain)
+        da, db, dw, dbias = fn(a, b, w, bias, g.to(a.dtype).contiguous(),
+                               act=ctx.act)
+        return (da if need_a else None, db if need_b else None,
+                _grad(dw, w, need_w), _grad(dbias, bias, need_bias), None)
 
 
 def concat_conv1x1(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
                    bias: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
-    """act(W [a; b] + bias) with a 1x1 ``w`` [Cout, Ca + Cb, 1, 1]."""
-    return _FlatConv.apply(_concat_conv1x1, {"act": act}, a, b, w, bias)
+    """act(W [a; b] + bias) with a 1x1 ``w`` [Cout, Ca + Cb, 1, 1].  Its
+    backward is one kernel launch where ``concat_conv1x1_bwd_cuda``'s one
+    pass takes the channel counts, else the two general kernels."""
+    return _ConcatConv1x1.apply(a, b, w, bias, act)
 
 
 # ---- K6: stride-2 transposed conv ---------------------------------------

@@ -62,6 +62,16 @@ FLAT_CASES = [
           cout=32, h=128, w=128, act="relu"),
     _case("concat_conv1x1", "ragged 83x57 elu", 0, n=2, c=8, cb=8, cout=8,
           h=83, w=57, act="elu"),
+    _case("concat_conv1x1", "ragged 83x57 no act", 0, n=2, c=16, cb=16,
+          cout=16, h=83, w=57, act=None),
+    # unequal inputs, output channels neither input's count nor a
+    # multiple of 8
+    _case("concat_conv1x1", "ca 8 cb 16 cout 12 37x45", 0, n=2, c=8, cb=16,
+          cout=12, h=37, w=45, act="relu"),
+    # feat_root 16's deepest coupling at flat_scales 3: wider than the
+    # one-pass backward takes, so its wrapper runs the two general kernels
+    _case("concat_conv1x1", "64 + 64 -> 64 40x48 (feat_root 16)", 0, n=2,
+          c=64, cb=64, cout=64, h=40, w=48, act="relu"),
     _case("flat_deconv2", "64->32 to 128^2", 3, n=1, c=64, cout=32, h=64,
           w=64, ho=128, wo=128),
     _case("flat_deconv2", "32->16 to 256^2", 3, n=1, c=32, cout=16, h=128,
@@ -201,7 +211,7 @@ def flat_case_fns(case: dict, tensors, dtype: torch.dtype
 # (its forward counts; the stage-0 entry conv needs no dx: the chargrid
 # has no gradient).  The ragged forward cases carry over with per_step 0.
 _BWD_OF = {"flat_conv2d": ("flat_conv_bwd", "flat_conv_dx"),
-           "concat_conv1x1": ("flat_conv_bwd", "flat_conv_dx"),
+           "concat_conv1x1": ("concat_conv1x1_bwd",),
            "flat_maxpool2": ("flat_maxpool2_bwd",),
            "flat_deconv2": ("flat_deconv2_dx", "flat_deconv2_dw"),
            "flat_res_block": ("flat_res_block_bwd",)}
@@ -264,6 +274,11 @@ def flat_bwd_case_fns(case: dict, tensors) -> Tuple[Callable, Callable]:
                   lrn_size=case["cout"] if case.get("lrn") else 0)
         return pair(flatconv.flat_conv_bwd_cuda, flatconv.flat_conv_bwd_plain,
                     a, b, w, bias, g, **kw)
+    if op == "concat_conv1x1_bwd":
+        a, b, w, bias, g = tensors
+        return pair(flatconv.concat_conv1x1_bwd_cuda,
+                    flatconv.concat_conv1x1_bwd_plain, a, b, w, bias, g,
+                    act=case["act"])
     if op == "flat_deconv2_dx":
         x, w, _, g = tensors
         return pair(flatconv.flat_deconv2_dx_cuda,
@@ -288,6 +303,8 @@ def flat_bwd_output_kinds(case: dict) -> Tuple[str, ...]:
         return ("act",) * bool(epi) + ("param", "param")
     if op == "flat_conv_dx":
         return ("act",) * (2 if case.get("cb") else 1)
+    if op == "concat_conv1x1_bwd":
+        return ("act", "act", "param", "param")
     if op == "flat_deconv2_dw":
         return ("param",)
     if op == "flat_res_block_bwd":

@@ -21,8 +21,13 @@ from msau_tpu.models.flat_layers import make_scale_geoms
 from msau_tpu.ops import flatconv as jfc
 from msau_tpu.ops.flatres import flat_res_block as jax_res_block
 from msau_tpu_torch.ops.flatconv import (
+    act_code,
+    act_grad,
     concat_conv1x1,
+    concat_conv1x1_bwd_plain,
     flat_conv2d,
+    flat_conv_bwd_plain,
+    flat_conv_dx_plain,
     flat_deconv2,
     flat_maxpool2,
 )
@@ -147,8 +152,9 @@ def test_merge_conv_vjp_matches_pallas(kernels_run, ca, cb, cout):
 
 @pytest.mark.parametrize("c,act", [(8, "relu"), (16, "elu")])
 def test_concat_conv1x1_vjp_matches_pallas(kernels_run, c, act):
-    """The coupling conv: its da, db, dwa, dwb, dbias from _cc_bwd_kernel;
-    the port's from the conv stage-1 kernel and the split dx conv."""
+    """The coupling conv through its autograd Function: its da, db, dwa,
+    dwb, dbias from _cc_bwd_kernel; the port's from its one-pass backward
+    (concat_conv1x1_bwd)."""
     geom = jfc.choose_geom(32, 48)
     rng = np.random.default_rng(c)
     a, bb = _normal(rng, 2, c, 32, 48), _normal(rng, 2, c, 32, 48)
@@ -169,6 +175,75 @@ def test_concat_conv1x1_vjp_matches_pallas(kernels_run, c, act):
     _close(db_in, jfc.from_body(jdb_in, geom), DX_TOL)
     _close(dw, _hwio(jdw), DW_TOL)
     _close(db, jdb, DW_TOL)
+
+
+# (H, W): the tests' usual 32x48 and a ragged size (H prime, W not a
+# multiple of 8; the JAX layout takes it with one-row tiles)
+CC_SIZES = [(32, 48), (37, 46)]
+
+
+def _cc_operands(seed, ca, cb, cout, h, w):
+    rng = np.random.default_rng(seed)
+    a, bb = _normal(rng, 2, ca, h, w), _normal(rng, 2, cb, h, w)
+    wk = _normal(rng, 1, 1, ca + cb, cout, scale=0.3)
+    return a, bb, wk, _normal(rng, cout), _normal(rng, 2, cout, h, w)
+
+
+@pytest.mark.parametrize("h,w", CC_SIZES)
+@pytest.mark.parametrize("act", ["relu", "elu", None])
+def test_concat_conv1x1_bwd_plain_matches_pallas(kernels_run, act, h, w):
+    """The one-pass coupling backward's plain version (the oracle its
+    kernel is held to on the card) against _cc_bwd_kernel: unequal inputs
+    (8 and 16 channels), 12 output channels."""
+    geom = jfc.choose_geom(h, w)
+    a, bb, wk, bias, g = _cc_operands(h + len(str(act)), 8, 16, 12, h, w)
+    body = lambda t: jfc.to_body(jnp.asarray(t), geom)
+    _, vjp = jax.vjp(lambda p, q, wt, z: jfc.flat_concat_conv1x1(
+        p, q, wt, z, geom, act=act), body(a), body(bb), jnp.asarray(wk),
+        jnp.asarray(bias))
+    jda, jdb_in, jdw, jdb = vjp(body(g))
+    assert "_cc_bwd_kernel" in kernels_run
+    da, db_in, dw, db = concat_conv1x1_bwd_plain(
+        torch.from_numpy(a), torch.from_numpy(bb), _oihw(wk),
+        torch.from_numpy(bias), torch.from_numpy(g), act=act)
+    assert da.dtype == db_in.dtype == torch.float32
+    _close(da, jfc.from_body(jda, geom), DX_TOL)
+    _close(db_in, jfc.from_body(jdb_in, geom), DX_TOL)
+    _close(dw, _hwio(jdw), DW_TOL)
+    _close(db, jdb, DW_TOL)
+
+
+@pytest.mark.parametrize("act", ["relu", "elu"])
+def test_concat_conv1x1_bwd_bf16_rounds_as_the_split_path(act):
+    """bf16: the one pass against the split path it replaced (conv stage 1,
+    then the dx conv of its bf16 g0), on the same inputs.  Both round g0
+    to bf16 once: da and db are sums of the same bf16 products in another
+    order, rounded to bf16 (within one bf16 ulp of max |want|, 2^-7); dw
+    sums the rounded g0 and dbias the f32 one, f32 sums in another order
+    (1e-5 of max |want|).  The rounding contract is what the test pins
+    (with elu, whose g0 bf16 cannot hold): dw from the f32 g0, or dbias
+    from the rounded one, would lie outside those bounds."""
+    a, bb, wk, bias, g = _cc_operands(5, 8, 16, 12, 32, 48)
+    a, bb, g = (torch.from_numpy(t).bfloat16() for t in (a, bb, g))
+    w, bias = _oihw(wk), torch.from_numpy(bias)
+    da, db_in, dw, db = concat_conv1x1_bwd_plain(a, bb, w, bias, g, act=act)
+    g0, want_dw, want_db = flat_conv_bwd_plain(a, bb, w, bias, g, act=act)
+    want_da, want_db_in = flat_conv_dx_plain(g0, w, (8, 16))
+    assert da.dtype == db_in.dtype == torch.bfloat16
+    for got, want in ((da, want_da), (db_in, want_db_in)):
+        _close(got.float(), want.float().numpy(), 2.0 ** -7)
+    _close(dw, want_dw.numpy(), 1e-5)
+    _close(db, want_db.numpy(), 1e-5)
+    if act == "relu":
+        return   # g0 = g or 0, bf16 values: rounding it changes nothing
+    # with elu the contract bites: dw from the f32 g0, or dbias from the
+    # rounded one, lies outside those bounds
+    x = torch.cat([a, bb], 1).float()
+    z = torch.einsum("oc,nchw->nohw", w.bfloat16().float()[:, :, 0, 0], x)
+    g0f = g.float() * act_grad(z + bias[:, None, None], act_code(act))
+    for other, got in ((torch.einsum("nohw,nchw->oc", g0f, x), dw[:, :, 0, 0]),
+                       (g0.float().sum((0, 2, 3)), db)):
+        assert (other - got).abs().max() > 1e-5 * got.abs().max()
 
 
 # (geometry, backward body): 64x248 with P 4 has Wp 256 (the lane-aligned
