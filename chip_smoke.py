@@ -13,8 +13,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      empty, counted in the report) beside
      the plain version's and, where one torch call computes the same
      function, that call's, and its bound (the larger of its operations
-     over the FP32 peak, or for the deconv forward, dx and weight gradient
-     in bf16 the tensor-core peak, and its bytes over the memory rate):
+     over the FP32 peak, or for the DTYPE_AWARE kernels in bf16 the
+     tensor-core peak, and its bytes over the memory rate):
        paint      512^2, B = 4096 (random overlapping / cross-tile / empty /
                   zero-padded boxes, and the bench page's programs), exact;
        attention  N=1, T=4096, Cb=8, C=64 in f32 (1e-5) and bf16 (2e-2), and
@@ -31,8 +31,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      flat_scales=3 request runs, ragged shapes (odd sizes, an image smaller
      than a tile) and an LRN over 64 channels, in f32 (1e-5 of max(1, max
      |want|)) and bf16 (2e-2 of it), layout and pool exact; the conv, the
-     residual block and the deconv also timed at batch 16 (the deconv with
-     its library call); and their backward kernels
+     coupling conv, the residual block and the deconv also timed at batch
+     16 (with their library call where one exists); and their backward
+     kernels
      (pool, conv stage 1 and dx, the concat 1x1 conv's one pass, deconv dx
      and dw, residual block) on every FLAT_BWD_CASES entry, the train
      step's instances at batch 16, in f32 and bf16 (FLAT_BWD_TOL), each run
@@ -211,15 +212,72 @@ def _cuda_ms(fn, iters):
 # the operations over the peak of the pipes that run them and the bytes
 # moved, each input read once and each output written once, over the
 # memory rate.  Every kernel runs its arithmetic on the FP32 pipes, bf16
-# operands included, but the deconv forward, dx and weight gradient with
-# the 3x3 kernel and the coupling conv's one-pass backward, whose bf16
-# operands go to the tensor cores (DTYPE_AWARE).
+# operands included, but these, whose bf16 operands go to the tensor cores
+# (DTYPE_AWARE): the deconv forward, dx and weight gradient with the 3x3
+# kernel, the coupling conv's one-pass backward, and the flat conv's
+# forward (the coupling's too), dx and stage 1 where their fast path takes
+# the shape (_conv_fast).
 # H100 SXM data sheet.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
-               "concat_conv1x1_bwd")
+               "concat_conv1x1_bwd", "flat_conv2d", "flat_conv_dx",
+               "flat_conv_bwd", "concat_conv1x1")
+
+
+def _conv_fast(case, itemsize):
+    """Whether a flat conv case (flat_conv2d, concat_conv1x1, flat_conv_dx
+    or flat_conv_bwd) takes the fast kernels of csrc/conv_fast.cuh,
+    mirroring their dispatch (fast_shape, the dw plan and the shared memory
+    of launch_fast / launch_bwd_fast)."""
+    op, k, d = case["op"], case.get("k", 1), case.get("d", 1)
+    cin, cout = case["c"] + case.get("cb", 0), case["cout"]
+    pleft = (k - 1) * d // 2
+    if op == "flat_conv_dx":
+        cin, cout, pleft = cout, cin, (k - 1) * d - pleft
+    v = 16 // itemsize
+    right = (k - 1) * d - pleft
+    if (k not in ((3, 4) if op == "flat_conv_bwd" else (1, 3, 4))
+            or cin > 64 or cout > 64 or pleft > v or right > v):
+        return False
+    a16 = lambda b: (b + 15) // 16 * 16
+    f32 = itemsize == 4
+    th = 4 if f32 else 8
+    p, es = 32 * th, 32 * th + 4
+    kc = -(-cin // (4 if f32 else 16))
+    cs = 4 * (kc | 1) if f32 else 8 * (2 * kc + 1)
+    xs = a16((th + (k - 1) * d) * (32 + 2 * v) * cs * itemsize)
+    e = a16(cout * es * 4)
+    ct = 8 if cout <= 8 else 12 if 16 < cout <= 24 else 16
+    ng = -(-cout // ct)
+    red = a16(8 // ng * ng * ct * p * 4)
+    nt = next(t for t in (1, 2, 3, 4, 8) if cout <= 8 * t)
+    w = (a16(k * k * kc * 4 * ng * ct * 4) if f32
+         else a16(k * k * nt * 8 * cs * 2))
+    if op != "flat_conv_bwd":
+        smem = w + (max(xs, red) + e if f32 else max(xs, e))
+        return smem <= 227 * 1024
+    lrn = bool(case.get("lrn"))
+    epi = lrn or case.get("act") is not None
+    if epi and cout > 8 and k != 3:
+        return False
+    ntd = -(-cout // 8)
+    if f32:
+        if kc * k * ntd > 256:
+            return False
+        g = a16(p * 4 * (2 * ntd + 1) * 4)
+    else:
+        if kc * ntd > (16 if k == 3 and not epi else 8):
+            return False
+        w = a16(k * k * (4 if nt == 3 else nt) * 8 * cs * 2)
+        g = a16(ntd * 8 * 264 * 2)
+    u = 2 * e if lrn else e if epi and not f32 else 0
+    total = (w * epi + xs + red * (epi and f32) + e * epi + u + g + 1024
+             + a16(2 * cout * p * itemsize))
+    if not f32 and 2 * kc * ntd <= 8:
+        total = max(total, 8 * k * k * 128 * 4)
+    return total <= 227 * 1024
 
 
 def _bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -641,7 +699,7 @@ FLAT_KERNELS = {
                        "msau_tpu/ops/flatres.py:400"),
 }
 FLAT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of max(1, max |want|)
-TIMED_BATCH = 16   # the flagship train step's batch: K1, K2 and K6 timed there
+TIMED_BATCH = 16   # the flagship train step's batch: K1, K3, K2 and K6 timed there
 # the backward kernels: source, the TPU kernels they replace, and the case
 # of utils/flat_cases.FLAT_BWD_CASES the kernels line reports (f32, batch
 # 16; where one torch call computes the same function, an instance that
@@ -673,8 +731,8 @@ def _flat_bound(case, n, itemsize):
     batch n and operand size ``itemsize``; LRN and activation arithmetic is
     left out (a few operations per output against the conv's hundreds).
     The DTYPE_AWARE ops' bf16 operations (the deconv's with the 3x3 kernel;
-    other odd K take the general kernels, FP32 pipes) count at the
-    tensor-core peak."""
+    other odd K take the general kernels, FP32 pipes; the flat conv's where
+    _conv_fast takes the shape) count at the tensor-core peak."""
     op, c, cb = case["op"], case["c"], case.get("cb", 0)
     h, w = case["h"], case["w"]
     hw, cin = h * w, c + cb
@@ -687,8 +745,13 @@ def _flat_bound(case, n, itemsize):
         q = -(-h // 2) * -(-w // 2)
         return _bound(0, n * c * ((2 * hw + q) if op.endswith("bwd")
                                   else (hw + q)) * itemsize)
+    tensor = (op in ("flat_conv2d", "concat_conv1x1", "flat_conv_dx",
+                     "flat_conv_bwd")
+              and op in DTYPE_AWARE and itemsize == 2
+              and _conv_fast(case, itemsize))
+    peak = PEAK_BF16_FLOPS if tensor else PEAK_F32_FLOPS
     if op in ("flat_conv2d", "concat_conv1x1", "flat_conv_dx"):
-        return _bound(conv, n * hw * (cin + cout) * itemsize)
+        return _bound(conv, n * hw * (cin + cout) * itemsize, peak)
     if op == "concat_conv1x1_bwd":
         # z (where act is set), dx and dw; a, b and g read, da and db
         # written once
@@ -700,7 +763,7 @@ def _flat_bound(case, n, itemsize):
         epi = case.get("act") is not None or case.get("lrn")
         return _bound(conv * (2 if epi else 1),
                       n * hw * (cin + cout * (2 if epi else 1)) * itemsize
-                      + 4 * cout * (cin * k * k + 1))
+                      + 4 * cout * (cin * k * k + 1), peak)
     if op.startswith("flat_deconv2"):
         moved = n * (c * hw + cout * case["ho"] * case["wo"]) * itemsize
         tensor = op in DTYPE_AWARE and itemsize == 2 and k == 3
@@ -723,6 +786,16 @@ def _flat_library(case, tensors):
     import torch.nn.functional as F
 
     op = case["op"]
+    if op == "flat_conv2d":
+        # the merge convs: no act, no LRN, an odd kernel (symmetric padding)
+        a, b, w, bias = tensors
+        k, d = w.shape[-1], case.get("d", 1)
+        if case.get("act") or case.get("lrn") or k % 2 == 0:
+            return None
+        x = a if b is None else torch.cat([a, b], 1)
+        bx = bias.to(x.dtype)
+        return lambda: F.conv2d(x, w, bx, padding=(k - 1) * d // 2,
+                                dilation=d)
     if op == "to_nchw":
         (x,) = tensors
         n, h, w, c = x.shape
@@ -767,11 +840,14 @@ def _flat_library(case, tensors):
     return None
 
 
-def check_flat_kernels(dev):
+def check_flat_kernels(dev, ops=None):
     """Phase 1, the flat-layout kernels on every ``FLAT_CASES`` entry in
     f32 and bf16 -> {kernel: {max_abs_err, ms, plain_ms, cases, ...}}.
     ``ms`` / ``plain_ms``: f32, the op's first (largest) serve case;
-    ``request_ms``: the sum over one request's instances, per dtype."""
+    ``request_ms``: the sum over one request's instances, per dtype.
+    ``ops``: only those kernels' cases, a probe quicker than the whole
+    script (``cs.check_flat_kernels(torch.device('cuda', 0),
+    ['flat_conv2d'])``)."""
     import numpy as np
     import torch
 
@@ -783,8 +859,10 @@ def check_flat_kernels(dev):
 
     out = {name: {"max_abs_err": 0.0, "cases": {}, "request_ms": {},
                   "request_plain_ms": {}, "batch16": {}}
-           for name in FLAT_KERNELS}
+           for name in FLAT_KERNELS if ops is None or name in ops}
     for case in FLAT_CASES:
+        if case["op"] not in out:
+            continue
         rec, report = out[case["op"]], []
         exact = case["op"] in ("to_nchw", "flat_maxpool2")
         for key, tol in FLAT_TOL.items():
@@ -809,7 +887,8 @@ def check_flat_kernels(dev):
                 entry["plain_ms"] = _cuda_ms(plain, 10)
                 if case["op"] in DTYPE_AWARE:
                     lib = _flat_library(case, tensors)
-                    entry["library_ms"] = _cuda_ms(lib, 20)
+                    entry["library_ms"] = (None if lib is None
+                                           else _cuda_ms(lib, 20))
                     entry["bound"] = _flat_bound(case, tensors[0].shape[0],
                                                  tensors[0].element_size())
                 for field, ms in (("request_ms", entry["ms"]),
@@ -831,8 +910,9 @@ def check_flat_kernels(dev):
         print(f"[phase 1] {case['op']} {case['name']}: " + "; ".join(report),
               flush=True)
     for case in FLAT_CASES:
-        if case["op"] not in ("flat_conv2d", "flat_res_block", "flat_deconv2") \
-                or not case["per_request"]:
+        if case["op"] not in ("flat_conv2d", "concat_conv1x1", "flat_res_block",
+                              "flat_deconv2") \
+                or not case["per_request"] or case["op"] not in out:
             continue
         for key in FLAT_TOL:
             dtype = getattr(torch, key)
@@ -1355,8 +1435,10 @@ CHECK_BATCH = (2, 128)   # the card-vs-CPU step
 # usual substrings of its kernel names; the rest are "other torch ops"
 _OURS = "(anonymous namespace)::"
 KERNEL_FAMILIES = (
-    ("flat conv stage 1", (_OURS + "conv_bwd_kernel<",)),
+    ("flat conv stage 1", (_OURS + "conv_bwd_kernel<",
+                           _OURS + "conv_bwd_fast_kernel<")),
     ("flat conv fwd and dx", (_OURS + "conv_kernel<",
+                              _OURS + "conv_fast_kernel<",
                               _OURS + "conv_lrn_wide_kernel<")),
     ("flat concat 1x1 bwd", (_OURS + "concat1x1_bwd",)),
     ("flat res block bwd", (_OURS + "res_block_bwd_kernel<",)),

@@ -14,30 +14,43 @@
 // two-input 1x1 coupling conv, here the KH = KW = 1 case of the same
 // kernel).  The TPU kernels build a tap stack in VMEM for one MXU matmul
 // per row block, split a wide cin over separate launches and sum their
-// outputs; here one block loops over cin chunks itself (conv_tile.cuh).
+// outputs; here one block loops over every input channel itself.
 //
-// What bounds it on the H100: arithmetic on the FP32 pipes.  At the
-// flagship's 512^2 scale a 3x3 conv does 9 * cin * cout FMAs per pixel
-// against (cin + cout) * 4 bytes of traffic: 8 -> 8 is 576 FMAs for 64 B,
-// far above the 20 FMA/B at which the card's 67 TFLOP/s f32 rate and
-// 3.35 TB/s meet.  So the design keeps every operand on chip:
-//   - one block per 32-column x TH-row output tile and 32 output channels
-//     (a wider cout takes several blocks, one per 32 channels);
-//   - each thread owns one column and 64 / COUT rows of it, with all COUT
-//     accumulators in registers (64 f32 registers), so each shared-memory
-//     load of an input feeds COUT FMAs and each weight load 64 / COUT;
-//   - the epilogue (bias, act, the LRN window as a sum over the thread's
-//     own registers) runs before the only global write.
-// An LRN over more than 32 channels needs channels of other blocks: such a
-// block (one row per thread, TH = 4) recomputes the conv of every 32-channel
-// chunk its channels' windows touch and adds their squares into its window
-// sums, so cout and the LRN size are unbounded.
-// Tensor cores are later work: the channel counts (8..32) are below one
-// wgmma tile's K.
+// What bounds it on the H100.  A 3x3 conv does 9 cin cout multiply-adds
+// per pixel against (cin + cout) values moved: 8 -> 8 is 576 FMAs for 64 B
+// in f32, far above the 20 FMA/B at which the card's 67 TFLOP/s f32 rate and
+// 3.35 TB/s meet, so f32 (held to 1e-5: no TF32) is bound by the FP32 pipes;
+// bf16 on the tensor cores (989 TFLOP/s) is bound by device memory.
+//
+// The fast path (conv_fast.cuh; square 1x1, 3x3 and 4x4 kernels, up to 64
+// -> 64 channels, taps within 16 bytes of columns of the tile: every conv
+// and coupling of the flagship and config 5): a persistent grid of 8-warp blocks walks
+// 32-column tiles (4 rows f32, 8 bf16); each tile's input, every channel
+// with its halo, is staged once as [pixel][channel] (prefetched by cp.async
+// while the tile before computes, where the width allows 16-byte runs and
+// the buffer costs no resident block); the conv is an implicit GEMM (M =
+// pixels, N = cout, K = taps x cin): bf16 on mma.sync from ldmatrix, f32 on
+// the FP32 pipes with 4 x 8..16 register tiles and K split across warps;
+// the f32 sums land in shared memory as [co][pixel] and one thread per
+// pixel adds the bias, applies the act and the LRN window (a running sum
+// over the channels) and writes every output channel once.
+//
+// The general path (any other kernel size, wider channels): one block per
+// 32-column x TH-row output tile and 32 output channels (a wider cout takes
+// several blocks); each thread owns one column and 64 / COUT rows, with all
+// COUT accumulators in registers (conv_tile.cuh), FP32 pipes in both
+// dtypes; the epilogue runs on the registers.  An LRN over more than 32
+// channels needs channels of other blocks: such a block (one row per
+// thread, TH = 4) recomputes the conv of every 32-channel chunk its
+// channels' windows touch and adds their squares into its window sums, so
+// cout and the LRN size are unbounded.
 
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "conv_fast.cuh"
 #include "conv_tile.cuh"
 
 namespace {
@@ -187,8 +200,173 @@ int launch(const ConvArgs& p, int n, cudaStream_t stream) {
   return launch_grid(conv_kernel<T, COUT>, p, n, COUT, TH, smem, stream);
 }
 
+// ---- the fast path (see the top of the file and conv_fast.cuh) ----------
+
+// One pixel's epilogue: act(E + bias) (E holds the bias), then the LRN over
+// the output channels, stored to y / y2.
+template <typename T>
+__device__ inline void epilogue_fwd(const ConvArgs& p, const float* E, int img, int x0,
+                                    int y0) {
+  using Tl = msau::fast::Tile<T>;
+  const int pp = threadIdx.x;
+  if (pp >= Tl::P) return;
+  const int oy = y0 + pp / kTw, ox = x0 + pp % kTw;
+  if (oy >= p.in.h || ox >= p.in.w_) return;
+  const float* e = E + pp;
+  const int cout = p.in.cout;
+  const int64_t plane = (int64_t)p.in.h * p.in.w_, off = (int64_t)oy * p.in.w_ + ox;
+  T* ya = (T*)p.y + (int64_t)img * p.cout_a * plane + off;   // channel co at ya[co plane]
+  T* yb = p.cout_a < cout
+              ? (T*)p.y2 + ((int64_t)img * (cout - p.cout_a) - p.cout_a) * plane + off
+              : ya;
+  const bool lrn = p.lrn_size > 0;
+  const float scale = lrn ? p.alpha / (float)p.lrn_size : 0.f;
+  const int lo = p.lrn_size / 2, hi = (p.lrn_size - 1) / 2;
+  auto sq = [&](int c) {
+    const float y = apply_act(e[c * Tl::ES], p.act);
+    return y * y;
+  };
+  msau::fast::Window win;
+  if (lrn) win.start(cout, hi, sq);
+  for (int co = 0; co < cout; ++co) {
+    float v = apply_act(e[co * Tl::ES], p.act);
+    if (lrn) {
+      v *= __powf(p.lrn_k + scale * win.sum, -p.beta);
+      win.step(co, cout, lo, hi, sq);
+    }
+    store((co < p.cout_a ? ya : yb) + co * plane, v);
+  }
+}
+
+// NC: output channels per warp group in f32 (CT: 8, 12 or 16), n-tiles of
+// 8 in bf16 (NT).  Shared memory: the weights, then the staged tile (f32: its
+// space then holds the K shares; bf16: then E), then f32's E.
+// off_r >= 0: the input is prefetched there by cp.async (double buffered
+// with xs); else staged synchronously.
+template <typename T, int KH, int NC>
+__global__ void __launch_bounds__(msau::fast::kThreads, 2)
+conv_fast_kernel(ConvArgs p, msau::fast::Geo g, int off_x, int off_e, int off_r) {
+  using namespace msau::fast;
+  constexpr int TH = Tile<T>::TH;
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  T* ws = reinterpret_cast<T*>(smem);
+  T* xs = reinterpret_cast<T*>(smem + off_x);
+  float* E = reinterpret_cast<float*>(smem + off_e);
+  T* raw = reinterpret_cast<T*>(smem + (off_r >= 0 ? off_r : 0));
+  const int per_img = g.tiles_x * g.tiles_y;
+  auto origin = [&](int tile, int& img, int& x0, int& y0) {
+    img = tile / per_img;
+    const int t2 = tile - img * per_img;
+    x0 = (t2 % g.tiles_x) * kTw;
+    y0 = (t2 / g.tiles_x) * TH;
+  };
+  stage_weights<T>(p.in, g, ws, NC);
+  if (off_r >= 0 && (int)blockIdx.x < g.n_tiles) {
+    int img, x0, y0;
+    origin(blockIdx.x, img, x0, y0);
+    prefetch_tile<T>(p.in, g, raw, img, x0, y0);
+    msau::cp_async_commit();
+  }
+  for (int tile = blockIdx.x; tile < g.n_tiles; tile += gridDim.x) {
+    int img, x0, y0;
+    origin(tile, img, x0, y0);
+    if (off_r >= 0) {
+      msau::cp_async_wait<0>();
+      __syncthreads();   // the tile has landed; the last epilogue is done
+      transpose_tile<T>(g, raw, xs);
+      __syncthreads();
+      if (tile + (int)gridDim.x < g.n_tiles) {
+        int img2, x2, y2;
+        origin(tile + gridDim.x, img2, x2, y2);
+        prefetch_tile<T>(p.in, g, raw, img2, x2, y2);
+      }
+      msau::cp_async_commit();
+    } else {
+      __syncthreads();   // the last tile's epilogue is done with E / xs
+      stage_tile<T>(p.in, g, xs, img, x0, y0);
+      __syncthreads();
+    }
+    if constexpr (sizeof(T) == 4)
+      conv_core_f32<KH, NC>(p.in, g, (const float*)xs, (const float*)ws, p.bias,
+                            (float*)xs, E);
+    else
+      conv_core_bf16<KH, NC>(p.in, g, xs, ws, p.bias, E);
+    epilogue_fwd<T>(p, E, img, x0, y0);
+  }
+}
+
+// Blocks of a persistent grid: as many as fit on the card at once.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, size_t smem) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return msau::fast::blocks_per_sm(kernel, smem) * std::max(1, sms);
+}
+
+// -> the launch's code, or -1 (nothing launched) where the shared memory
+// the shape needs is more than a block may have
+template <typename T, int KH, int NC>
+int launch_fast(const ConvArgs& p, int n, cudaStream_t stream) {
+  using namespace msau::fast;
+  constexpr bool kF32 = sizeof(T) == 4;
+  const Geo g = make_geo<T>(p.in, n, kF32 ? NC : 0);
+  const size_t wb = w_bytes<T>(p.in, g, NC);
+  const size_t region = kF32 ? std::max(xs_bytes<T>(g), red_bytes(g))
+                             : std::max(xs_bytes<T>(g), e_bytes<T>(p.in.cout));
+  size_t smem = wb + region + (kF32 ? e_bytes<T>(p.in.cout) : 0);
+  if (smem > 227 * 1024) return -1;
+  // the cp.async prefetch where the runs allow it and shared memory holds it
+  auto kernel = conv_fast_kernel<T, KH, NC>;
+  int off_r = -1;
+  const size_t with_raw = smem + raw_bytes<T>(g);
+  if (g.vec && with_raw <= 227 * 1024) {
+    const cudaError_t err = msau::allow_smem(kernel, with_raw);
+    if (err != cudaSuccess) return (int)err;
+    // only where it costs no resident block
+    if (blocks_per_sm(kernel, with_raw) >= blocks_per_sm(kernel, smem)) {
+      off_r = (int)smem;
+      smem = with_raw;
+    }
+  }
+  const cudaError_t err = msau::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (int)std::min<int64_t>(g.n_tiles, resident_blocks(kernel, smem));
+  kernel<<<blocks, msau::fast::kThreads, smem, stream>>>(
+      p, g, (int)wb, (int)(kF32 ? wb + region : wb), off_r);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NC>
+int launch_fast_k(const ConvArgs& p, int n, cudaStream_t stream) {
+  if (p.in.kh == 1) return launch_fast<T, 1, NC>(p, n, stream);
+  return p.in.kh == 3 ? launch_fast<T, 3, NC>(p, n, stream)
+                      : launch_fast<T, 4, NC>(p, n, stream);
+}
+
+// The fast path where the shape allows it, else -1.
+template <typename T>
+int dispatch_fast(const ConvArgs& p, int n, cudaStream_t stream) {
+  if (!msau::fast::fast_shape<T>(p.in)) return -1;
+  const int cout = p.in.cout;
+  if constexpr (sizeof(T) == 4) {
+    if (cout <= 8) return launch_fast_k<T, 8>(p, n, stream);
+    if (cout > 16 && cout <= 24) return launch_fast_k<T, 12>(p, n, stream);
+    return launch_fast_k<T, 16>(p, n, stream);
+  } else {
+    if (cout <= 8) return launch_fast_k<T, 1>(p, n, stream);
+    if (cout <= 16) return launch_fast_k<T, 2>(p, n, stream);
+    if (cout <= 24) return launch_fast_k<T, 3>(p, n, stream);
+    if (cout <= 32) return launch_fast_k<T, 4>(p, n, stream);
+    return launch_fast_k<T, 8>(p, n, stream);
+  }
+}
+
 template <typename T>
 int dispatch(const ConvArgs& p, int n, cudaStream_t stream) {
+  const int fast = dispatch_fast<T>(p, n, stream);
+  if (fast >= 0) return fast;
   if (p.in.cout <= 8) return launch<T, 8>(p, n, stream);
   if (p.in.cout <= 16) return launch<T, 16>(p, n, stream);
   if (p.in.cout <= 32 || p.lrn_size == 0) return launch<T, 32>(p, n, stream);

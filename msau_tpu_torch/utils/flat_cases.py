@@ -54,6 +54,28 @@ FLAT_CASES = [
     # feat_root 16's dil_conv_2: an LRN over 64 channels
     _case("flat_conv2d", "LRN 64 ch 128^2 (feat_root 16)", 0, n=1, c=32,
           cout=64, h=128, w=128, k=3, d=4, act=None, lrn=True),
+    # the fast conv tiles' edges (csrc/conv_fast.cuh: 32-column tiles of 4
+    # rows in f32, 8 in bf16): 17 input channels (one float4 group / k16
+    # step partly padding) over a batch of 3 whose tile rows do not divide
+    # the height; 64 -> 8 on an image smaller than one tile; the 4x4 end
+    # conv and a dilation of 4 on widths no 16-byte run divides; a
+    # two-input merge conv whose width has whole runs but a partial tile
+    _case("flat_conv2d", "cin 17 -> 8 batch 3 37x40 elu", 0, n=3, c=17,
+          cout=8, h=37, w=40, k=3, d=1, act="elu", lrn=True),
+    _case("flat_conv2d", "64 -> 8 3x21", 0, n=2, c=64, cout=8, h=3, w=21,
+          k=3, d=1, act=None, lrn=True),
+    _case("flat_conv2d", "4x4 8 -> 17 19x70", 0, n=2, c=8, cout=17, h=19,
+          w=70, k=4, d=1, act=None, lrn=False),
+    _case("flat_conv2d", "dil 4 16 -> 32 29x61", 0, n=2, c=16, cout=32,
+          h=29, w=61, k=3, d=4, act=None, lrn=True),
+    _case("flat_conv2d", "32 + 32 -> 32 21x48", 0, n=2, c=32, cb=32,
+          cout=32, h=21, w=48, k=3, d=1, act=None, lrn=False),
+    # just past the fast path: more than 64 input channels, and a 5x5
+    # kernel, take the general kernels
+    _case("flat_conv2d", "64 + 64 -> 64 18x40 (general)", 0, n=2, c=64,
+          cb=64, cout=64, h=18, w=40, k=3, d=1, act=None, lrn=False),
+    _case("flat_conv2d", "5x5 12 -> 8 23x31 (general)", 0, n=2, c=12,
+          cout=8, h=23, w=31, k=5, d=1, act=None, lrn=False),
     _case("concat_conv1x1", "couple 8 ch 512^2", 4, n=1, c=8, cb=8, cout=8,
           h=512, w=512, act="relu"),
     _case("concat_conv1x1", "couple 16 ch 256^2", 4, n=1, c=16, cb=16,

@@ -1,0 +1,127 @@
+"""chip_smoke's yardsticks for the flat conv, on the CPU at small sizes: the
+library call it times beside the forward kernel (one ``F.conv2d`` of the
+merge convs' pre-concatenated input), and the bound it sets beside each
+kernel (bf16 operations at the tensor-core peak where the fast path of
+``csrc/conv_fast.cuh`` takes the shape, else at the FP32 peak).
+
+Tolerance: the library call and the plain version are both f32 convs of
+the same operands on the CPU, so they agree to 1e-5 of the output's scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from msau_tpu_torch.ops.flatconv import flat_conv2d_plain
+from msau_tpu_torch.utils.flat_cases import (
+    FLAT_BWD_CASES,
+    FLAT_CASES,
+    flat_case_fns,
+    flat_case_tensors,
+)
+
+
+def _case(op, name, **small):
+    pool = (FLAT_CASES if op in ("flat_conv2d", "concat_conv1x1")
+            else FLAT_BWD_CASES)
+    case = next(c for c in pool if c["op"] == op and c["name"] == name)
+    return dict(case, **small)
+
+
+@pytest.mark.parametrize("name", ["merge_conv_0", "merge_conv_1",
+                                  "merge_conv_2", "32 + 32 -> 32 21x48"])
+def test_library_conv_is_the_merge_forward(name):
+    case = _case("flat_conv2d", name, n=2, h=13, w=19)
+    tensors = flat_case_tensors(case, np.random.default_rng(5),
+                                torch.device("cpu"), torch.float32)
+    lib = cs._flat_library(case, tensors)
+    assert lib is not None
+    got = lib()
+    _, plain = flat_case_fns(case, tensors, torch.float32)
+    want = plain()
+    a, b, w, bias = tensors
+    assert torch.equal(want, flat_conv2d_plain(a, b, w, bias))
+    scale = max(1.0, float(want.abs().max()))
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("name", ["dil_conv_0 stage 0", "dil_conv_2",
+                                  "end_conv", "ragged 83x57 4x4",
+                                  "ragged 7x5 relu"])
+def test_library_conv_is_none_with_an_epilogue_or_an_even_kernel(name):
+    case = _case("flat_conv2d", name, n=1, h=9, w=11)
+    tensors = flat_case_tensors(case, np.random.default_rng(5),
+                                torch.device("cpu"), torch.float32)
+    assert cs._flat_library(case, tensors) is None
+
+
+@pytest.mark.parametrize("op", ["flat_conv_bwd", "flat_conv_dx",
+                                "flat_conv2d"])
+@pytest.mark.parametrize("name", ["dil_conv_0 stage 0", "merge_conv_2",
+                                  "end_conv"])
+def test_bound_counts_bf16_fast_convs_at_the_tensor_core_peak(op, name):
+    case = _case(op, name)
+    assert op in cs.DTYPE_AWARE and cs._conv_fast(case, 2)
+    n = 16
+    f32_ms, _ = cs._flat_bound(case, n, 4)
+    bf16_ms, by = cs._flat_bound(case, n, 2)
+    c, cb, cout, k = case["c"], case.get("cb", 0), case["cout"], case["k"]
+    hw = case["h"] * case["w"]
+    conv = 2 * n * hw * cout * (c + cb) * k * k
+    epi = op == "flat_conv_bwd" and (case["act"] or case["lrn"])
+    flops = conv * (2 if epi else 1)
+    # f32 counts the FP32 peak, bf16 the tensor cores' (a bytes bound here)
+    assert f32_ms >= flops / cs.PEAK_F32_FLOPS * 1e3 * (1 - 1e-9)
+    assert bf16_ms >= flops / cs.PEAK_BF16_FLOPS * 1e3 * (1 - 1e-9)
+    assert bf16_ms < flops / cs.PEAK_F32_FLOPS * 1e3
+    assert by == "bytes"
+
+
+@pytest.mark.parametrize("op", ["flat_conv_bwd", "flat_conv_dx",
+                                "flat_conv2d"])
+def test_bound_counts_the_general_path_at_the_fp32_peak(op):
+    case = _case(op, "64 + 64 -> 64 18x40 (general)")
+    assert not cs._conv_fast(case, 2)
+    n, hw = case["n"], case["h"] * case["w"]
+    conv = 2 * n * hw * 64 * 128 * 9
+    bf16_ms, by = cs._flat_bound(case, n, 2)
+    assert by == "operations"
+    assert bf16_ms == pytest.approx(conv / cs.PEAK_F32_FLOPS * 1e3)
+
+
+def test_fast_path_covers_the_train_cells_convs():
+    """Every conv and coupling forward of the flagship fs=3 step and its
+    ragged card cases takes the fast path in both dtypes (the LRN over 64
+    channels' stage 1, the "(general)" cases and couplings wider than 64
+    input channels excepted)."""
+    for case in FLAT_CASES + FLAT_BWD_CASES:
+        if case["op"] not in ("flat_conv2d", "flat_conv_bwd", "flat_conv_dx",
+                              "concat_conv1x1"):
+            continue
+        general = ("(general)" in case["name"]
+                   or case["c"] + case.get("cb", 0) > 64
+                   or (case["op"] == "flat_conv_bwd" and case["cout"] > 32
+                       and case["lrn"]))
+        for itemsize in (4, 2):
+            assert cs._conv_fast(case, itemsize) is not general, (
+                case["op"], case["name"], itemsize)
+
+
+@pytest.mark.parametrize("name", ["couple 8 ch 512^2", "couple 16 ch 256^2",
+                                  "couple 32 ch 128^2"])
+def test_bound_counts_the_bf16_coupling_forward_at_the_tensor_core_peak(
+        name):
+    """The 1x1 coupling conv's forward takes the fast path (its backward
+    keeps its own one-pass kernel): bf16 bytes-bound at 989 TFLOP/s."""
+    case = _case("concat_conv1x1", name)
+    assert "concat_conv1x1" in cs.DTYPE_AWARE and cs._conv_fast(case, 2)
+    c, cb, cout = case["c"], case["cb"], case["cout"]
+    n, hw = 16, case["h"] * case["w"]
+    flops = 2 * n * hw * cout * (c + cb)
+    bf16_ms, by = cs._flat_bound(case, n, 2)
+    assert by == "bytes"
+    assert bf16_ms == pytest.approx(n * hw * (c + cb + cout) * 2
+                                    / cs.PEAK_BYTES_PER_S * 1e3)
+    assert bf16_ms > flops / cs.PEAK_BF16_FLOPS * 1e3
