@@ -214,16 +214,18 @@ def _cuda_ms(fn, iters):
 # memory rate.  Every kernel runs its arithmetic on the FP32 pipes, bf16
 # operands included, but these, whose bf16 operands go to the tensor cores
 # (DTYPE_AWARE): the deconv forward, dx and weight gradient with the 3x3
-# kernel, the coupling conv's one-pass backward, and the flat conv's
-# forward (the coupling's too), dx and stage 1 where their fast path takes
-# the shape (_conv_fast).
+# kernel, the coupling conv's one-pass backward, the flat conv's forward
+# (the coupling's too), dx and stage 1 where their fast path takes the
+# shape (_conv_fast), and the fused residual block forward and backward
+# (every channel count).
 # H100 SXM data sheet.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
                "concat_conv1x1_bwd", "flat_conv2d", "flat_conv_dx",
-               "flat_conv_bwd", "concat_conv1x1")
+               "flat_conv_bwd", "concat_conv1x1", "flat_res_block",
+               "flat_res_block_bwd")
 
 
 def _conv_fast(case, itemsize):
@@ -732,7 +734,8 @@ def _flat_bound(case, n, itemsize):
     left out (a few operations per output against the conv's hundreds).
     The DTYPE_AWARE ops' bf16 operations (the deconv's with the 3x3 kernel;
     other odd K take the general kernels, FP32 pipes; the flat conv's where
-    _conv_fast takes the shape) count at the tensor-core peak."""
+    _conv_fast takes the shape; the residual block's) count at the
+    tensor-core peak."""
     op, c, cb = case["op"], case["c"], case.get("cb", 0)
     h, w = case["h"], case["w"]
     hw, cin = h * w, c + cb
@@ -770,12 +773,15 @@ def _flat_bound(case, n, itemsize):
         return _bound(2 * n * hw * c * cout * k * k,
                       moved + (4 * c * cout * k * k if op.endswith("dw") else 0),
                       PEAK_BF16_FLOPS if tensor else PEAK_F32_FLOPS)
+    peak = (PEAK_BF16_FLOPS if op in DTYPE_AWARE and itemsize == 2
+            else PEAK_F32_FLOPS)
     if op == "flat_res_block":
-        return _bound(2 * 2 * 9 * c * c * hw * n, 2 * n * c * hw * itemsize)
+        return _bound(2 * 2 * 9 * c * c * hw * n, 2 * n * c * hw * itemsize,
+                      peak)
     if op == "flat_res_block_bwd":
         # two convs, their two transposes and two weight gradients
         return _bound(6 * 2 * 9 * c * c * hw * n,
-                      3 * n * c * hw * itemsize + 8 * (9 * c * c + c))
+                      3 * n * c * hw * itemsize + 8 * (9 * c * c + c), peak)
     raise ValueError(op)
 
 
@@ -1036,21 +1042,36 @@ def check_flat_bwd_kernels(dev, ops=None):
 
 
 def _relu_flips(case, tensors, got, want):
-    """For a coupling conv's relu case: the pixels whose da misses 1e-3 of
-    the plain version, and the largest of their least |z| (a relu mask
-    flipped at z near 0 shows as a tiny |z|); else ''."""
+    """For a relu case of the coupling conv or the residual block: the
+    pixels whose first output (da, dx) misses 1e-3 of the plain version,
+    and the largest of their least |z| (a relu mask flipped at z near 0
+    shows as a tiny |z|); else ''.  z: the coupling's preactivation; the
+    block's u and v (in float64), least over the 5 x 5 pixels around each
+    (a flip moves dx up to two pixels away)."""
     import torch
+    import torch.nn.functional as F
 
-    if case["op"] != "concat_conv1x1_bwd" or case["act"] != "relu":
+    if (case["op"] not in ("concat_conv1x1_bwd", "flat_res_block_bwd")
+            or case["act"] != "relu"):
         return ""
-    a, b, w, bias, _ = tensors
-    z = torch.einsum("oc,nchw->nohw", w.double()[:, :, 0, 0],
-                     torch.cat([a, b], 1).double())
-    z = (z + bias.double()[:, None, None]).abs().amin(1)
+    if case["op"] == "concat_conv1x1_bwd":
+        a, b, w, bias, _ = tensors
+        z = torch.einsum("oc,nchw->nohw", w.double()[:, :, 0, 0],
+                         torch.cat([a, b], 1).double())
+        z = (z + bias.double()[:, None, None]).abs().amin(1)
+    else:
+        x, w1, b1, w2, b2, _ = tensors
+        xd = x.double()
+        u = F.conv2d(F.relu(xd), w1.double(), b1.double(), padding=1)
+        h1 = F.relu(u).to(x.dtype).double()
+        v = F.conv2d(h1, w2.double(), b2.double(), padding=1) + xd
+        z = torch.minimum(u.abs().amin(1), v.abs().amin(1))
+        z = -F.max_pool2d(-z[:, None], 5, 1, 2)[:, 0]
     bad = ((got[0].double() - want[0].double()).abs().amax(1)
            > 1e-3 * max(1.0, float(want[0].abs().max())))
-    return (f"; {int(bad.sum())} pixels of da off, least |z| there at most "
-            f"{float(z[bad].max()) if bad.any() else None}")
+    name = "da" if case["op"] == "concat_conv1x1_bwd" else "dx"
+    return (f"; {int(bad.sum())} pixels of {name} off, least |z| there at "
+            f"most {float(z[bad].max()) if bad.any() else None}")
 
 
 # the kernels that add a weight gradient's per-block partial rows

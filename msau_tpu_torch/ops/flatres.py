@@ -38,8 +38,8 @@ from msau_tpu_torch.ops.flatconv import (
 from msau_tpu_torch.ops.precision import wide
 
 # channel counts the kernels are instantiated for (weights and tiles live in
-# shared memory: at 32 channels the forward takes 172.5 KB, the backward
-# 205 KB)
+# shared memory, csrc/res_block.cuh: at 32 channels the forward takes 108 KB
+# in bf16 and 185 KB in f32, the backward 200 KB and 181 KB)
 FUSED_CHANNELS = (4, 8, 16, 32)
 
 

@@ -134,6 +134,21 @@ FLAT_CASES = [
           act="elu"),
     _case("flat_res_block", "ragged 33x65 4 ch", 0, n=2, c=4, h=33, w=65,
           act="relu"),
+    # the kernels' tiles (csrc/flatres.cu, flatres_bwd.cu: 8 or 16 rows by
+    # 8 to 32 columns): 32 channels on a height no tile height divides and
+    # a width with no 16-byte bf16 runs; batch 16 on an image small enough that the
+    # persistent grid gives each block several tiles, so the partial rows
+    # add across them; 4 and 8 channels with elu; a one-row image
+    _case("flat_res_block", "32 ch 21x45", 0, n=2, c=32, h=21, w=45,
+          act="relu"),
+    _case("flat_res_block", "batch 16 16 ch 96x96", 0, n=16, c=16, h=96,
+          w=96, act="relu"),
+    _case("flat_res_block", "4 ch 29x70 elu", 0, n=2, c=4, h=29, w=70,
+          act="elu"),
+    _case("flat_res_block", "8 ch 50x72 elu", 0, n=1, c=8, h=50, w=72,
+          act="elu"),
+    _case("flat_res_block", "one row 1x77 16 ch", 0, n=2, c=16, h=1, w=77,
+          act="relu"),
 ]
 
 

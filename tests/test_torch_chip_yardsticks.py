@@ -1,8 +1,9 @@
-"""chip_smoke's yardsticks for the flat conv, on the CPU at small sizes: the
-library call it times beside the forward kernel (one ``F.conv2d`` of the
-merge convs' pre-concatenated input), and the bound it sets beside each
-kernel (bf16 operations at the tensor-core peak where the fast path of
-``csrc/conv_fast.cuh`` takes the shape, else at the FP32 peak).
+"""chip_smoke's yardsticks for the flat conv and the fused residual block, on
+the CPU at small sizes: the library call it times beside the forward kernel
+(one ``F.conv2d`` of the merge convs' pre-concatenated input), and the bound
+it sets beside each kernel (bf16 operations at the tensor-core peak where
+the fast path of ``csrc/conv_fast.cuh`` takes the shape, and for the
+residual block's kernels, else at the FP32 peak).
 
 Tolerance: the library call and the plain version are both f32 convs of
 the same operands on the CPU, so they agree to 1e-5 of the output's scale.
@@ -23,7 +24,8 @@ from msau_tpu_torch.utils.flat_cases import (
 
 
 def _case(op, name, **small):
-    pool = (FLAT_CASES if op in ("flat_conv2d", "concat_conv1x1")
+    pool = (FLAT_CASES if op in ("flat_conv2d", "concat_conv1x1",
+                                 "flat_res_block")
             else FLAT_BWD_CASES)
     case = next(c for c in pool if c["op"] == op and c["name"] == name)
     return dict(case, **small)
@@ -125,3 +127,30 @@ def test_bound_counts_the_bf16_coupling_forward_at_the_tensor_core_peak(
     assert bf16_ms == pytest.approx(n * hw * (c + cb + cout) * 2
                                     / cs.PEAK_BYTES_PER_S * 1e3)
     assert bf16_ms > flops / cs.PEAK_BF16_FLOPS * 1e3
+
+
+# (instance, op, itemsize) -> bound ms, bound_by at batch 16: bf16 operations
+# at 989 TFLOP/s with 2-byte items (bytes bound them but the backward at 32
+# channels: x, g and dx halve from one instance to the next, the operations
+# do not), f32 at 67 TFLOP/s (2 convs forward, 6 GEMMs backward, 9 C^2 FMAs
+# per pixel each: C^2 H W the same at all three)
+RES_BOUNDS = [
+    ("8 ch 512^2", "flat_res_block", 2, 0.0401, "bytes"),
+    ("8 ch 512^2", "flat_res_block_bwd", 2, 0.0601, "bytes"),
+    ("16 ch 256^2", "flat_res_block", 2, 0.0200, "bytes"),
+    ("16 ch 256^2", "flat_res_block_bwd", 2, 0.0301, "bytes"),
+    ("32 ch 128^2", "flat_res_block", 2, 0.0100, "bytes"),
+    ("32 ch 128^2", "flat_res_block_bwd", 2, 0.0293, "operations"),
+] + [(name, op, 4, ms, "operations")
+     for name in ("8 ch 512^2", "16 ch 256^2", "32 ch 128^2")
+     for op, ms in (("flat_res_block", 0.1442),
+                    ("flat_res_block_bwd", 0.4327))]
+
+
+@pytest.mark.parametrize("name,op,itemsize,ms,by", RES_BOUNDS)
+def test_bound_of_the_residual_block(name, op, itemsize, ms, by):
+    case = _case(op, name)
+    assert op in cs.DTYPE_AWARE
+    got_ms, got_by = cs._flat_bound(case, 16, itemsize)
+    assert got_by == by
+    assert got_ms == pytest.approx(ms, abs=5e-5)

@@ -253,7 +253,8 @@ RES_GEOMS = {"aligned": (jfc.FlatGeom(64, 248, 4, 8), "_bwd_kernel_al"),
 
 
 @pytest.mark.parametrize("layout", sorted(RES_GEOMS))
-@pytest.mark.parametrize("c,act", [(8, "relu"), (16, "elu")])
+@pytest.mark.parametrize("c,act", [(8, "relu"), (16, "elu"), (4, "relu"),
+                                   (32, "elu")])
 def test_res_block_vjp_matches_pallas(kernels_run, layout, c, act):
     geom, body = RES_GEOMS[layout]
     rng = np.random.default_rng(c + len(layout))

@@ -56,10 +56,13 @@ GEOMS = {"aligned": (jfc.FlatGeom(64, 248, 4, 8), "_fwd_kernel_al"),
 
 
 @pytest.mark.parametrize("layout", sorted(GEOMS))
-@pytest.mark.parametrize("act", ["relu", "elu"])
-def test_res_block_matches_pallas(kernels_run, layout, act):
+@pytest.mark.parametrize("c,act", [
+    pytest.param(8, "relu", id="relu"), pytest.param(8, "elu", id="elu"),
+    pytest.param(4, "relu", id="4-relu"), pytest.param(32, "elu", id="32-elu")])
+def test_res_block_matches_pallas(kernels_run, layout, c, act):
+    """Every channel count the kernels take (ops/flatres.FUSED_CHANNELS)."""
     geom, body = GEOMS[layout]
-    x, w1, b1, w2, b2 = _inputs(len(layout) + len(act), 8, geom.H, geom.W)
+    x, w1, b1, w2, b2 = _inputs(len(layout) + len(act), c, geom.H, geom.W)
     want = jax_res_block(jfc.to_body(jnp.asarray(x), geom),
                          *map(jnp.asarray, (w1, b1, w2, b2)), geom, act)
     assert kernels_run == [body]
