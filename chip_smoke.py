@@ -17,11 +17,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      tensor-core peak, and its bytes over the memory rate):
        paint      512^2, B = 4096 (random overlapping / cross-tile / empty /
                   zero-padded boxes, and the bench page's programs), exact;
-       attention  N=1, T=4096, Cb=8, C=64 in f32 (1e-5) and bf16 (2e-2), and
-                  a ragged T = 66 (1e-5);
        CCL        512^2 blobby, noisy 3-class and maze maps, exact;
-       attention bwd  N=16, T=4096, Cb=8, C=64 in f32 (1e-4 of the largest
-                  |gradient|) and bf16 (2e-2), and a ragged T = 66 (1e-4);
+       attention  the resident forward and backward on every ATTN_CASES
+                  entry (N 16 and N 1 at T 4096, Cb 8, C 64; ragged T 1000
+                  and 66; every other width of KERNEL_WIDTHS), f32 and
+                  bf16, and integer logits near 2e5 in bf16
+                  (ATTN_LARGE_LOGITS), each run twice for equal bits: the
+                  forward within 1e-5 of the float64 plain version (bf16
+                  2e-2 of the bf16 one) and its m, l within 1e-4, the
+                  backward within 1e-4 of the largest |gradient| (bf16
+                  2e-2); the forward timed at N 16 and N 1, the backward at
+                  N 16, each beside its bound (bf16 at the tensor-core
+                  peak);
        masked CE  fwd and bwd on [16, 17, 512^2] f32 and bf16 logits with
                   label-0 pixels and a masked-out band: correct exact,
                   ce_sum rel 1e-5, dlogits 1e-6 (f32) / 1e-2 (bf16);
@@ -45,8 +52,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   scale) with f32 and bf16 operands, a ragged T = 8200 and
                   T = 66, against the blockwise plain versions: the f32
                   output within 1e-5 of max(1, max |want|) for both operand
-                  types, the backward (the rows kernel on the f32 cotangent,
-                  its row tiles in groups) within 1e-4 of the largest
+                  types, the backward (the rows kernel's f32 path on the f32
+                  cotangent) within 1e-4 of the largest
                   |gradient| (2e-2 for bf16 gradients) and the same bits on
                   a second run; at T = 4096 the blockwise plain version and
                   the kernel against the materialised [T, T] form (1e-5);
@@ -97,7 +104,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      steps, launches per step (PER_STEP_CONFIG5: the forward kernels of a
      stage twice, since remat recomputes it), the bf16 loss below its first
      value after 20 steps, a device profile, and the attention backward's
-     scratch beside what was allocated while it ran and the step's peak;
+     scratch beside what was allocated while it ran and the step's peak (at
+     the flagship's steps too);
      train_step_check also holds the card's flat_scales 2 step with the
      streaming attention forced (attention_impl="pallas") to the exact one.
 
@@ -217,7 +225,8 @@ def _cuda_ms(fn, iters):
 # kernel, the coupling conv's one-pass backward, the flat conv's forward
 # (the coupling's too), dx and stage 1 where their fast path takes the
 # shape (_conv_fast), and the fused residual block forward and backward
-# (every channel count).
+# (every channel count), and the resident attention's forward and backward
+# (every width; the streaming backward runs its f32 path in both dtypes).
 # H100 SXM data sheet.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -225,7 +234,8 @@ PEAK_BYTES_PER_S = 3.35e12
 DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
                "concat_conv1x1_bwd", "flat_conv2d", "flat_conv_dx",
                "flat_conv_bwd", "concat_conv1x1", "flat_res_block",
-               "flat_res_block_bwd")
+               "flat_res_block_bwd", "resident_attention_fwd",
+               "resident_attention_bwd")
 
 
 def _conv_fast(case, itemsize):
@@ -298,20 +308,12 @@ def check_kernels(dev, bench_progs):
     import numpy as np
     import torch
 
-    from msau_tpu_torch.ops.attention import (
-        resident_attention_cuda,
-        resident_attention_plain,
-    )
     from msau_tpu_torch.ops.ccl import (
         connected_components_multiclass_cuda,
         connected_components_multiclass_plain,
     )
     from msau_tpu_torch.ops.paint import paint_boxes_cuda, paint_boxes_plain
-    from msau_tpu_torch.utils.kernel_inputs import (
-        attention_inputs,
-        ccl_map,
-        paint_program,
-    )
+    from msau_tpu_torch.utils.kernel_inputs import ccl_map, paint_program
 
     out = {}
     # ---- paint -------------------------------------------------------
@@ -343,44 +345,6 @@ def check_kernels(dev, bench_progs):
     print(f"[phase 1] paint exact on {list(errs)}; "
           f"{out['paint']['ms']:.4f} ms vs plain {out['paint']['plain_ms']:.2f} ms",
           flush=True)
-
-    # ---- attention ---------------------------------------------------
-    errs, times = {}, {}
-    for t, dtype, tol in ((4096, torch.float32, 1e-5),
-                          (4096, torch.bfloat16, 2e-2),
-                          (66, torch.float32, 1e-5)):
-        f, g, h = (torch.from_numpy(a).to(dev, dtype) for a in
-                   attention_inputs(np.random.default_rng(t), 1, t, 8, 64))
-        got, m, l = resident_attention_cuda(f, g, h)
-        torch.cuda.synchronize()
-        want = resident_attention_plain(f, g, h)
-        key = f"T{t}_{str(dtype).split('.')[-1]}"
-        err = _max_abs(got, want)
-        rel = float(((got.double() - want.double()).abs()
-                     / (want.double().abs() + 1.0)).max())
-        errs[key] = {"max_abs_err": err, "tol": tol}
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-        if not (torch.isfinite(m).all() and (l >= 1).all()):
-            raise AssertionError(f"attention {key}: bad softmax stats")
-        if t == 4096:
-            times[key] = {
-                "ms": _cuda_ms(lambda: resident_attention_cuda(f, g, h), 20),
-                "plain_ms": _cuda_ms(lambda: resident_attention_plain(f, g, h), 20),
-            }
-        print(f"[phase 1] attention {key}: max abs err {err:.3e} "
-              f"(rel {rel:.3e}, tol {tol})", flush=True)
-    t, cb, c = 4096, 8, 64
-    out["resident_attention_fwd"] = {
-        "max_abs_err": errs["T4096_float32"]["max_abs_err"],
-        "cases": errs, "times": times,
-        "ms": times["T4096_float32"]["ms"],
-        "plain_ms": times["T4096_float32"]["plain_ms"],
-        # out_j = sum_i h_i softmax_j(g_i . f_j) sums over the query axis:
-        # no single torch call (scaled_dot_product_attention sums over keys)
-        "library_ms": None,
-        "bound": _bound(2 * t * t * (cb + c), (2 * t * cb + 2 * t * c + 2 * t) * 4),
-    }
-    print(f"[phase 1] attention times {json.dumps(times)}", flush=True)
 
     # ---- CCL ---------------------------------------------------------
     errs = {}
@@ -416,11 +380,225 @@ def _scaled_err(got, want):
                  / max(1.0, float(want.abs().max())))
 
 
-# (N, T, dtype, tolerance) of the attention backward's cases, and the
-# masked CE's logits shape: the flagship train step's
-ATTN_BWD_CASES = ((16, 4096, "float32", 1e-4), (16, 4096, "bfloat16", 2e-2),
-                  (3, 66, "float32", 1e-4))
+# (N, T, Cb, C) of the resident attention's card cases, each in f32 and
+# bf16: the flagship train step's instance (N 16) and a page's (N 1) at T =
+# 4096, ragged T, and the other widths of ops/attention.py:KERNEL_WIDTHS
+ATTN_CASES = ((16, 4096, 8, 64), (1, 4096, 8, 64), (2, 1000, 8, 64),
+              (3, 66, 8, 64), (2, 300, 1, 8), (2, 300, 2, 16),
+              (1, 520, 4, 32), (1, 300, 16, 128))
+# f and g scaled by 100 and rounded to integers put the logits near 2e5,
+# the size the flagship's bf16 model at flat_scales 0 gives its first
+# attention, each an integer below 2^24 and so exact in any sum order (the
+# kernel's and the plain version's m agree to the bit); bf16 only, since
+# f32 operands would not stay integers
+ATTN_LARGE_LOGITS = (2, 1000, 8, 64, 100.0)
+# the forward against its plain version with rtol = atol = tol (f32: the
+# plain version run in float64, as the exact answer; bf16: the output is
+# rounded to bf16); the backward's largest error over max(1, the largest
+# |gradient|) (f32: sums over T keys in another order, rho cancels against
+# h . dout; bf16: rounded gradients)
+ATTN_TOL = {"fwd": {"float32": 1e-5, "bfloat16": 2e-2},
+            "bwd": {"float32": 1e-4, "bfloat16": 2e-2}}
+# the softmax statistics against the plain version's: m to 1e-4, l to a
+# relative 1e-4 (the kernel takes exp on the SFU, ex2.approx)
+ATTN_STATS_TOL = 1e-4
+# the masked CE's logits shape: the flagship train step's
 CE_SHAPE = (16, 17, 512 * 512)
+
+
+def _attention_bound(kernel, n, t, cb, c, itemsize):
+    """(bound_ms, bound_by) of one call of an attention kernel.  Forward:
+    the score product and A^T h; f, g, h in, out and m, l (f32) out.
+    Backward: the score product, dh = A dout, h dout^T, dg = ds f and df =
+    ds^T g; f, g, h, dout, m, l in, df, dg, dh out.  The resident kernels'
+    bf16 products count at the tensor-core peak (DTYPE_AWARE), f32 at the
+    FP32 peak; the streaming backward (its f32 path, an f32 cotangent) at
+    the FP32 peak with 4-byte items."""
+    if kernel == "fused_attention_bwd":
+        itemsize = 4
+    peak = (PEAK_BF16_FLOPS if kernel in DTYPE_AWARE and itemsize == 2
+            else PEAK_F32_FLOPS)
+    if kernel.endswith("_fwd"):
+        return _bound(n * 2 * t * t * (cb + c),
+                      n * t * ((2 * cb + 2 * c) * itemsize + 2 * 4), peak)
+    return _bound(n * 2 * t * t * (3 * cb + 2 * c),
+                  n * t * ((4 * cb + 3 * c) * itemsize + 2 * 4), peak)
+
+
+def _attention_tensors(dev, n, t, cb, c, dtype, scale=1.0):
+    """The seeded f, g, h and dout of an attention case on ``dev``; with
+    ``scale``, f and g times scale rounded to integers."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.utils.kernel_inputs import attention_inputs
+
+    rng = np.random.default_rng(t)
+    f, g, h = attention_inputs(rng, n, t, cb, c)
+    if scale != 1.0:
+        f, g = np.round(f * scale), np.round(g * scale)
+    f, g, h = (torch.from_numpy(a).to(dev, dtype) for a in (f, g, h))
+    dout = torch.from_numpy(rng.normal(size=(n, t, c)).astype(
+        np.float32)).to(dev, dtype)
+    return f, g, h, dout
+
+
+def check_attention_kernels(dev):
+    """Phase 1, the resident attention's kernels (forward: stats and
+    accumulate; backward: rows and combine) on every ATTN_CASES entry in f32
+    and bf16 against their plain versions, each run twice for equal bits;
+    the forward timed at N 16 and N 1, the backward at N 16 -> {kernel:
+    {max_abs_err, ms, plain_ms, bound, cases, times}}.  A probe quicker than
+    the whole script: ``python3 -c "import chip_smoke as cs, torch;
+    cs.check_attention_kernels(torch.device('cuda', 0))"``."""
+    import torch
+
+    from msau_tpu_torch.ops.attention import (
+        resident_attention_bwd_cuda,
+        resident_attention_bwd_plain,
+        resident_attention_cuda,
+        resident_attention_plain_stats,
+    )
+
+    fwd = {"cases": {}, "times": {}, "library_ms": None, "max_abs_err": 0.0}
+    bwd = {"cases": {}, "times": {}, "library_ms": None, "max_abs_err": 0.0}
+    cases = [(*case, 1.0, ("float32", "bfloat16")) for case in ATTN_CASES]
+    cases.append((*ATTN_LARGE_LOGITS, ("bfloat16",)))
+    for n, t, cb, c, scale, keys in cases:
+        for key in keys:
+            dtype = getattr(torch, key)
+            f, g, h, dout = _attention_tensors(dev, n, t, cb, c, dtype, scale)
+            name = f"N{n}_T{t}_Cb{cb}_C{c}_{key}" + (
+                f"_scale{scale:g}" if scale != 1.0 else "")
+            got = resident_attention_cuda(f, g, h)
+            again = resident_attention_cuda(f, g, h)
+            torch.cuda.synchronize()
+            want, wm, wl = resident_attention_plain_stats(f, g, h)
+            f32_err = None
+            if key == "float32":
+                # the f32 output against the plain version in float64: at N
+                # 16 the kernel lies 9.9e-6 from it and 3.2e-5 from the f32
+                # plain version, so that one is at least 2.2e-5 away
+                f32_err = _max_abs(got[0], want)
+                want = resident_attention_plain_stats(
+                    f.double(), g.double(), h.double())[0]
+            tol = ATTN_TOL["fwd"][key]
+            err = {"max_abs_err": _max_abs(got[0], want),
+                   "vs_f32_plain_max_abs_err": f32_err,
+                   "scaled_err": _scaled_err(got[0], want),
+                   "m_max_abs_err": _max_abs(got[1], wm),
+                   "l_max_rel_err": float(((got[2] - wl).abs() / wl).max()),
+                   "tol": tol, "bit_identical": all(
+                       torch.equal(a, b) for a, b in zip(got, again))}
+            close = torch.allclose(got[0].double(), want.double(), rtol=tol,
+                                   atol=tol)
+            if (got[0].dtype != dtype or not close or not err["bit_identical"]
+                    or not err["m_max_abs_err"] <= ATTN_STATS_TOL
+                    or not err["l_max_rel_err"] <= ATTN_STATS_TOL):
+                raise AssertionError(f"attention fwd {name}: {err}, within "
+                                     f"rtol = atol = {tol}: {close}")
+            fwd["cases"][name] = err
+            # the backward from the plain version's statistics
+            grads = resident_attention_bwd_cuda(f, g, h, wm, wl, dout)
+            again = resident_attention_bwd_cuda(f, g, h, wm, wl, dout)
+            scratch = resident_attention_bwd_cuda.scratch_bytes
+            torch.cuda.synchronize()
+            wgrads = resident_attention_bwd_plain(f, g, h, wm, wl, dout)
+            btol = ATTN_TOL["bwd"][key]
+            berr = {"tol": btol, "scratch_mib": scratch / 2**20,
+                    "bit_identical": all(torch.equal(a, b)
+                                         for a, b in zip(grads, again))}
+            for gname, a, b in zip(("df", "dg", "dh"), grads, wgrads):
+                berr[gname] = {"max_abs_err": _max_abs(a, b),
+                               "scaled_err": _scaled_err(a, b)}
+                if a.dtype != dtype or not berr[gname]["scaled_err"] <= btol:
+                    raise AssertionError(f"attention bwd {name} {gname}: "
+                                         f"{berr[gname]} (tol {btol})")
+            if not berr["bit_identical"]:
+                raise AssertionError(f"attention bwd {name}: a second run "
+                                     "gave other bits")
+            bwd["cases"][name] = berr
+            if key == "float32":
+                fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                                         err["max_abs_err"])
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], max(
+                    berr[k]["max_abs_err"] for k in ("df", "dg", "dh")))
+            del got, again, want, grads, wgrads
+            isz = f.element_size()
+            if t == 4096 and cb == 8:
+                fwd["times"][name] = {
+                    "ms": _cuda_ms(lambda: resident_attention_cuda(f, g, h),
+                                   20),
+                    "plain_ms": _cuda_ms(
+                        lambda: resident_attention_plain_stats(f, g, h), 5),
+                    "bound": _attention_bound("resident_attention_fwd", n, t,
+                                              cb, c, isz)}
+            if t == 4096 and n == 16:
+                bwd["times"][name] = {
+                    "ms": _cuda_ms(lambda: resident_attention_bwd_cuda(
+                        f, g, h, wm, wl, dout), 10),
+                    "plain_ms": _cuda_ms(lambda: resident_attention_bwd_plain(
+                        f, g, h, wm, wl, dout), 5),
+                    "bound": _attention_bound("resident_attention_bwd", n, t,
+                                              cb, c, isz),
+                    "scratch_mib": scratch / 2**20}
+            print(f"[phase 1] attention {name}: fwd scaled err "
+                  f"{err['scaled_err']:.3e} (tol {tol}), m {err['m_max_abs_err']:.2e}"
+                  f", l rel {err['l_max_rel_err']:.2e}; bwd " + ", ".join(
+                      f"{k} {berr[k]['scaled_err']:.3e}"
+                      for k in ("df", "dg", "dh"))
+                  + f" (tol {btol}); same bits on a rerun; bwd scratch "
+                  f"{berr['scratch_mib']:.1f} MiB", flush=True)
+            del f, g, h, dout, wm, wl
+            torch.cuda.empty_cache()
+    # the kernels line: the forward as a page runs it, the backward as the
+    # flagship train step does, f32
+    main_f, main_b = "N1_T4096_Cb8_C64_float32", "N16_T4096_Cb8_C64_float32"
+    for rec, main in ((fwd, main_f), (bwd, main_b)):
+        rec.update(ms=rec["times"][main]["ms"],
+                   plain_ms=rec["times"][main]["plain_ms"],
+                   bound=rec["times"][main]["bound"], timed_on=main)
+    for label, rec in (("fwd", fwd), ("bwd", bwd)):
+        print(f"[phase 1] attention {label} times: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f}, bound "
+            f"{v['bound'][0]:.4f} ({v['bound'][1]})"
+            for k, v in rec["times"].items()), flush=True)
+    return {"resident_attention_fwd": fwd, "resident_attention_bwd": bwd}
+
+
+def attention_times(dev, iters=10):
+    """Device ms of the attention kernels at the main path's instances,
+    from whichever msau_tpu_torch this process imports: the resident
+    forward at N 16 and N 1, its backward at N 16 (T 4096), and the
+    streaming backward at N 2, T 16384 (config 5), f32 and bf16 operands.
+    Loaded with ``importlib`` from another checkout's root it times that
+    version on the same card (parent against change in one call)."""
+    import torch
+
+    from msau_tpu_torch.ops import attention as A
+
+    out = {}
+    for key in ("float32", "bfloat16"):
+        dtype = getattr(torch, key)
+        for n in (16, 1):
+            f, g, h, dout = _attention_tensors(dev, n, 4096, 8, 64, dtype)
+            out[f"fwd_N{n}_{key}"] = _cuda_ms(
+                lambda: A.resident_attention_cuda(f, g, h), 2 * iters)
+            if n == 16:
+                _, m, l = A.resident_attention_cuda(f, g, h)
+                out[f"bwd_N16_{key}"] = _cuda_ms(
+                    lambda: A.resident_attention_bwd_cuda(f, g, h, m, l, dout),
+                    iters)
+        f, g, h, _ = _attention_tensors(dev, 2, 16384, 8, 64, dtype)
+        dout = torch.randn((2, 16384, 64), device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+        _, m, l = A.fused_attention_cuda(f, g, h)
+        out[f"stream_bwd_N2_T16384_{key}"] = _cuda_ms(
+            lambda: A.fused_attention_bwd_cuda(f, g, h, m, l, dout), iters // 2)
+        del f, g, h, dout, m, l
+        torch.cuda.empty_cache()
+    print(f"[attention times] {json.dumps(out)}", flush=True)
+    return out
 
 
 def check_train_kernels(dev):
@@ -429,70 +607,15 @@ def check_train_kernels(dev):
     import numpy as np
     import torch
 
-    from msau_tpu_torch.ops.attention import (
-        resident_attention_bwd_cuda,
-        resident_attention_bwd_plain,
-        resident_attention_plain_stats,
-    )
     from msau_tpu_torch.ops.ce_loss import (
         masked_ce_bwd_cuda,
         masked_ce_bwd_plain,
         masked_ce_fwd_cuda,
         masked_ce_fwd_plain,
     )
-    from msau_tpu_torch.utils.kernel_inputs import attention_inputs, ce_inputs
+    from msau_tpu_torch.utils.kernel_inputs import ce_inputs
 
     out = {}
-    # ---- attention backward ------------------------------------------
-    errs, times = {}, {}
-    timed_t = ATTN_BWD_CASES[0][1]
-    for n, t, dtype, tol in ATTN_BWD_CASES:
-        dtype = getattr(torch, dtype)
-        rng = np.random.default_rng(t)
-        f, g, h = (torch.from_numpy(a).to(dev, dtype)
-                   for a in attention_inputs(rng, n, t, 8, 64))
-        dout = torch.from_numpy(rng.normal(size=(n, t, 64)).astype(
-            np.float32)).to(dev, dtype)
-        _, m, l = resident_attention_plain_stats(f, g, h)
-        got = resident_attention_bwd_cuda(f, g, h, m, l, dout)
-        torch.cuda.synchronize()
-        want = resident_attention_bwd_plain(f, g, h, m, l, dout)
-        key = f"N{n}_T{t}_{str(dtype).split('.')[-1]}"
-        errs[key] = {"tol": tol}
-        timed = t == timed_t
-        for name, a, b in zip(("df", "dg", "dh"), got, want):
-            errs[key][name] = {"max_abs_err": _max_abs(a, b),
-                               "scaled_err": _scaled_err(a, b)}
-            if a.dtype != dtype or errs[key][name]["scaled_err"] > tol:
-                raise AssertionError(f"attention bwd {key} {name}: "
-                                     f"{errs[key][name]} (tol {tol})")
-        if timed:
-            del got, want
-            times[key] = {
-                "ms": _cuda_ms(lambda: resident_attention_bwd_cuda(
-                    f, g, h, m, l, dout), 10),
-                "plain_ms": _cuda_ms(lambda: resident_attention_bwd_plain(
-                    f, g, h, m, l, dout), 5),
-            }
-        print(f"[phase 1] attention bwd {key}: " + ", ".join(
-            f"{k} max abs {v['max_abs_err']:.3e} (scaled {v['scaled_err']:.3e})"
-            for k, v in errs[key].items() if k != "tol") + f"; tol {tol}",
-            flush=True)
-    main = "N{}_T{}_{}".format(*ATTN_BWD_CASES[0][:3])
-    n, t, cb, c = ATTN_BWD_CASES[0][0], ATTN_BWD_CASES[0][1], 8, 64
-    out["resident_attention_bwd"] = {
-        "max_abs_err": max(errs[main][k]["max_abs_err"]
-                           for k in ("df", "dg", "dh")),
-        "cases": errs, "times": times,
-        "ms": times[main]["ms"], "plain_ms": times[main]["plain_ms"],
-        "library_ms": None,
-        # s recomputed, dh = A dout, h dout^T, dg = ds f, df = ds^T g; f, g,
-        # h, dout, m, l in, df, dg, dh out
-        "bound": _bound(n * 2 * t * t * (3 * cb + 2 * c),
-                        n * t * (4 * cb + 3 * c + 2) * 4),
-    }
-    print(f"[phase 1] attention bwd times {json.dumps(times)}", flush=True)
-
     # ---- masked CE ---------------------------------------------------
     logits32, labels, maskf = (
         torch.from_numpy(a).to(dev) for a in
@@ -643,18 +766,13 @@ def check_fused_attention(dev):
                 "plain_ms": _cuda_ms(lambda: fused_attention_bwd_plain(
                     f, g, h, m, l, dout), 3)}
             if key == "float32":
-                # one page (the serve path's launch), other splits of the
-                # summed axis, and the backward with every tile in one group
+                # one page (the serve path's launch) and other splits of the
+                # summed axis
                 fwd["times"]["N1"] = {"ms": _cuda_ms(
                     lambda: fused_attention_cuda(f[:1], g[:1], h[:1]), 10)}
                 fwd["times"]["by_splits"] = {
                     str(k): _cuda_ms(lambda: fused_attention_cuda(
                         f, g, h, splits=k), 5) for k in (1, 2, 4)}
-                fused_attention_bwd_cuda(f, g, h, m, l, dout, group=10**6)
-                bwd["times"]["one_group"] = {
-                    "scratch_mib": fused_attention_bwd_cuda.scratch_bytes / 2**20,
-                    "ms": _cuda_ms(lambda: fused_attention_bwd_cuda(
-                        f, g, h, m, l, dout, group=10**6), 5)}
         print(f"[phase 1] fused attention {name}: fwd scaled err "
               f"{err['scaled_err']:.3e} (tol {FUSED_FWD_TOL}); bwd " + ", ".join(
                   f"{k} {berr[k]['scaled_err']:.3e}" for k in ("df", "dg", "dh"))
@@ -671,14 +789,11 @@ def check_fused_attention(dev):
                bound=_bound(n * 2 * t * t * (cb + c),
                             n * t * ((2 * cb + c) * isz + (c + 2) * 4)),
                timed_on=f"{main} (config 5's train step)")
-    # as resident_attention_bwd's: s recomputed, dh = A dout, h dout^T,
-    # dg = ds f, df = ds^T g; f, g, h, dout, m, l in, df, dg, dh out
     bwd.update(max_abs_err=max(bwd["cases"][main][k]["max_abs_err"]
                                for k in ("df", "dg", "dh")),
                ms=bwd["times"][main]["ms"],
                plain_ms=bwd["times"][main]["plain_ms"],
-               bound=_bound(n * 2 * t * t * (3 * cb + 2 * c),
-                            n * t * (4 * cb + 3 * c + 2) * 4),
+               bound=_attention_bound("fused_attention_bwd", n, t, cb, c, 4),
                timed_on=f"{main} (config 5's train step)")
     print(f"[phase 1] fused attention times: fwd {json.dumps(fwd['times'])}; "
           f"bwd {json.dumps(bwd['times'])}", flush=True)
@@ -1520,16 +1635,19 @@ def _profile_steps(step, steps):
             "top_kernels_ms": {k[:120]: per(v) for k, v in top}}
 
 
-def _attention_bwd_memory(step, dev):
-    """One more step with the streaming attention's backward wrapped to read
-    the allocator where it runs -> MiB: its scratch (df slices and their
-    accumulator) and the most that was allocated during one of its launches,
-    scratch included, to set beside the step's peak."""
+def _attention_bwd_memory(step, dev, kernel):
+    """One more step with an attention backward's wrapper (``kernel``:
+    "resident_attention_bwd" or "fused_attention_bwd") wrapped to read the
+    allocator where it runs -> MiB: its df scratch and the most that was
+    allocated during one of its launches, scratch included, to set beside
+    the step's peak."""
     import torch
 
     from msau_tpu_torch.ops import attention
 
-    real = attention.fused_attention_bwd_cuda
+    attr = {"resident_attention_bwd": "resident_attention_bwd_cuda",
+            "fused_attention_bwd": "fused_attention_bwd_cuda"}[kernel]
+    real = getattr(attention, attr)
     live = []
 
     def probe(*args):
@@ -1539,11 +1657,11 @@ def _attention_bwd_memory(step, dev):
 
     # the wrapper keeps its count and scratch size on the module's name
     probe.launches, probe.scratch_bytes = real.launches, 0
-    attention.fused_attention_bwd_cuda = probe
+    setattr(attention, attr, probe)
     try:
         step()
     finally:
-        attention.fused_attention_bwd_cuda = real
+        setattr(attention, attr, real)
         real.launches, real.scratch_bytes = probe.launches, probe.scratch_bytes
     return {"scratch_mib": real.scratch_bytes / 2**20,
             "allocated_during_mib": max(live) / 2**20, "launches": len(live)}
@@ -1615,8 +1733,11 @@ def _train_run(dev, label, model_kwargs, dtype, batch_hw, timed, per_step,
         tr.state, _ = tr.train_step(tr.state, batch)
 
     res["profile"] = _profile_steps(step, 3)
-    if per_step.get("fused_attention_bwd"):
-        mem = res["attention_bwd_memory"] = _attention_bwd_memory(step, dev)
+    kernel = ("fused_attention_bwd" if per_step.get("fused_attention_bwd")
+              else "resident_attention_bwd")
+    if per_step.get(kernel):
+        mem = res["attention_bwd_memory"] = _attention_bwd_memory(step, dev,
+                                                                  kernel)
         print(f"[phase 3] {label} {dtype}: the attention backward's scratch "
               f"{mem['scratch_mib']:.1f} MiB; {mem['allocated_during_mib']:.1f}"
               f" MiB allocated while it ran, the step's peak "
@@ -1848,6 +1969,7 @@ def main() -> int:
         return out
 
     kernels = timed("phase 1 serve kernels", check_kernels, dev, bench_progs)
+    kernels.update(timed("phase 1 attention", check_attention_kernels, dev))
     kernels.update(timed("phase 1 train kernels", check_train_kernels, dev))
     kernels.update(timed("phase 1 streaming attention",
                          check_fused_attention, dev))

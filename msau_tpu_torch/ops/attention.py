@@ -18,7 +18,9 @@ them.  A CUDA tensor launches the hand-written kernels: the forward
 takes the plain versions (``resident_attention_plain_stats``, the einsum
 form of ``msau_tpu.models.attention.self_attention_xla``, and
 ``resident_attention_bwd_plain``), so CPU training runs the same backward
-formula that the kernel implements.
+formula that the kernel implements.  With bf16 operands the plain versions
+and the kernels round A (and, in the backward, ds) to bf16 before their
+products, where the TPU kernels round them, and sum in f32.
 
 ``fused_attention`` (``FusedAttention``) is the port of
 ``msau_tpu.ops.pallas_attn.fused_attention``: operands upcast to f32, m, l
@@ -47,10 +49,23 @@ from msau_tpu_torch.ops.precision import wide_dtype
 KERNEL_WIDTHS = ((1, 8), (2, 16), (4, 32), (8, 64), (16, 128))
 
 
+def _rounded_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to bf16 and back where the operands are bf16, as the
+    TPU kernels round A and ds before their products
+    (``pallas_attn.py:_res_fwd_kernel`` and ``_res_bwd_kernel``, which
+    multiply bf16 values with f32 sums); unchanged otherwise."""
+    if dtype != torch.bfloat16:
+        return x
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def resident_attention_plain(f: torch.Tensor, g: torch.Tensor,
                              h: torch.Tensor) -> torch.Tensor:
     """f, g: [N, T, Cb]; h: [N, T, C] -> [N, T, C] in h's dtype, computed in
-    f32: out_j = sum_i h_i softmax_j(g_i . f_j)."""
+    f32: out_j = sum_i h_i softmax_j(g_i . f_j).  With bf16 operands A is
+    rounded to bf16 before Aᵀh, as the TPU kernel rounds it."""
+    if h.dtype == torch.bfloat16:
+        return resident_attention_plain_stats(f, g, h)[0]
     acc = wide_dtype(h)
     s = torch.einsum("nic,njc->nij", g.to(acc), f.to(acc))
     beta = torch.softmax(s, dim=-1)
@@ -61,13 +76,19 @@ def resident_attention_plain_stats(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain forward with the saved statistics: (out in h's dtype,
-    m, l [N, T] f32), m_i = max_j s_ij and l_i = sum_j exp(s_ij - m_i)."""
+    m, l [N, T] f32), m_i = max_j s_ij and l_i = sum_j exp(s_ij - m_i).
+    With bf16 operands A = p (1 / l) is rounded to bf16 before Aᵀh
+    (``_res_fwd_kernel``)."""
     acc = wide_dtype(h)
     s = torch.einsum("nic,njc->nij", g.to(acc), f.to(acc))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    out = torch.einsum("nij,nic->njc", p / l[..., None], h.to(acc))
+    if h.dtype == torch.bfloat16:
+        a = _rounded_like(p * (1.0 / l[..., None]), h.dtype)
+    else:
+        a = p / l[..., None]
+    out = torch.einsum("nij,nic->njc", a, h.to(acc))
     return out.to(h.dtype), m, l
 
 
@@ -80,15 +101,18 @@ def resident_attention_bwd_plain(
 
         A = exp(s - m) / l,  dh = A dout,  rho_i = h_i . dh_i,
         ds = A * (h doutᵀ - rho),  dg = ds f,  df = dsᵀ g.
-    """
+
+    With bf16 operands A is rounded to bf16 before A dout, and ds before
+    ds f and dsᵀ g, as the TPU kernel rounds them; A, u, rho and dh stay
+    f32 (``pallas_attn.py:266-283``)."""
     acc = wide_dtype(h)
     ff, gf, hf, dof = (t.to(acc) for t in (f, g, h, dout))
     s = torch.einsum("nic,njc->nij", gf, ff)
     a = torch.exp(s - m[..., None]) / l[..., None]
-    dh = torch.einsum("nij,njc->nic", a, dof)
+    dh = torch.einsum("nij,njc->nic", _rounded_like(a, h.dtype), dof)
     rho = (hf * dh).sum(dim=-1)
     u = torch.einsum("nic,njc->nij", hf, dof)
-    ds = a * (u - rho[..., None])
+    ds = _rounded_like(a * (u - rho[..., None]), h.dtype)
     dg = torch.einsum("nij,njc->nic", ds, ff)
     df = torch.einsum("nij,nic->njc", ds, gf)
     return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
@@ -115,36 +139,19 @@ def _check_operands(name: str, f: torch.Tensor, g: torch.Tensor,
     return n, t, cb, c
 
 
-def _i_splits(n: int, t: int, c: int, device: torch.device) -> int:
-    """How many contiguous i ranges the accumulation pass splits into:
-    enough blocks for about four per SM (each block owns 64 output rows),
-    at most 16 and at most one per i tile (64 rows, 32 when C >= 128).
-    More resident warps hide the shared-memory latency: at T = 4096 on the
-    H100 the whole kernel took 0.52 / 0.28 / 0.20 / 0.157 / 0.152 ms with 1 / 2 /
-    4 / 8 / 12 splits (CUDA events, H100 80GB HBM3 at 700 W)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = n * -(-t // 64)
-    tiles = -(-t // (32 if c >= 128 else 64))
-    return max(1, min(16, tiles, -(-4 * sms // row_blocks)))
-
-
 def resident_attention_cuda(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the kernel (stats, accumulate, combine) -> (out, m, l), where
-    m, l ([N, T] f32)
-    are each query row's score max and sum-exp.
+    """Launch the kernel (stats, then accumulate; no scratch) -> (out, m,
+    l), where m, l ([N, T] f32) are each query row's score max and sum-exp.
     ``resident_attention_cuda.launches`` counts calls."""
     n, t, cb, c = _check_operands("resident_attention", f, g, h)
     out = torch.empty_like(h)
     m = torch.empty((n, t), dtype=torch.float32, device=f.device)
     l = torch.empty((n, t), dtype=torch.float32, device=f.device)
-    splits = _i_splits(n, t, c, f.device)
-    partial = torch.empty((splits, n, t, c), dtype=torch.float32,
-                          device=f.device)
     code = cuda_lib.library().msau_resident_attention_fwd(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), partial.data_ptr(), splits, n, t, cb, c,
+        m.data_ptr(), l.data_ptr(), n, t, cb, c,
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_resident_attention_fwd", code)
     resident_attention_cuda.launches += 1
@@ -155,9 +162,31 @@ resident_attention_cuda.launches = 0
 
 
 def bwd_row_block(c: int) -> int:
-    """Query rows per block of the backward kernel (``kBwdRows`` in
-    ``csrc/attention_bwd.cu``): one f32 df partial per row block."""
-    return 32 if c >= 128 else 64
+    """Query rows per tile of the backward kernel (``Shape::BI`` in
+    ``csrc/attention_bwd.cu``: 4 warps of 32 rows, of 16 when C = 128)."""
+    return 64 if c >= 128 else 128
+
+
+def bwd_blocks_per_image(n: int, t: int, c: int, slots: int) -> int:
+    """Blocks per image of the backward's persistent grid: the batch's row
+    tiles over the ``slots`` the card holds at once
+    (``msau_attention_bwd_slots``: the occupancy API's blocks per SM times
+    the SMs), as few tiles per block as fill them.  The df scratch is one
+    f32 [N, T, Cb] slice per block of an image."""
+    tiles = -(-t // bwd_row_block(c))
+    per_block = -(-tiles * n // max(slots, 1))
+    return -(-tiles // per_block)
+
+
+def _bwd_scratch(f: torch.Tensor, c: int, dout_f32: bool) -> torch.Tensor:
+    """The backward's df scratch, [blocks per image, N, T, Cb] f32."""
+    n, t, cb = f.shape
+    slots = cuda_lib.library().msau_attention_bwd_slots(
+        cb, c, int(f.dtype == torch.bfloat16), int(dout_f32))
+    if slots <= 0:
+        cuda_lib.check("msau_attention_bwd_slots", -slots)
+    return torch.empty((bwd_blocks_per_image(n, t, c, slots), n, t, cb),
+                       dtype=torch.float32, device=f.device)
 
 
 def _check_bwd_operands(name: str, f: torch.Tensor, h: torch.Tensor,
@@ -182,24 +211,25 @@ def resident_attention_bwd_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel (rows pass, df combine) -> (df, dg, dh)
     in the input dtype.  ``resident_attention_bwd_cuda.launches`` counts
-    calls."""
+    calls; ``resident_attention_bwd_cuda.scratch_bytes`` is the last call's
+    df scratch."""
     n, t, cb, c = _check_operands("resident_attention_bwd", f, g, h)
     _check_bwd_operands("resident_attention_bwd", f, h, m, l, dout, h.dtype)
     df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
-    tiles = -(-t // bwd_row_block(c))
-    partial = torch.empty((tiles, n, t, cb), dtype=torch.float32,
-                          device=f.device)
+    partial = _bwd_scratch(f, c, False)
     code = cuda_lib.library().msau_resident_attention_bwd(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), df.data_ptr(), dg.data_ptr(),
-        dh.data_ptr(), partial.data_ptr(), tiles, n, t, cb, c,
+        dh.data_ptr(), partial.data_ptr(), partial.shape[0], n, t, cb, c,
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_resident_attention_bwd", code)
     resident_attention_bwd_cuda.launches += 1
+    resident_attention_bwd_cuda.scratch_bytes = 4 * partial.numel()
     return df, dg, dh
 
 
 resident_attention_bwd_cuda.launches = 0
+resident_attention_bwd_cuda.scratch_bytes = 0
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -352,50 +382,28 @@ def fused_attention_cuda(
 fused_attention_cuda.launches = 0
 
 
-def fused_bwd_group(n: int, t: int, c: int, device: torch.device) -> int:
-    """Row tiles per group of the streaming backward: the tiles split into
-    the fewest equal groups whose launches (one block per tile and image)
-    each fit the card at once, at three blocks per SM (61 KB of shared
-    memory each at C = 64).  The df scratch is one f32 [N, T, Cb] slice
-    per tile of a group instead of per tile: half the slices at N = 2,
-    T = 16384, at the same number of block waves."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-t // bwd_row_block(c))
-    groups = -(-tiles * n // (3 * sms))
-    return -(-tiles // groups)
-
-
 def fused_attention_bwd_cuda(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
-    l: torch.Tensor, dout: torch.Tensor, group: Optional[int] = None
+    l: torch.Tensor, dout: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel on the streaming forward's f32 cotangent
-    -> (df, dg, dh) in the operands' dtype.  ``group`` overrides the row
-    tiles per group (for measurements).
-    ``fused_attention_bwd_cuda.launches`` counts calls;
-    ``fused_attention_bwd_cuda.scratch_bytes`` is the last call's scratch."""
+    (its f32 path whatever the operands' type) -> (df, dg, dh) in the
+    operands' dtype.  ``fused_attention_bwd_cuda.launches`` counts calls;
+    ``fused_attention_bwd_cuda.scratch_bytes`` is the last call's df
+    scratch."""
     n, t, cb, c = _check_operands("fused_attention_bwd", f, g, h)
     _check_bwd_operands("fused_attention_bwd", f, h, m, l, dout,
                         torch.float32)
     df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
-    tiles = -(-t // bwd_row_block(c))
-    if group is None:
-        group = fused_bwd_group(n, t, c, f.device)
-    group = min(group, tiles)
-    partial = torch.empty((group, n, t, cb), dtype=torch.float32,
-                          device=f.device)
-    acc = (torch.empty((n, t, cb), dtype=torch.float32, device=f.device)
-           if group < tiles else None)
+    partial = _bwd_scratch(f, c, True)
     code = cuda_lib.library().msau_fused_attention_bwd(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), df.data_ptr(), dg.data_ptr(),
-        dh.data_ptr(), partial.data_ptr(),
-        None if acc is None else acc.data_ptr(), tiles, group, n, t, cb, c,
+        dh.data_ptr(), partial.data_ptr(), partial.shape[0], n, t, cb, c,
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_fused_attention_bwd", code)
     fused_attention_bwd_cuda.launches += 1
-    fused_attention_bwd_cuda.scratch_bytes = 4 * (
-        partial.numel() + (0 if acc is None else acc.numel()))
+    fused_attention_bwd_cuda.scratch_bytes = 4 * partial.numel()
     return df, dg, dh
 
 

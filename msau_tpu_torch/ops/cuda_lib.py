@@ -42,22 +42,25 @@ _F = ctypes.c_float
 SIGNATURES = {
     # boxes, values, n_boxes, out, height, width, stream
     "msau_paint_boxes": (_P, _P, _I, _P, _I, _I, _P),
-    # f, g, h, out, m, l, partial, splits, n, t, cb, c, is_bf16, stream
-    "msau_resident_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _P),
+    # f, g, h, out, m, l, n, t, cb, c, is_bf16, stream
+    "msau_resident_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _P),
     # cls, parent, labels, height, width, stream
     "msau_ccl_multiclass": (_P, _P, _P, _I, _I, _P),
-    # f, g, h, dout, m, l, df, dg, dh, partial, tiles, n, t, cb, c, is_bf16,
-    # stream
+    # cb, c, is_bf16, dout_f32 -> the attention backward's block slots on
+    # the card (occupancy API x SMs), or a negative error
+    "msau_attention_bwd_slots": (_I, _I, _I, _I),
+    # f, g, h, dout, m, l, df, dg, dh, partial, per_image, n, t, cb, c,
+    # is_bf16, stream
     "msau_resident_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
     # f, g, h, out (f32), m, l, partial, splits, n, t, cb, c, is_bf16, stream
     "msau_fused_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _P),
-    # f, g, h, dout (f32), m, l, df, dg, dh, partial, acc, tiles, group, n, t,
-    # cb, c, is_bf16, stream
-    "msau_fused_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _P),
+    # f, g, h, dout (f32), m, l, df, dg, dh, partial, per_image, n, t, cb,
+    # c, is_bf16, stream
+    "msau_fused_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _P),
     # logits, labels, mask, partial, ce_out, correct_out, blocks, n, c,
     # length, is_bf16, stream
     "msau_masked_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -10,6 +10,13 @@ JAX compilation cache hands the kernel.  The backward's atol is 1e-5 scaled by t
 gradient's largest magnitude: df and dg reach 90 at scale 6, where two f32
 summation orders differ by about 1e-6 of that (and each is as far from an
 f64 reference as from the other).
+
+The bf16 cases hold the port to the TPU kernels with bf16 operands: both
+sides round A (and, in the backward, ds) to bf16 where
+``_res_fwd_kernel`` / ``_res_bwd_kernel`` do and sum in f32, so what is
+left is the sum order and a bf16 rounding of the output that the order can
+flip: within 1e-3 of max(1, max |JAX|) forward and 2e-3 backward (the
+plain versions that kept A and ds in f32 were 4.7e-3 to 7.6e-3 away).
 """
 
 import jax
@@ -17,11 +24,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from msau_tpu.models.attention import SelfAttentionBlock as JaxSelfAttention
 from msau_tpu.models.attention import add_timing_signal_2d as jax_timing
 from msau_tpu.ops.pallas_attn import resident_attention as jax_resident
 from msau_tpu_torch.models.attention import SelfAttentionBlock, add_timing_signal_2d
+from msau_tpu_torch.ops import attention as attn_ops
+from msau_tpu_torch.ops import cuda_lib
 from msau_tpu_torch.ops.attention import (
     resident_attention,
     resident_attention_bwd_cuda,
@@ -34,6 +44,20 @@ from msau_tpu_torch.utils.kernel_inputs import attention_inputs
 from msau_tpu_torch.utils.transplant import flax_to_torch
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_FWD_REL, BF16_BWD_REL = 1e-3, 2e-3
+
+
+@pytest.fixture
+def kernels_run(monkeypatch):
+    seen = []
+    real = pl.pallas_call
+
+    def spy(kernel, *args, **kwargs):
+        seen.append(getattr(kernel, "func", kernel).__name__)
+        return real(kernel, *args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    return seen
 
 
 def _inputs(seed, n, t, cb, c, scale=1.0):
@@ -90,6 +114,53 @@ def test_resident_attention_backward_matches_pallas(t, scale):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), w, rtol=1e-5,
                                    atol=1e-5 * max(1.0, np.abs(w).max()))
+
+
+def _err_beyond_ulp(got, want):
+    """max over elements of (|got - want| - one bf16 ulp of want), floored
+    at 0, over max(1, max |want|); in float64."""
+    got, want = (np.asarray(a, dtype=np.float64) for a in (got, want))
+    mag = np.maximum(np.abs(want), 2.0 ** -126)
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    beyond = np.maximum(np.abs(got - want) - ulp, 0.0)
+    return float(beyond.max() / max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("t", [256, 512])
+def test_resident_attention_bf16_matches_pallas(t, kernels_run):
+    """bf16 operands: the plain forward (A rounded to bf16 before Aᵀh)
+    against _res_fwd_kernel in interpret mode."""
+    f, g, h = _inputs(t, 2, t, 8, 64)
+    pallas = jax_resident(*(jnp.asarray(a).astype(jnp.bfloat16)
+                            for a in (f, g, h)), interpret=True)
+    assert kernels_run == ["_res_fwd_kernel"]
+    got = resident_attention(*(torch.from_numpy(a).bfloat16()
+                               for a in (f, g, h)))
+    assert got.dtype == torch.bfloat16 and pallas.dtype == jnp.bfloat16
+    assert _err_beyond_ulp(got.float().numpy(),
+                           np.asarray(pallas.astype(jnp.float32))) <= BF16_FWD_REL
+
+
+@pytest.mark.parametrize("t", [256, 512])
+def test_resident_attention_bf16_backward_matches_pallas(t, kernels_run):
+    """bf16 operands and cotangent: (df, dg, dh) through torch.autograd
+    (the plain backward, A and ds rounded to bf16 before their products)
+    against jax.vjp of the Pallas pair."""
+    rng = np.random.default_rng(t + 1)
+    f, g, h = _inputs(t, 2, t, 8, 64)
+    dout = rng.normal(size=(2, t, 64)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_resident(a, b, c, interpret=True),
+                     *(jnp.asarray(a).astype(jnp.bfloat16) for a in (f, g, h)))
+    want = vjp(jnp.asarray(dout).astype(jnp.bfloat16))
+    assert kernels_run == ["_res_fwd_kernel", "_res_bwd_kernel"]
+    leaves = [torch.from_numpy(a).bfloat16().requires_grad_()
+              for a in (f, g, h)]
+    resident_attention(*leaves).backward(torch.from_numpy(dout).bfloat16())
+    for name, x, w in zip(("df", "dg", "dh"), leaves, want):
+        assert x.grad.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        err = _err_beyond_ulp(x.grad.float().numpy(),
+                              np.asarray(w.astype(jnp.float32)))
+        assert err <= BF16_BWD_REL, (name, err)
 
 
 def test_bwd_plain_keeps_input_dtypes():
@@ -155,6 +226,47 @@ def test_bwd_cuda_wrapper_rejects_cpu_tensor():
     m = l = torch.ones(1, 16)
     with pytest.raises(ValueError, match="CUDA"):
         resident_attention_bwd_cuda(f, g, h, m, l, h)
+
+
+@pytest.mark.parametrize("n,t,cb,c,slots,shape", [
+    # the flagship train step's backward at 4 and 2 blocks per SM
+    (16, 4096, 8, 64, 528, (32, 16, 4096, 8)),
+    (16, 4096, 8, 64, 264, (16, 16, 4096, 8)),
+    # config 5's streaming backward (N 2, T 16384) at 2 blocks per SM
+    (2, 16384, 8, 64, 264, (128, 2, 16384, 8)),
+    (1, 4096, 8, 64, 528, (32, 1, 4096, 8)),
+    (3, 66, 8, 64, 528, (1, 3, 66, 8)),
+    (1, 300, 16, 128, 132, (5, 1, 300, 16)),   # C = 128: 64-row tiles
+])
+@pytest.mark.parametrize("dtype,dout_f32", [(torch.float32, False),
+                                            (torch.bfloat16, False),
+                                            (torch.bfloat16, True)])
+def test_bwd_scratch_shapes(monkeypatch, n, t, cb, c, slots, shape, dtype,
+                            dout_f32):
+    """The backward wrappers' df scratch: one f32 [N, T, Cb] slice per block
+    of an image, the blocks from the slots the card reports."""
+    calls = []
+
+    class Lib:
+        def msau_attention_bwd_slots(self, *args):
+            calls.append(args)
+            return slots
+
+    monkeypatch.setattr(cuda_lib, "library", Lib)
+    f = torch.zeros((n, t, cb), dtype=dtype)
+    partial = attn_ops._bwd_scratch(f, c, dout_f32)
+    assert partial.shape == shape and partial.dtype == torch.float32
+    assert calls == [(cb, c, int(dtype == torch.bfloat16), int(dout_f32))]
+
+
+def test_bwd_scratch_raises_on_a_failed_slot_query(monkeypatch):
+    class Lib:
+        def msau_attention_bwd_slots(self, *args):
+            return -98
+
+    monkeypatch.setattr(cuda_lib, "library", Lib)
+    with pytest.raises(RuntimeError, match="98"):
+        attn_ops._bwd_scratch(torch.zeros((1, 64, 8)), 64, False)
 
 
 def test_self_attention_block_grads_match_flax():

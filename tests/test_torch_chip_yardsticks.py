@@ -1,9 +1,10 @@
-"""chip_smoke's yardsticks for the flat conv and the fused residual block, on
-the CPU at small sizes: the library call it times beside the forward kernel
+"""chip_smoke's yardsticks for the flat conv, the fused residual block and
+the attention kernels, on the CPU at small sizes: the library call it times beside the forward kernel
 (one ``F.conv2d`` of the merge convs' pre-concatenated input), and the bound
 it sets beside each kernel (bf16 operations at the tensor-core peak where
 the fast path of ``csrc/conv_fast.cuh`` takes the shape, and for the
-residual block's kernels, else at the FP32 peak).
+residual block's kernels and the resident attention's, else at the FP32
+peak).
 
 Tolerance: the library call and the plain version are both f32 convs of
 the same operands on the CPU, so they agree to 1e-5 of the output's scale.
@@ -153,4 +154,30 @@ def test_bound_of_the_residual_block(name, op, itemsize, ms, by):
     assert op in cs.DTYPE_AWARE
     got_ms, got_by = cs._flat_bound(case, 16, itemsize)
     assert got_by == by
+    assert got_ms == pytest.approx(ms, abs=5e-5)
+
+
+# (kernel, N, T, itemsize) -> bound ms at Cb 8, C 64: the resident
+# attention's bf16 products at 989 TFLOP/s, f32 at 67 TFLOP/s (the score
+# product and A^T h forward, 2 N T^2 (Cb + C) FLOP; backward the score
+# product, A dout, h dout^T, ds f and ds^T g, 2 N T^2 (3 Cb + 2 C)); the
+# streaming backward at the FP32 peak whatever the operands (its f32 path);
+# all bound by operations
+ATTN_BOUNDS = [
+    ("resident_attention_fwd", 16, 4096, 4, 0.5769),
+    ("resident_attention_fwd", 16, 4096, 2, 0.0391),
+    ("resident_attention_fwd", 1, 4096, 4, 0.0361),
+    ("resident_attention_fwd", 1, 4096, 2, 0.00244),
+    ("resident_attention_bwd", 16, 4096, 4, 1.2180),
+    ("resident_attention_bwd", 16, 4096, 2, 0.0825),
+    ("fused_attention_bwd", 2, 16384, 4, 2.4360),
+    ("fused_attention_bwd", 2, 16384, 2, 2.4360),
+]
+
+
+@pytest.mark.parametrize("kernel,n,t,itemsize,ms", ATTN_BOUNDS)
+def test_bound_of_the_attention(kernel, n, t, itemsize, ms):
+    assert ("resident" in kernel) == (kernel in cs.DTYPE_AWARE)
+    got_ms, got_by = cs._attention_bound(kernel, n, t, 8, 64, itemsize)
+    assert got_by == "operations"
     assert got_ms == pytest.approx(ms, abs=5e-5)

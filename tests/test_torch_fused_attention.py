@@ -396,18 +396,19 @@ def test_launch_counters_are_registered():
     assert ops.launch_counts()["fused_attention_fwd"] == 0
 
 
-@pytest.mark.parametrize("n,t,splits,group", [
-    (2, 16384, 2, 128),   # the 1024^2 train step: 512 blocks, half the slices
-    (1, 16384, 4, 256),   # one 1024^2 page
-    (16, 4096, 1, 22),
-    (1, 66, 3, 2),
+@pytest.mark.parametrize("n,t,splits,blocks", [
+    (2, 16384, 2, 128),   # the 1024^2 train step: 512 blocks, 128 per image
+    (1, 16384, 4, 128),   # one 1024^2 page
+    (16, 4096, 1, 16),
+    (1, 66, 3, 1),
 ])
-def test_grid_sizing_on_a_132_sm_card(monkeypatch, n, t, splits, group):
-    """The forward's split count and the backward's tiles per group, from
-    the shapes and the card's SM count alone."""
+def test_grid_sizing_on_a_132_sm_card(monkeypatch, n, t, splits, blocks):
+    """The forward's split count, from the shapes and the card's SM count
+    alone, and the backward's blocks per image at two blocks per SM (its
+    f32 path's shared memory at C = 64)."""
     monkeypatch.setattr(
         torch.cuda, "get_device_properties",
         lambda device: types.SimpleNamespace(multi_processor_count=132))
     dev = torch.device("cpu")
     assert attn_ops._fused_splits(n, t, 64, dev) == splits
-    assert attn_ops.fused_bwd_group(n, t, 64, dev) == group
+    assert attn_ops.bwd_blocks_per_image(n, t, 64, 2 * 132) == blocks
