@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the plain version's and, where one torch call computes the same
      function, that call's, and its bound (the larger of its operations
      over the FP32 peak, or for the DTYPE_AWARE kernels in bf16 the
-     tensor-core peak, and its bytes over the memory rate):
+     tensor-core peak, and its bytes over the memory rate; the
+     attention's exponentials over the SFUs' rate a floor of its own):
        paint      512^2, B = 4096 (random overlapping / cross-tile / empty /
                   zero-padded boxes, and the bench page's programs), exact;
        CCL        512^2 blobby, noisy 3-class and maze maps, exact;
@@ -49,14 +50,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      coupling wider than the one pass takes runs that split path), and
      the weight gradients' partial-row sums timed alone (partial_sums);
        streaming attention  N=2, T=16384, Cb=8, C=64 (config 5's deepest
-                  scale) with f32 and bf16 operands, a ragged T = 8200 and
-                  T = 66, against the blockwise plain versions: the f32
-                  output within 1e-5 of max(1, max |want|) for both operand
-                  types, the backward (the rows kernel's f32 path on the f32
-                  cotangent) within 1e-4 of the largest
-                  |gradient| (2e-2 for bf16 gradients) and the same bits on
-                  a second run; at T = 4096 the blockwise plain version and
-                  the kernel against the materialised [T, T] form (1e-5);
+                  scale) and a ragged T = 8200 with f32 and bf16 operands,
+                  T = 66, and integer logits near 2e5 (FUSED_LARGE_LOGITS),
+                  against the blockwise plain versions: the f32 output
+                  within 1e-5 of max(1, max |want|) for both operand types,
+                  m within 1e-5 and l a relative 1e-5 (also read against
+                  the plain version in float64), the backward (the rows
+                  kernel's f32 path on the f32 cotangent) within 1e-4 of
+                  the largest |gradient| (2e-2 for bf16 gradients), each
+                  with the same bits on a second run; at T = 4096 the
+                  blockwise plain version and the kernel against the
+                  materialised [T, T] form (1e-5); the forward timed at N
+                  2 and N 1;
   2. the serve path, KVModel.predict, of the flagship model (img_channels 64,
      17 classes, 4 scales, feat_root 8, res_depth 2, 3 stages) at
      flat_scales 0 and 3, f32 and bf16, with the same seeded random weights
@@ -226,11 +231,16 @@ def _cuda_ms(fn, iters):
 # (the coupling's too), dx and stage 1 where their fast path takes the
 # shape (_conv_fast), and the fused residual block forward and backward
 # (every channel count), and the resident attention's forward and backward
-# (every width; the streaming backward runs its f32 path in both dtypes).
-# H100 SXM data sheet.
+# (every width; the streaming forward with bf16 operands too, and the
+# streaming backward runs its f32 path in both dtypes: _attention_bound).
+# H100 SXM data sheet; the SFUs' exp2 rate, a floor of the attention's own,
+# is 16 results per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, throughput of arithmetic instructions) on 132 SMs at
+# the 1.98 GHz of the data sheet's FP32 rate.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
                "concat_conv1x1_bwd", "flat_conv2d", "flat_conv_dx",
                "flat_conv_bwd", "concat_conv1x1", "flat_res_block",
@@ -412,17 +422,28 @@ def _attention_bound(kernel, n, t, cb, c, itemsize):
     Backward: the score product, dh = A dout, h dout^T, dg = ds f and df =
     ds^T g; f, g, h, dout, m, l in, df, dg, dh out.  The resident kernels'
     bf16 products count at the tensor-core peak (DTYPE_AWARE), f32 at the
-    FP32 peak; the streaming backward (its f32 path, an f32 cotangent) at
-    the FP32 peak with 4-byte items."""
-    if kernel == "fused_attention_bwd":
-        itemsize = 4
-    peak = (PEAK_BF16_FLOPS if kernel in DTYPE_AWARE and itemsize == 2
-            else PEAK_F32_FLOPS)
-    if kernel.endswith("_fwd"):
-        return _bound(n * 2 * t * t * (cb + c),
-                      n * t * ((2 * cb + 2 * c) * itemsize + 2 * 4), peak)
-    return _bound(n * 2 * t * t * (3 * cb + 2 * c),
-                  n * t * ((4 * cb + 3 * c) * itemsize + 2 * 4), peak)
+    FP32 peak.  The streaming forward's output is f32 whatever the
+    operands: with bf16 ones its scores are exact bf16 products on the
+    tensor cores and A^T h, A in f32 as three bf16 parts against bf16 h,
+    three products; with f32 ones, like the streaming backward (an f32
+    cotangent, its f32 path in both dtypes), it counts at the FP32 peak
+    with 4-byte items.  The N T^2 exponentials on the SFUs are a floor of
+    their own (bound by operations where it is the larger)."""
+    fwd = kernel.endswith("_fwd")
+    flops = 2 * n * t * t * ((cb + c) if fwd else (3 * cb + 2 * c))
+    peak, out_size = PEAK_F32_FLOPS, itemsize
+    if kernel == "fused_attention_fwd" and itemsize == 2:
+        flops = 2 * n * t * t * (cb + 3 * c)
+        peak, out_size = PEAK_BF16_FLOPS, 4
+    elif kernel.startswith("fused_attention"):
+        itemsize = out_size = 4
+    elif kernel in DTYPE_AWARE and itemsize == 2:
+        peak = PEAK_BF16_FLOPS
+    nbytes = n * t * (((2 * cb + c) * itemsize + c * out_size) if fwd
+                      else (4 * cb + 3 * c) * itemsize) + n * t * 2 * 4
+    ms, by = _bound(flops, nbytes, peak)
+    exp_ms = n * t * t / PEAK_EXP_PER_S * 1e3
+    return (exp_ms, "operations") if exp_ms > ms else (ms, by)
 
 
 def _attention_tensors(dev, n, t, cb, c, dtype, scale=1.0):
@@ -569,10 +590,11 @@ def check_attention_kernels(dev):
 def attention_times(dev, iters=10):
     """Device ms of the attention kernels at the main path's instances,
     from whichever msau_tpu_torch this process imports: the resident
-    forward at N 16 and N 1, its backward at N 16 (T 4096), and the
-    streaming backward at N 2, T 16384 (config 5), f32 and bf16 operands.
-    Loaded with ``importlib`` from another checkout's root it times that
-    version on the same card (parent against change in one call)."""
+    forward at N 16 and N 1, its backward at N 16 (T 4096), the streaming
+    forward at N 2 (config 5's train step) and N 1 (a 1024^2 page) and its
+    backward at N 2, T 16384, f32 and bf16 operands.  Loaded with
+    ``importlib`` from another checkout's root it times that version on
+    the same card (parent against change in one call)."""
     import torch
 
     from msau_tpu_torch.ops import attention as A
@@ -592,6 +614,10 @@ def attention_times(dev, iters=10):
         f, g, h, _ = _attention_tensors(dev, 2, 16384, 8, 64, dtype)
         dout = torch.randn((2, 16384, 64), device=dev,
                            generator=torch.Generator(dev).manual_seed(0))
+        out[f"stream_fwd_N2_T16384_{key}"] = _cuda_ms(
+            lambda: A.fused_attention_cuda(f, g, h), iters)
+        out[f"stream_fwd_N1_T16384_{key}"] = _cuda_ms(
+            lambda: A.fused_attention_cuda(f[:1], g[:1], h[:1]), iters)
         _, m, l = A.fused_attention_cuda(f, g, h)
         out[f"stream_bwd_N2_T16384_{key}"] = _cuda_ms(
             lambda: A.fused_attention_bwd_cuda(f, g, h, m, l, dout), iters // 2)
@@ -674,17 +700,46 @@ def check_train_kernels(dev):
 # threshold and a small one.  The forward's output is f32 whatever the
 # operands, so both dtypes are held to FUSED_FWD_TOL of max(1, max |want|)
 # (bf16 operands are upcast alike on both sides and nothing is rounded on
-# the way out); the backward's gradients come out in the operands' dtype
+# the way out), m to FUSED_FWD_TOL and l to a relative FUSED_FWD_TOL; the
+# backward's gradients come out in the operands' dtype
 FUSED_CASES = ((2, 16384, "float32"), (2, 16384, "bfloat16"),
-               (1, 8200, "float32"), (3, 66, "float32"))
+               (1, 8200, "float32"), (1, 8200, "bfloat16"),
+               (3, 66, "float32"))
 FUSED_FWD_TOL = 1e-5
 FUSED_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest |gradient|
+# f and g scaled by 100 and rounded to integers: logits near 2e5, each an
+# integer below 2^24 in either operand dtype and so exact in any sum order
+# (ATTN_LARGE_LOGITS for the streaming forward), forward only
+FUSED_LARGE_LOGITS = (2, 1000, 100.0)
+
+
+def _fused_fwd_errors(got, want, rerun):
+    """The streaming forward's (out, m, l) against a plain version's ->
+    errors; raises past FUSED_FWD_TOL or when ``rerun`` has other bits."""
+    import torch
+
+    (out, m, l), (wout, wm, wl) = got, want
+    err = {"max_abs_err": _max_abs(out, wout),
+           "scaled_err": _scaled_err(out, wout),
+           "m_max_abs_err": _max_abs(m, wm),
+           "l_max_rel_err": float(((l.double() - wl.double()).abs()
+                                   / wl.double()).max()),
+           "tol": FUSED_FWD_TOL,
+           "bit_identical": all(torch.equal(a, b) for a, b in zip(got, rerun))}
+    if (out.dtype != torch.float32 or not err["bit_identical"]
+            or not err["scaled_err"] <= FUSED_FWD_TOL
+            or not err["m_max_abs_err"] <= FUSED_FWD_TOL
+            or not err["l_max_rel_err"] <= FUSED_FWD_TOL):
+        raise AssertionError(f"fused attention fwd: {err}")
+    return err
 
 
 def check_fused_attention(dev):
     """Phase 1, the streaming attention (forward kernels, and the rows
     kernel on their f32 cotangent) against the blockwise plain versions ->
-    {kernel: {max_abs_err, ms, plain_ms, cases, ...}}."""
+    {kernel: {max_abs_err, ms, plain_ms, cases, ...}}.  Each forward also
+    runs twice for equal bits and is read against the plain version in
+    float64 (``vs_f64_scaled_err``)."""
     import numpy as np
     import torch
 
@@ -715,6 +770,19 @@ def check_fused_attention(dev):
                              f"at T = 4096: {fwd['cases']}")
     print(f"[phase 1] fused attention T4096 against the materialised form: "
           f"blockwise plain {oracle:.3e}, kernel {kernel:.3e}", flush=True)
+    n, t, scale = FUSED_LARGE_LOGITS
+    for key in ("float32", "bfloat16"):
+        f, g, h, _ = _attention_tensors(dev, n, t, cb, c, getattr(torch, key),
+                                        scale)
+        got, again = fused_attention_cuda(f, g, h), fused_attention_cuda(f, g, h)
+        torch.cuda.synchronize()
+        name = f"N{n}_T{t}_{key}_scale{scale:g}"
+        err = fwd["cases"][name] = _fused_fwd_errors(
+            got, fused_attention_plain_stats(f, g, h), again)
+        print(f"[phase 1] fused attention {name}: fwd scaled err "
+              f"{err['scaled_err']:.3e}, m {err['m_max_abs_err']:.2e}, l rel "
+              f"{err['l_max_rel_err']:.2e} (tol {FUSED_FWD_TOL}); same bits "
+              "on a rerun", flush=True)
     for n, t, key in FUSED_CASES:
         dtype = getattr(torch, key)
         rng = np.random.default_rng(t)
@@ -723,18 +791,16 @@ def check_fused_attention(dev):
         dout = torch.from_numpy(rng.normal(size=(n, t, c)).astype(
             np.float32)).to(dev)
         name = f"N{n}_T{t}_{key}"
-        got, m, l = fused_attention_cuda(f, g, h)
+        got = fused_attention_cuda(f, g, h)
+        again = fused_attention_cuda(f, g, h)
         torch.cuda.synchronize()
-        want, wm, wl = fused_attention_plain_stats(f, g, h)
-        err = {"max_abs_err": _max_abs(got, want),
-               "scaled_err": _scaled_err(got, want),
-               "m_max_abs_err": _max_abs(m, wm),
-               "l_max_rel_err": float(((l - wl).abs() / wl).max()),
-               "tol": FUSED_FWD_TOL}
+        err = _fused_fwd_errors(got, fused_attention_plain_stats(f, g, h), again)
+        exact = fused_attention_plain_stats(f.double(), g.double(), h.double())
+        err["vs_f64_scaled_err"] = _scaled_err(got[0], exact[0])
+        err["vs_f64_m_max_abs_err"] = _max_abs(got[1], exact[1])
+        del exact, again
         fwd["cases"][name] = err
-        if (got.dtype != torch.float32 or err["scaled_err"] > FUSED_FWD_TOL
-                or err["m_max_abs_err"] > 1e-5 or err["l_max_rel_err"] > 1e-5):
-            raise AssertionError(f"fused attention fwd {name}: {err}")
+        out, m, l = got
         grads = fused_attention_bwd_cuda(f, g, h, m, l, dout)
         again = fused_attention_bwd_cuda(f, g, h, m, l, dout)
         scratch = fused_attention_bwd_cuda.scratch_bytes
@@ -754,40 +820,41 @@ def check_fused_attention(dev):
             raise AssertionError(f"fused attention bwd {name}: a second run "
                                  "gave other bits")
         bwd["cases"][name] = berr
-        del got, want, grads, again, wgrads
+        del got, out, grads, again, wgrads
         if t == FUSED_CASES[0][1]:
             fwd["times"][name] = {
                 "ms": _cuda_ms(lambda: fused_attention_cuda(f, g, h), 10),
                 "plain_ms": _cuda_ms(
-                    lambda: fused_attention_plain_stats(f, g, h), 3)}
+                    lambda: fused_attention_plain_stats(f, g, h), 3),
+                "bound": _attention_bound("fused_attention_fwd", n, t, cb, c,
+                                          f.element_size())}
+            # one page: the serve path's launch
+            fwd["times"][f"N1_T{t}_{key}"] = {
+                "ms": _cuda_ms(lambda: fused_attention_cuda(
+                    f[:1], g[:1], h[:1]), 10),
+                "bound": _attention_bound("fused_attention_fwd", 1, t, cb, c,
+                                          f.element_size())}
             bwd["times"][name] = {
                 "ms": _cuda_ms(lambda: fused_attention_bwd_cuda(
                     f, g, h, m, l, dout), 5),
                 "plain_ms": _cuda_ms(lambda: fused_attention_bwd_plain(
                     f, g, h, m, l, dout), 3)}
-            if key == "float32":
-                # one page (the serve path's launch) and other splits of the
-                # summed axis
-                fwd["times"]["N1"] = {"ms": _cuda_ms(
-                    lambda: fused_attention_cuda(f[:1], g[:1], h[:1]), 10)}
-                fwd["times"]["by_splits"] = {
-                    str(k): _cuda_ms(lambda: fused_attention_cuda(
-                        f, g, h, splits=k), 5) for k in (1, 2, 4)}
         print(f"[phase 1] fused attention {name}: fwd scaled err "
-              f"{err['scaled_err']:.3e} (tol {FUSED_FWD_TOL}); bwd " + ", ".join(
-                  f"{k} {berr[k]['scaled_err']:.3e}" for k in ("df", "dg", "dh"))
-              + f" (tol {tol}), same bits on a rerun, scratch "
+              f"{err['scaled_err']:.3e} (float64 plain: "
+              f"{err['vs_f64_scaled_err']:.3e}), m {err['m_max_abs_err']:.2e}, "
+              f"l rel {err['l_max_rel_err']:.2e} (tol {FUSED_FWD_TOL}); bwd "
+              + ", ".join(f"{k} {berr[k]['scaled_err']:.3e}"
+                          for k in ("df", "dg", "dh"))
+              + f" (tol {tol}); same bits on a rerun, scratch "
               f"{berr['scratch_mib']:.1f} MiB", flush=True)
+        del f, g, h, dout, m, l
         torch.cuda.empty_cache()
     n, t, key = FUSED_CASES[0]
     main = f"N{n}_T{t}_{key}"
-    isz = 4
-    # the score product once and A^T h; f, g, h in, out, m, l (f32) out
     fwd.update(max_abs_err=fwd["cases"][main]["max_abs_err"],
                ms=fwd["times"][main]["ms"],
                plain_ms=fwd["times"][main]["plain_ms"],
-               bound=_bound(n * 2 * t * t * (cb + c),
-                            n * t * ((2 * cb + c) * isz + (c + 2) * 4)),
+               bound=fwd["times"][main]["bound"],
                timed_on=f"{main} (config 5's train step)")
     bwd.update(max_abs_err=max(bwd["cases"][main][k]["max_abs_err"]
                                for k in ("df", "dg", "dh")),
@@ -1006,7 +1073,7 @@ def check_flat_kernels(dev, ops=None):
             if case["per_request"]:
                 entry["ms"] = _cuda_ms(kernel, 20)
                 entry["plain_ms"] = _cuda_ms(plain, 10)
-                if case["op"] in DTYPE_AWARE:
+                if case["op"] in DTYPE_AWARE or case["op"] == "flat_maxpool2":
                     lib = _flat_library(case, tensors)
                     entry["library_ms"] = (None if lib is None
                                            else _cuda_ms(lib, 20))
@@ -1232,6 +1299,60 @@ def partial_sums(dev, iters=10):
         del tensors
     print(f"[phase 1] partial sums per train step ms (f32): "
           f"{json.dumps(out['step_ms'])}", flush=True)
+    return out
+
+
+def _from_hbm(make, tensors, dev):
+    """A zero-argument call that runs ``make(copy)()`` on the next of enough
+    copies of ``tensors`` that the calls between two uses of one copy read
+    over twice the card's L2 cache: each timed call then reads its inputs
+    from HBM, as the main path does, whatever their size."""
+    import itertools
+
+    import torch
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    nbytes = sum(a.nbytes for a in tensors if a is not None)
+    copies = [tensors] + [[None if a is None else a.clone() for a in tensors]
+                          for _ in range(-(-2 * l2 // nbytes))]
+    calls = itertools.cycle([make(copy) for copy in copies])
+    return lambda: next(calls)()
+
+
+def pool_bwd_times(dev, iters=20):
+    """Device ms of the pool backward at the flagship fs=3 train step's
+    three instances (batch 16), f32 and bf16, beside the library's
+    ``max_pool2d_with_indices_backward`` and the bound, each call on inputs
+    that are not in the L2 cache (``_from_hbm``), from whichever
+    msau_tpu_torch this process imports: loaded with ``importlib`` from
+    another checkout's root it times that version on the same card."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.utils.flat_cases import (
+        FLAT_BWD_CASES,
+        flat_bwd_case_fns,
+        flat_bwd_case_tensors,
+    )
+
+    out = {}
+    for case in FLAT_BWD_CASES:
+        if case["op"] != "flat_maxpool2_bwd" or not case["per_step"]:
+            continue
+        for key in FLAT_TOL:
+            tensors = flat_bwd_case_tensors(case, np.random.default_rng(13),
+                                            dev, getattr(torch, key),
+                                            n=TIMED_BATCH)
+            kernel = _from_hbm(
+                lambda ts: flat_bwd_case_fns(case, ts)[0], tensors, dev)
+            lib = _from_hbm(lambda ts: _flat_library(case, ts), tensors, dev)
+            out[f"{case['name']} {key}"] = {
+                "ms": _cuda_ms(kernel, iters), "library_ms": _cuda_ms(lib, iters),
+                "bound_ms": _flat_bound(case, TIMED_BATCH,
+                                        tensors[0].element_size())[0]}
+            del tensors, kernel, lib
+            torch.cuda.empty_cache()
+    print(f"[pool bwd times] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1523,6 +1644,45 @@ def serve_path_1024(dev):
     return total, timings, checks
 
 
+def serve_busy(dev, requests=7):
+    """The flagship at flat_scales 0 and 3 serving the 512^2 bench page and
+    config 5 serving a page in the 1024 bucket, f32 and bf16, as
+    ``serve_path`` and ``serve_path_1024`` serve them -> by model: p50 of
+    each predict stage (host clock) over ``requests``, and device busy ms
+    and kernels per request (torch.profiler over 3), from
+    whichever msau_tpu_torch this process imports: loaded with
+    ``importlib`` from another checkout's root it times that version on the
+    same card."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.synth import make_page
+
+    page = {n: page_from_label_dict(make_page(np.random.default_rng(3),
+                                              n_cols=n, rows_per_col=2 * n))
+            for n in (5, 10)}
+    runs = [(f"fs{fs}_{dtype}", dict(FLAGSHIP, flat_scales=fs), dtype, 512,
+             page[5]) for fs in (0, 3) for dtype in ("float32", "bfloat16")]
+    runs += [(f"config5_{dtype}", CONFIG5, dtype, 1024, page[10])
+             for dtype in ("float32", "bfloat16")]
+    out = {}
+    for name, kw, dtype, bucket, pg in runs:
+        kv = _bench_kv(kw, dtype, dev, bucket, pg)
+        rows = []
+        for _ in range(requests):
+            rows.append({})
+            kv.predict(pg, return_maps=False, timings=rows[-1])
+        prof = _profile_steps(lambda: kv.predict(pg, return_maps=False), 3)
+        out[name] = {k: float(np.median([r[k] for r in rows]))
+                     for k in ("prep", "device", "strings")}
+        out[name].update(busy_ms=prof["busy_ms"], kernels=prof["kernels"])
+        print(f"[serve busy] {name} {json.dumps(out[name])}", flush=True)
+        del kv
+        torch.cuda.empty_cache()
+    return out
+
+
 FLAGSHIP = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
                 feat_root=8, num_blocks=3, final_act="softmax", remat=False)
 # kernel launches per flagship train step at each flat_scales, as read off
@@ -1585,10 +1745,11 @@ KERNEL_FAMILIES = (
                          _OURS + "deconv2_general_kernel<")),
     ("flat pool fwd / bwd, entry layout", (_OURS + "maxpool2_kernel<",
                                            _OURS + "maxpool2_bwd_kernel<",
+                                           _OURS + "maxpool2_bwd_vec_kernel<",
                                            _OURS + "nhwc_to_nchw_kernel<")),
     ("weight-gradient partial sums", ("msau::sum_partials_kernel",)),
     ("attention fwd / bwd", (_OURS + "stats_kernel<", _OURS + "accum_kernel<",
-                             _OURS + "rows_kernel<", _OURS + "stream_")),
+                             _OURS + "rows_kernel<")),
     ("masked CE fwd / bwd, attention and CE partials",
      (_OURS + "fwd_kernel<", _OURS + "bwd_kernel<", _OURS + "combine_kernel<")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "cutlass", "gemm", "conv2d", "wgrad",
@@ -2007,7 +2168,7 @@ def main() -> int:
                           "msau_tpu/ops/ce_loss.py:61"),
         **FLAT_KERNELS,
         **{name: v[:2] for name, v in FLAT_BWD_KERNELS.items()},
-        "fused_attention_fwd": ("msau_tpu_torch/csrc/fused_attention.cu",
+        "fused_attention_fwd": ("msau_tpu_torch/csrc/attention.cu",
                                 "msau_tpu/ops/pallas_attn.py:41 (and :66)"),
         # the rows kernel's second use: the JAX package's streaming backward
         # (pallas_attn.py:158) is blockwise XLA with this kernel's formula

@@ -1,23 +1,39 @@
-// Resident exact-softmax attention, forward, with the MSAU semantics:
+// Exact-softmax attention, forward, with the MSAU semantics:
 //   s_ij = g_i . f_j        (no 1/sqrt(d) scaling)
 //   A_ij = exp(s_ij - m_i) / l_i,  m_i = max_j s_ij,  l_i = sum_j exp(s_ij - m_i)
 //   out_j = sum_i A_ij h_i   (the softmax runs over j, the sum over i: the
 //                             transpose of standard attention)
-// f, g: [N, T, Cb]; h, out: [N, T, C]; f32 or bf16 in, f32 sums, out in h's
-// dtype.  m and l ([N, T] f32) are written for the backward.
-//
-// Replaces the TPU kernel msau_tpu/ops/pallas_attn.py:_res_fwd_kernel
-// (launcher _resident_forward).  That kernel computes whole score rows
-// s[i_blk, :] per grid step, rounds A to bf16 for bf16 operands, and carries
-// the [T, C] output in VMEM across a SEQUENTIAL grid (o_ref += A^T h_blk).
-// Hopper blocks run in no order, so that carry does not translate: out_j
-// needs every row's (m, l), so the kernel takes two launches.
+// f, g: [N, T, Cb]; h, out: [N, T, C]; f32 or bf16 in, f32 sums.  m and l
+// ([N, T] f32) are written for the backward.  Two entry points:
+//  - msau_resident_attention_fwd, out in h's dtype.  Replaces the TPU
+//    kernel msau_tpu/ops/pallas_attn.py:_res_fwd_kernel (launcher
+//    _resident_forward), which computes whole score rows s[i_blk, :] per
+//    grid step, rounds A to bf16 for bf16 operands, and carries the [T, C]
+//    output in VMEM across a SEQUENTIAL grid (o_ref += A^T h_blk).
+//  - msau_fused_attention_fwd, the streaming form the model takes from
+//    8192 tokens (1024^2 pages: T = 16384), out in f32 whatever the
+//    operands, A never rounded.  Replaces the TPU kernel pair
+//    pallas_attn.py:_stats_kernel and _accum_kernel (launcher
+//    _fused_forward, which upcasts its operands to f32), whose online
+//    (m, l) and out_j += revisit an output block across a SEQUENTIAL inner
+//    grid axis.  Neither kernel here holds a row of T scores, so the same
+//    two launches serve any T: with f32 operands it is the resident f32
+//    instance itself; with bf16 operands the stats pass is the resident
+//    bf16 one (exact bf16 products, f32 sums) and the accumulate pass keeps
+//    A in f32 as three bf16 parts against h's one (AccShape: PA = 3,
+//    PH = 1, three products per k step instead of six).
+// Hopper blocks run in no order, so the TPU kernels' carries do not
+// translate: out_j needs every row's (m, l), so each form takes two
+// launches.
 //
 // What bounds it on the H100 (N = 16, T = 4096, Cb = 8, C = 64, the train
 // step's instance): N T^2 = 268 M exponentials per pass on the SFUs (16 per
 // clock per SM: ~0.07 ms a pass at 1.75 GHz) and the A^T h product, 34.4
 // GFLOP (0.035 ms at the bf16 tensor-core peak, 0.51 ms at the FP32 peak).
-// The scores never reach HBM.
+// The streaming form's instance (config 5's train step: N = 2, T = 16384)
+// has twice the scores, 537 M, and A^T h is 34.4 G multiply-adds: six bf16
+// products each with f32 operands, three with bf16 ones.  The scores never
+// reach HBM.
 //
 // Tensor cores.  A design that kept every product on the FP32 pipes, on
 // the grounds that Cb = 8 is too thin for tensor cores and that f32
@@ -49,13 +65,14 @@
 //      exp(S^T - m_i) / l_i in registers, and with A as the A operand
 //      (mma_a_from_c) out += A h (mma m16n8k16, h by ldmatrix.trans).  The
 //      warps that split i add their sums in shared memory in warp order,
-//      and the block writes out in h's dtype.  No combine launch: the split
-//      of i is inside the block.
-// wr and wj are the largest that still give a block to every resident slot
-// of the card, or two per SM (pick_layout; N = 1 at T = 4096: 32-row
-// blocks, 128 of them).  The ragged edge
-// of T is masked: missing keys score -inf in (a); missing rows i have g =
-// h = 0 and m = l = 0, so A = 0, in (b); missing rows j are not written.
+//      and the block writes out (h's dtype, or f32 for the streaming
+//      form).  No combine launch and no scratch: the split of i is inside
+//      the block.
+// wr and wj take the fewest waves of the card's resident blocks, each as
+// long as a block's rows (pick_layout; N = 1 at T = 4096: 32-row blocks,
+// 128 of them).  The ragged edge of T is masked: missing keys score -inf
+// in (a); missing rows i have g = h = 0 and m = l = 0, so A = 0, in (b);
+// missing rows j are not written.
 
 #include <math.h>
 #include <stdint.h>
@@ -217,21 +234,30 @@ stats_kernel(const T* __restrict__ f, const T* __restrict__ g, float* __restrict
 
 // ---- (b) accumulate -----------------------------------------------------
 
-template <typename T, int CB, int C>
+// T: the operands' type; TO: the output's.  An f32 output keeps A in f32
+// (AF32): three bf16 parts (PA) and the plain version's two steps, exp(s -
+// m) times 1/l; a bf16 output rounds A to bf16 (one part) with the folded
+// exponent, as _res_fwd_kernel rounds it.  h has three parts in f32 and one
+// in bf16 (PH): with bf16 operands and an f32 output (the streaming form)
+// each k step takes the three products (qa, 0).
+template <typename T, int CB, int C, typename TO>
 struct AccShape {
   using K = Keys<CB>;
   using W = Cols<C>;
-  static constexpr int P = kF32<T> ? 3 : 1;
+  static constexpr bool AF32 = kF32<TO>;
+  static constexpr int PA = AF32 ? 3 : 1;
+  static constexpr int PH = kF32<T> ? 3 : 1;
+  static_assert(AF32 || !kF32<T>, "f32 operands give an f32 output");
   static constexpr int MT = C >= 128 ? 1 : 2;   // m16 tiles of rows j per warp
   // shared memory, bytes, per staged chunk: g rows (bf16 [KS] or f32 [CF]),
-  // h (bf16, or its P parts), m, l.  bf16 double-buffers the chunks
+  // h (bf16, or its PH parts), m, l.  bf16 double-buffers the chunks
   // (cp.async); f32 stages one at a time (its parts are made on the way in).
   // After the sweep, the warps' sums alias the chunks.
   static constexpr int NBUF = kF32<T> ? 1 : 2;
   static constexpr int PLANE = kChunk * W::CS;   // elements
   static constexpr int G = 0;
   static constexpr int H = G + (kF32<T> ? kChunk * K::CF * 4 : kChunk * K::KS * 2);
-  static constexpr int M = H + P * PLANE * 2;
+  static constexpr int M = H + PH * PLANE * 2;
   static constexpr int L = M + kChunk * 4;
   static constexpr int BUF = L + kChunk * 4;
   static constexpr int ACC = MT * W::NT * 4;     // floats per lane
@@ -239,15 +265,15 @@ struct AccShape {
   static constexpr int TOTAL = NBUF * BUF > RED ? NBUF * BUF : RED;
 };
 
-template <typename T, int CB, int C>
+template <typename T, int CB, int C, typename TO>
 __global__ void __launch_bounds__(kThreads)
 accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restrict__ h,
-             const float* __restrict__ m_in, const float* __restrict__ l_in, T* __restrict__ out,
+             const float* __restrict__ m_in, const float* __restrict__ l_in, TO* __restrict__ out,
              int t, int n_batch, int wj) {
   using K = Keys<CB>;
   using W = Cols<C>;
-  using S = AccShape<T, CB, C>;
-  constexpr int P = S::P, MT = S::MT;
+  using S = AccShape<T, CB, C, TO>;
+  constexpr int PA = S::PA, PH = S::PH, MT = S::MT;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_red = reinterpret_cast<float*>(smem);
 
@@ -294,8 +320,8 @@ accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restri
       unsigned char* buf = smem + b * S::BUF;
       stage_key_rows<T, CB, kChunk, kThreads>(buf + S::G, gn, i0, t);
       if constexpr (kF32<T>)
-        stage_planes<P, kChunk, kThreads, C, W::KC>(reinterpret_cast<bf16*>(buf + S::H),
-                                                    S::PLANE, W::CS, hn, i0, t);
+        stage_planes<PH, kChunk, kThreads, C, W::KC>(reinterpret_cast<bf16*>(buf + S::H),
+                                                     S::PLANE, W::CS, hn, i0, t);
       else
         async_rows<bf16>(reinterpret_cast<bf16*>(buf + S::H), W::CS, hn, i0, kChunk, C, t);
       async_floats(reinterpret_cast<float*>(buf + S::M), m_in + (int64_t)n * t, i0, kChunk, t);
@@ -318,11 +344,12 @@ accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restri
       __syncthreads();
       unsigned char* buf = smem + b * S::BUF;
       // each row's softmax constants, once per chunk, in place over l:
-      // f32 1 / l, bf16 log2 l (rows past t give A = 0)
+      // 1 / l where A stays f32, log2 l where it is rounded to bf16 (rows
+      // past t give A = 0)
       for (int r = threadIdx.x; r < kChunk; r += kThreads) {
         float* lr = reinterpret_cast<float*>(buf + S::L) + r;
         const RowSoftmax x = row_softmax(reinterpret_cast<const float*>(buf + S::M)[r], *lr);
-        *lr = kF32<T> ? x.il : x.lg;
+        *lr = S::AF32 ? x.il : x.lg;
       }
       __syncthreads();
       const bf16* s_h = reinterpret_cast<const bf16*>(buf + S::H);
@@ -347,23 +374,23 @@ accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restri
           col[nt][0] = {mv.x, lv.x, lv.x};
           col[nt][1] = {mv.y, lv.y, lv.y};
         }
-        unsigned pa[MT][P][4];
+        unsigned pa[MT][PA][4];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              s[mt][nt][e] = softmax_a<kF32<T>>(s[mt][nt][e], col[nt][e & 1]);
-          mma_a_from_c<P>(pa[mt], s[mt][0], s[mt][1]);
+              s[mt][nt][e] = softmax_a<S::AF32>(s[mt][nt][e], col[nt][e & 1]);
+          mma_a_from_c<PA>(pa[mt], s[mt][0], s[mt][1]);
         }
         // out[j, :] += A^T[j, i] h[i, :], two n8 tiles of C at a time
         const bf16* hrow = s_h + (ib + (lane & 7) + 8 * ((lane >> 3) & 1)) * W::CS + 8 * (lane >> 4);
 #pragma unroll
         for (int cp = 0; cp < W::NT / 2; ++cp) {
-          unsigned b0[P][2], b1[P][2];
+          unsigned b0[PH][2], b1[PH][2];
 #pragma unroll
-          for (int q = 0; q < P; ++q) {
+          for (int q = 0; q < PH; ++q) {
             unsigned r[4];
             ldsm_x4_trans(r, hrow + q * S::PLANE + 16 * cp);
             b0[q][0] = r[0];
@@ -373,8 +400,8 @@ accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restri
           }
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma_parts<P>(acc[mt][2 * cp], pa[mt], b0);
-            mma_parts<P>(acc[mt][2 * cp + 1], pa[mt], b1);
+            mma_parts<PA, PH>(acc[mt][2 * cp], pa[mt], b0);
+            mma_parts<PA, PH>(acc[mt][2 * cp + 1], pa[mt], b1);
           }
         }
       }
@@ -406,7 +433,7 @@ accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restri
       }
     }
     if (wix == 0) {
-      T* on = out + (int64_t)n * t * C;
+      TO* on = out + (int64_t)n * t * C;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -415,7 +442,7 @@ accum_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restri
           if (j >= t) continue;
 #pragma unroll
           for (int nt = 0; nt < C / 8; ++nt) {
-            T* o = on + (int64_t)j * C + 8 * nt + 2 * tq;
+            TO* o = on + (int64_t)j * C + 8 * nt + 2 * tq;
             store(o, acc[mt][nt][2 * hh]);
             store(o + 1, acc[mt][nt][2 * hh + 1]);
           }
@@ -452,23 +479,35 @@ Card card_slots(Kernel kernel, int smem) {
   return {per_sm * sms > 0 ? per_sm * sms : -(int)cudaErrorInvalidConfiguration, sms};
 }
 
-// The largest warps-per-block layout w in {8, 4, 2, 1} (w warps along the
-// kernel's own rows, 8 / w splitting the summed axis) whose n * ceil(t /
-// (rows_per_warp w)) blocks still fill the card's slots, or two blocks per
-// SM where it holds more: fewer, larger blocks do more work between their
-// barriers.  1 when none does (N = 1).
+// The warps-per-block layout w in {8, 4, 2, 1} (w warps along the kernel's
+// own rows, 8 / w splitting the summed axis) that takes the fewest sweeps:
+// n * ceil(t / (rows_per_warp w)) blocks run in ceil(blocks / slots) waves,
+// each as long as a block's rows, so a layout costs waves * w.  slots: the
+// card's resident blocks, at most two per SM (more share an SM's pipes and
+// add nothing to them).  A tie goes to the larger w: fewer, larger blocks do
+// more work between their barriers.  (N = 2, T = 16384 with the f32
+// accumulate kernel's one block per SM: one wave of 8-warp rows, not 1.94
+// waves of 4-warp rows; N = 1 at T = 4096: 1-warp rows, 128 blocks.)
 int pick_layout(int n, int t, int rows_per_warp, Card card) {
-  const int want = card.slots < 2 * card.sms ? card.slots : 2 * card.sms;
-  for (int w = kWarps; w > 1; w /= 2)
-    if ((int64_t)n * ((t + rows_per_warp * w - 1) / (rows_per_warp * w)) >= want) return w;
-  return 1;
+  const int64_t slots = card.slots < 2 * card.sms ? card.slots : 2 * card.sms;
+  int best = kWarps;
+  int64_t best_cost = -1;
+  for (int w = kWarps; w >= 1; w /= 2) {
+    const int64_t blocks = (int64_t)n * ((t + rows_per_warp * w - 1) / (rows_per_warp * w));
+    const int64_t cost = (blocks + slots - 1) / slots * w;
+    if (best_cost < 0 || cost < best_cost) {
+      best = w;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
-template <typename T, int CB, int C>
+template <typename T, int CB, int C, typename TO>
 int launch(const void* f, const void* g, const void* h, void* out, void* m, void* l, int n,
            int t, cudaStream_t stream) {
   using SS = StatsSmem<T, CB>;
-  using AS = AccShape<T, CB, C>;
+  using AS = AccShape<T, CB, C, TO>;
   auto stats = stats_kernel<T, CB>;
   Card card = card_slots(stats, SS::TOTAL);
   if (card.slots < 0) return -card.slots;
@@ -479,24 +518,25 @@ int launch(const void* f, const void* g, const void* h, void* out, void* m, void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  auto accum = accum_kernel<T, CB, C>;
+  auto accum = accum_kernel<T, CB, C, TO>;
   card = card_slots(accum, AS::TOTAL);
   if (card.slots < 0) return -card.slots;
   const int rows = 16 * AS::MT;
   const int wj = pick_layout(n, t, rows, card);
   items = n * ((t + rows * wj - 1) / (rows * wj));
   accum<<<items < card.slots ? items : card.slots, kThreads, AS::TOTAL, stream>>>(
-      (const T*)f, (const T*)g, (const T*)h, (const float*)m, (const float*)l, (T*)out, t, n,
+      (const T*)f, (const T*)g, (const T*)h, (const float*)m, (const float*)l, (TO*)out, t, n,
       wj);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TO>
 int dispatch(const void* f, const void* g, const void* h, void* out, void* m, void* l, int n,
              int t, int cb, int c, cudaStream_t stream) {
   // the model's projections have Cb = max(C / 8, 1)
-#define MSAU_ATTN_CASE(CB_, C_) \
-  if (cb == CB_ && c == C_) return launch<T, CB_, C_>(f, g, h, out, m, l, n, t, stream);
+#define MSAU_ATTN_CASE(CB_, C_)                                                      \
+  if (cb == CB_ && c == C_)                                                          \
+    return launch<T, CB_, C_, TO>(f, g, h, out, m, l, n, t, stream);
   MSAU_ATTN_CASE(1, 8)
   MSAU_ATTN_CASE(2, 16)
   MSAU_ATTN_CASE(4, 32)
@@ -508,11 +548,22 @@ int dispatch(const void* f, const void* g, const void* h, void* out, void* m, vo
 
 }  // namespace
 
+// out: [N, T, C] in the operands' dtype.
 extern "C" int msau_resident_attention_fwd(const void* f, const void* g, const void* h, void* out,
                                            void* m, void* l, int n, int t, int cb, int c,
                                            int is_bf16, void* stream) {
   if (n <= 0 || t <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<__nv_bfloat16>(f, g, h, out, m, l, n, t, cb, c, s)
-                 : dispatch<float>(f, g, h, out, m, l, n, t, cb, c, s);
+  return is_bf16 ? dispatch<bf16, bf16>(f, g, h, out, m, l, n, t, cb, c, s)
+                 : dispatch<float, float>(f, g, h, out, m, l, n, t, cb, c, s);
+}
+
+// The streaming form: out [N, T, C] f32 whatever the operands' dtype.
+extern "C" int msau_fused_attention_fwd(const void* f, const void* g, const void* h, void* out,
+                                        void* m, void* l, int n, int t, int cb, int c,
+                                        int is_bf16, void* stream) {
+  if (n <= 0 || t <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? dispatch<bf16, float>(f, g, h, out, m, l, n, t, cb, c, s)
+                 : dispatch<float, float>(f, g, h, out, m, l, n, t, cb, c, s);
 }

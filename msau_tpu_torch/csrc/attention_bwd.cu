@@ -9,8 +9,8 @@
 //
 // f, g, df, dg: [N, T, Cb]; h, dout, dh: [N, T, C]; f32 or bf16 in and out,
 // f32 sums.  dout has the operands' type (the resident forward returns it)
-// or is f32 beside either operand type (the streaming forward of
-// fused_attention.cu always returns f32).
+// or is f32 beside either operand type (the streaming forward,
+// msau_fused_attention_fwd in attention.cu, always returns f32).
 //
 // Replaces the TPU kernel msau_tpu/ops/pallas_attn.py:_res_bwd_kernel
 // (launcher _resident_bwd).  The streaming path's backward in the JAX

@@ -1,6 +1,6 @@
-// Building blocks of the resident attention's kernels (attention.cu,
-// attention_bwd.cu): every wide product on bf16 tensor cores (mma.sync from
-// ldmatrix), with f32 sums.
+// Building blocks of the attention's kernels (attention.cu: the resident
+// and the streaming forward; attention_bwd.cu): every wide product on bf16
+// tensor cores (mma.sync from ldmatrix), with f32 sums.
 //
 // A kernel instance is either
 //  - bf16 (P = 1 part): the operands are bf16, the score product s = g fᵀ
@@ -13,7 +13,9 @@
 //    bf16 parts x = x0 + x1 + x2 (each difference exact in f32), and the
 //    product sums the six terms qa + qb < 3 (mma_parts), which carries it to
 //    f32's 24 bits (two parts and three terms carry 16).  The score product
-//    and rho stay on the FP32 pipes: the logits feed an exponential.
+//    and rho stay on the FP32 pipes: the logits feed an exponential; or
+//  - the streaming forward's with bf16 operands: bf16 scores as in the
+//    first, but A in f32, three parts against h's one (three terms).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k8 .bf16, lane = 4 gq + tq):
 // an accumulator (C) tile of 16 x 8 holds rows gq and gq + 8 at columns
@@ -70,15 +72,18 @@ __device__ __forceinline__ void split2(unsigned (&out)[P], float x, float y) {
   }
 }
 
-// d += a b over the parts: every product of parts qa + qb < P, the
-// smallest first.  With P > 1 the terms sum into a zeroed temporary that is
-// then added to d on the FP32 pipes: the tensor cores' accumulator drops
-// low bits on every product (summed straight into d, the f32 forward at
-// T = 4096 lay 3.1e-4 from its plain version on the H100), so they only
-// ever sum one k step.
-template <int P>
-__device__ __forceinline__ void mma_parts(float (&d)[4], const unsigned (&a)[P][4],
-                                          const unsigned (&b)[P][2]) {
+// d += a b over the parts, a in PA parts and b in PB: every product of
+// parts qa + qb < max(PA, PB), the smallest first (PA = PB = 3: six; PA =
+// 3 with a bf16 b, PB = 1: the three (qa, 0), since a bf16 value's second
+// and third parts are 0).  With more than one part the terms sum into a
+// zeroed temporary that is then added to d on the FP32 pipes: the tensor
+// cores' accumulator drops low bits on every product (summed straight into
+// d, the f32 forward at T = 4096 lay 3.1e-4 from its plain version on the
+// H100), so they only ever sum one k step.
+template <int PA, int PB = PA>
+__device__ __forceinline__ void mma_parts(float (&d)[4], const unsigned (&a)[PA][4],
+                                          const unsigned (&b)[PB][2]) {
+  constexpr int P = PA > PB ? PA : PB;
   if constexpr (P == 1) {
     mma_bf16(d, a[0], b[0]);
   } else {
@@ -86,7 +91,8 @@ __device__ __forceinline__ void mma_parts(float (&d)[4], const unsigned (&a)[P][
 #pragma unroll
     for (int s = P - 1; s >= 0; --s)
 #pragma unroll
-      for (int qa = 0; qa <= s; ++qa) mma_bf16(t, a[qa], b[s - qa]);
+      for (int qa = s - PB + 1 > 0 ? s - PB + 1 : 0; qa <= (s < PA - 1 ? s : PA - 1); ++qa)
+        mma_bf16(t, a[qa], b[s - qa]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[e] += t[e];
   }

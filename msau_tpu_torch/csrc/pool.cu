@@ -17,7 +17,7 @@
 //
 // The backward (msau_maxpool2_bwd) replaces _mp_bwd_kernel (launcher
 // _flat_maxpool2_bwd) and computes what the JAX package computes for each
-// size, with one thread per window writing all four of its dx entries:
+// size:
 //   - even H and W (the Pallas kernel, and _pool2_even_bwd): the gradient
 //     goes to one element, chosen column first: the column whose row-pair
 //     max is larger, a tie to the even column; then in that column the
@@ -25,7 +25,18 @@
 //     :1790-1800).  [[1, 5], [5, 0]] sends it to the bottom left;
 //   - an odd H or W (jnp.max over the -inf-padded reshape, :2040-2046):
 //     the gradient is split evenly over the elements equal to the max.
-// Memory-bound like the forward: x and dx at full size, g at a quarter.
+// Memory-bound like the forward: x and dx at full size, g at a quarter
+// (the flagship's 8 channels at 512^2, batch 16, move 302 MB in f32: 0.090
+// ms at 3.35 TB/s; each smaller scale half that).  Even sizes whose rows
+// are whole 16-byte pieces (W a multiple of 4 in f32, 8 in bf16, aligned
+// bases) take maxpool2_bwd_vec_kernel: a thread owns a 16-byte piece of a
+// row pair (2 windows in f32, 4 in bf16), so a warp reads and writes 512
+// contiguous bytes of each row and 256 of g per instruction; it takes
+// kUnroll pieces a block's width apart, their loads all issued before the
+// first store, with 32-bit indices from a grid of (pieces of a plane,
+// plane).  g or 0 is written as it is read, so the routing is bit-exact.
+// Odd sizes, other widths and misaligned bases take maxpool2_bwd_kernel,
+// one thread per window.
 
 #include <math.h>
 #include <stdint.h>
@@ -109,12 +120,118 @@ maxpool2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   if (right && down) store(dx + base + w + 1, d[3]);
 }
 
+constexpr int kUnroll = 4;   // 16-byte pieces per thread in the vector path
+
+// 16 bytes of x or dx (V = 16 / sizeof(T) columns, V / 2 windows) and the
+// 8 bytes of g that go with them, as 32-bit words
+template <typename T>
+struct PoolPiece {
+  static constexpr int V = 16 / (int)sizeof(T);
+  uint4 top, bot;
+  uint2 g;
+};
+
+// window k's four values (top left, top right, bottom left, bottom right)
+// from a piece's rows as floats, and its gradient's bits
+__device__ __forceinline__ void window(const PoolPiece<float>& p, int k, float (&v)[4],
+                                       unsigned& gb) {
+  const unsigned t[4] = {p.top.x, p.top.y, p.top.z, p.top.w};
+  const unsigned b[4] = {p.bot.x, p.bot.y, p.bot.z, p.bot.w};
+  v[0] = __uint_as_float(t[2 * k]);
+  v[1] = __uint_as_float(t[2 * k + 1]);
+  v[2] = __uint_as_float(b[2 * k]);
+  v[3] = __uint_as_float(b[2 * k + 1]);
+  gb = k == 0 ? p.g.x : p.g.y;
+}
+__device__ __forceinline__ void window(const PoolPiece<__nv_bfloat16>& p, int k, float (&v)[4],
+                                       unsigned& gb) {
+  const unsigned t[4] = {p.top.x, p.top.y, p.top.z, p.top.w};
+  const unsigned b[4] = {p.bot.x, p.bot.y, p.bot.z, p.bot.w};
+  // a bf16 is the high half of the f32 of the same value
+  v[0] = __uint_as_float(t[k] << 16);
+  v[1] = __uint_as_float(t[k] & 0xffff0000u);
+  v[2] = __uint_as_float(b[k] << 16);
+  v[3] = __uint_as_float(b[k] & 0xffff0000u);
+  gb = ((k < 2 ? p.g.x : p.g.y) >> (16 * (k & 1))) & 0xffffu;
+}
+// window k's dx words: gb at position at (0-3 as in window), 0 elsewhere
+__device__ __forceinline__ void put(unsigned (&t)[4], unsigned (&b)[4], int k, int at,
+                                    unsigned gb, float) {
+  t[2 * k] = at == 0 ? gb : 0u;
+  t[2 * k + 1] = at == 1 ? gb : 0u;
+  b[2 * k] = at == 2 ? gb : 0u;
+  b[2 * k + 1] = at == 3 ? gb : 0u;
+}
+__device__ __forceinline__ void put(unsigned (&t)[4], unsigned (&b)[4], int k, int at,
+                                    unsigned gb, __nv_bfloat16) {
+  t[k] = (at == 0 ? gb : 0u) | (at == 1 ? gb << 16 : 0u);
+  b[k] = (at == 2 ? gb : 0u) | (at == 3 ? gb << 16 : 0u);
+}
+
+// Even H and W, W a multiple of V: grid (pieces of a plane / (kThreads
+// kUnroll), planes, looped past 65535).  Per plane, piece p of row pair oy
+// covers columns V (p % (W / V)) .. of input rows 2 oy, 2 oy + 1.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+maxpool2_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ dx,
+                        int nc, int w, int ho) {
+  constexpr int V = PoolPiece<T>::V;
+  const int per_row = w / V, pieces = ho * per_row, wo = w / 2;
+  for (int plane = blockIdx.y; plane < nc; plane += gridDim.y) {
+    const int64_t xbase = (int64_t)plane * 2 * ho * w;
+    const int64_t gbase = (int64_t)plane * ho * wo;
+    PoolPiece<T> p[kUnroll];
+    int xo[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = (blockIdx.x * kUnroll + u) * kThreads + threadIdx.x;
+      xo[u] = -1;
+      if (e < pieces) {
+        const int oy = e / per_row, c = e - oy * per_row;
+        xo[u] = 2 * oy * w + c * V;
+        const T* xp = x + xbase + xo[u];
+        p[u].top = *reinterpret_cast<const uint4*>(xp);
+        p[u].bot = *reinterpret_cast<const uint4*>(xp + w);
+        p[u].g = *reinterpret_cast<const uint2*>(g + gbase + oy * wo + c * (V / 2));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (xo[u] < 0) continue;
+      unsigned top[4], bot[4];
+#pragma unroll
+      for (int k = 0; k < V / 2; ++k) {
+        float v[4];
+        unsigned gb;
+        window(p[u], k, v, gb);
+        // row-pair max per column, the column (ties even), then the row
+        // (ties upper), as maxpool2_bwd_kernel
+        const bool left = fmaxf(v[0], v[2]) >= fmaxf(v[1], v[3]);
+        const bool up = left ? v[0] >= v[2] : v[1] >= v[3];
+        put(top, bot, k, (left ? 0 : 1) + (up ? 0 : 2), gb, T());
+      }
+      T* dp = dx + xbase + xo[u];
+      *reinterpret_cast<uint4*>(dp) = make_uint4(top[0], top[1], top[2], top[3]);
+      *reinterpret_cast<uint4*>(dp + w) = make_uint4(bot[0], bot[1], bot[2], bot[3]);
+    }
+  }
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* g, void* dx, int nc, int h, int w,
                cudaStream_t stream) {
   const int ho = (h + 1) / 2, wo = (w + 1) / 2;
   const int64_t total = (int64_t)nc * ho * wo;
   if (total == 0) return 0;
+  constexpr int V = PoolPiece<T>::V;
+  const bool aligned = ((uintptr_t)x % 16 | (uintptr_t)dx % 16 | (uintptr_t)g % 8) == 0;
+  if (h % 2 == 0 && w % V == 0 && aligned && (int64_t)h * w < INT32_MAX) {
+    const int pieces = ho * (w / V), per_block = kThreads * kUnroll;
+    const dim3 grid((pieces + per_block - 1) / per_block, nc < 65535 ? nc : 65535);
+    maxpool2_bwd_vec_kernel<T><<<grid, kThreads, 0, stream>>>((const T*)x, (const T*)g,
+                                                               (T*)dx, nc, w, ho);
+    return (int)cudaGetLastError();
+  }
   maxpool2_bwd_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
                            stream>>>((const T*)x, (const T*)g, (T*)dx, total, h, w,
                                      ho, wo);

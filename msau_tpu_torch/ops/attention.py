@@ -26,8 +26,10 @@ products, where the TPU kernels round them, and sum in f32.
 ``msau_tpu.ops.pallas_attn.fused_attention``: operands upcast to f32, m, l
 and every sum in f32, an f32 output whatever the operands' type, and
 gradients cast back to the operands' types.  Nothing in it holds a [T, T]
-tensor.  A CUDA tensor launches ``csrc/fused_attention.cu`` (port of the
-TPU kernels ``_stats_kernel`` and ``_accum_kernel``) and, in the backward,
+tensor.  A CUDA tensor launches the resident form's two kernels
+(``csrc/attention.cu``, ``msau_fused_attention_fwd``: port of the TPU
+kernels ``_stats_kernel`` and ``_accum_kernel``) with an f32 output and A
+kept in f32 for bf16 operands too, and, in the backward,
 the rows kernel of ``csrc/attention_bwd.cu`` with an f32 cotangent (the
 JAX package's ``_fused_bwd`` is that kernel's formula in f32).  A CPU
 tensor takes the blockwise plain versions
@@ -37,7 +39,7 @@ stream blocks of ``block`` keys.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -336,43 +338,20 @@ def fused_attention_bwd_plain(
     return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
 
 
-def fused_j_block(c: int) -> int:
-    """Output rows per block of the streaming accumulation pass
-    (``AccShape::BJ`` in ``csrc/fused_attention.cu``)."""
-    return 64 if c >= 128 else 128
-
-
-def _fused_splits(n: int, t: int, c: int, device: torch.device) -> int:
-    """How many contiguous i ranges the streaming accumulation pass splits
-    into: the count that brings its grid (one block per 128 output rows,
-    split and image) nearest to four blocks per SM, at most 16.  At N = 2,
-    T = 16384 that is 2 (512 blocks on 132 SMs); one split writes the
-    output itself and needs no scratch."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = n * -(-t // fused_j_block(c))
-    return max(1, min(16, -(-t // 32), round(4 * sms / row_blocks)))
-
-
 def fused_attention_cuda(
-    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
-    splits: Optional[int] = None
+    f: torch.Tensor, g: torch.Tensor, h: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the streaming kernel (stats, accumulate, combine) -> (out
-    [N, T, C] f32, m, l [N, T] f32).  ``splits`` overrides the grid's split
-    of the summed axis (for measurements).
-    ``fused_attention_cuda.launches`` counts calls."""
+    """Launch the streaming forward (the resident form's stats and
+    accumulate kernels with an f32 output; no scratch) -> (out [N, T, C]
+    f32, m, l [N, T] f32).  ``fused_attention_cuda.launches`` counts
+    calls."""
     n, t, cb, c = _check_operands("fused_attention", f, g, h)
     out = torch.empty((n, t, c), dtype=torch.float32, device=f.device)
     m = torch.empty((n, t), dtype=torch.float32, device=f.device)
     l = torch.empty((n, t), dtype=torch.float32, device=f.device)
-    if splits is None:
-        splits = _fused_splits(n, t, c, f.device)
-    partial = (torch.empty((splits, n, t, c), dtype=torch.float32,
-                           device=f.device) if splits > 1 else None)
     code = cuda_lib.library().msau_fused_attention_fwd(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(),
-        None if partial is None else partial.data_ptr(), splits, n, t, cb, c,
+        m.data_ptr(), l.data_ptr(), n, t, cb, c,
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_fused_attention_fwd", code)
     fused_attention_cuda.launches += 1

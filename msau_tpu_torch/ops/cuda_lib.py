@@ -54,9 +54,9 @@ SIGNATURES = {
     # is_bf16, stream
     "msau_resident_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
-    # f, g, h, out (f32), m, l, partial, splits, n, t, cb, c, is_bf16, stream
-    "msau_fused_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _P),
+    # f, g, h, out (f32), m, l, n, t, cb, c, is_bf16, stream
+    "msau_fused_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P),
     # f, g, h, dout (f32), m, l, df, dg, dh, partial, per_image, n, t, cb,
     # c, is_bf16, stream
     "msau_fused_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -161,17 +161,25 @@ def test_bound_of_the_residual_block(name, op, itemsize, ms, by):
 # attention's bf16 products at 989 TFLOP/s, f32 at 67 TFLOP/s (the score
 # product and A^T h forward, 2 N T^2 (Cb + C) FLOP; backward the score
 # product, A dout, h dout^T, ds f and ds^T g, 2 N T^2 (3 Cb + 2 C)); the
-# streaming backward at the FP32 peak whatever the operands (its f32 path);
-# all bound by operations
+# streaming forward (config 5's train step at N 2, a 1024^2 page at N 1)
+# with bf16 operands at 989 TFLOP/s for its bf16 scores and three products
+# for A^T h (A in f32 as three bf16 parts), 2 N T^2 (Cb + 3 C); with f32
+# operands, like the streaming backward in both dtypes, at the FP32 peak;
+# the N T^2 exponentials at 132 x 16 per clock at 1.98 GHz where they take
+# longer (the resident bf16 forward); all bound by operations
 ATTN_BOUNDS = [
     ("resident_attention_fwd", 16, 4096, 4, 0.5769),
-    ("resident_attention_fwd", 16, 4096, 2, 0.0391),
+    ("resident_attention_fwd", 16, 4096, 2, 0.0642),
     ("resident_attention_fwd", 1, 4096, 4, 0.0361),
-    ("resident_attention_fwd", 1, 4096, 2, 0.00244),
+    ("resident_attention_fwd", 1, 4096, 2, 0.00401),
     ("resident_attention_bwd", 16, 4096, 4, 1.2180),
     ("resident_attention_bwd", 16, 4096, 2, 0.0825),
     ("fused_attention_bwd", 2, 16384, 4, 2.4360),
     ("fused_attention_bwd", 2, 16384, 2, 2.4360),
+    ("fused_attention_fwd", 2, 16384, 4, 1.1539),
+    ("fused_attention_fwd", 2, 16384, 2, 0.2171),
+    ("fused_attention_fwd", 1, 16384, 4, 0.5769),
+    ("fused_attention_fwd", 1, 16384, 2, 0.1086),
 ]
 
 
@@ -180,4 +188,23 @@ def test_bound_of_the_attention(kernel, n, t, itemsize, ms):
     assert ("resident" in kernel) == (kernel in cs.DTYPE_AWARE)
     got_ms, got_by = cs._attention_bound(kernel, n, t, 8, 64, itemsize)
     assert got_by == "operations"
+    assert got_ms == pytest.approx(ms, abs=5e-5)
+
+
+# The pool backward's byte bound at the flagship fs=3 train step's three
+# instances (batch 16): x read, g (a quarter) read, dx written, 2.25 x's
+# bytes; 8 ch 512^2 moves 302 MB in f32 (0.0901 ms at 3.35 TB/s), and each
+# scale down half that (twice the channels on a quarter of the pixels);
+# bf16 half of f32
+POOL_BWD_BOUNDS = [("8 ch 512^2", 4, 0.0901), ("8 ch 512^2", 2, 0.0451),
+                   ("16 ch 256^2", 4, 0.0451), ("16 ch 256^2", 2, 0.0225),
+                   ("32 ch 128^2", 4, 0.0225), ("32 ch 128^2", 2, 0.0113)]
+
+
+@pytest.mark.parametrize("name,itemsize,ms", POOL_BWD_BOUNDS)
+def test_bound_of_the_pool_backward(name, itemsize, ms):
+    case = _case("flat_maxpool2_bwd", name)
+    assert case["per_step"] == 3
+    got_ms, got_by = cs._flat_bound(case, cs.TIMED_BATCH, itemsize)
+    assert got_by == "bytes"
     assert got_ms == pytest.approx(ms, abs=5e-5)

@@ -22,7 +22,6 @@ Tolerances (f32 on both sides unless said):
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -396,19 +395,81 @@ def test_launch_counters_are_registered():
     assert ops.launch_counts()["fused_attention_fwd"] == 0
 
 
-@pytest.mark.parametrize("n,t,splits,blocks", [
-    (2, 16384, 2, 128),   # the 1024^2 train step: 512 blocks, 128 per image
-    (1, 16384, 4, 128),   # one 1024^2 page
-    (16, 4096, 1, 16),
-    (1, 66, 3, 1),
+@pytest.mark.parametrize("n,t,blocks", [
+    (2, 16384, 128),   # the 1024^2 train step: 128 blocks per image
+    (1, 16384, 128),   # one 1024^2 page
+    (16, 4096, 16),
+    (1, 66, 1),
 ])
-def test_grid_sizing_on_a_132_sm_card(monkeypatch, n, t, splits, blocks):
-    """The forward's split count, from the shapes and the card's SM count
-    alone, and the backward's blocks per image at two blocks per SM (its
-    f32 path's shared memory at C = 64)."""
-    monkeypatch.setattr(
-        torch.cuda, "get_device_properties",
-        lambda device: types.SimpleNamespace(multi_processor_count=132))
-    dev = torch.device("cpu")
-    assert attn_ops._fused_splits(n, t, 64, dev) == splits
+def test_bwd_grid_sizing_on_a_132_sm_card(n, t, blocks):
+    """The backward's blocks per image at two blocks per SM of a 132-SM
+    card (its f32 path's shared memory at C = 64), from the shapes and the
+    slots alone."""
     assert attn_ops.bwd_blocks_per_image(n, t, 64, 2 * 132) == blocks
+
+
+# The streaming forward's bf16-operand instance on the card
+# (csrc/attention.cu, AccShape with PA = 3, PH = 1) keeps A in f32 as three
+# bf16 parts and multiplies them by h's one part; attention_mma.cuh:split2
+# rounds each remainder to nearest even, as a cast to bf16 does.  Its
+# arithmetic, emulated here with torch casts.
+def _bf16_parts(x: torch.Tensor, parts: int):
+    """x (f32) as ``parts`` bf16 tensors, the largest first, each the
+    rounded remainder of the ones before (attention_mma.cuh:split2)."""
+    out, r = [], x
+    for _ in range(parts):
+        b = r.to(torch.bfloat16)
+        out.append(b)
+        r = r - b.float()
+    return out
+
+
+def _a_like(rng, size):
+    """Values in the range A takes: exp(s - m) / l over many binades."""
+    return torch.from_numpy(
+        np.exp(rng.uniform(-60.0, 0.0, size)).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["softmax weights", "normals x 1e3"])
+def test_f32_splits_into_three_bf16_parts_exactly(kind):
+    rng = np.random.default_rng(0)
+    x = (_a_like(rng, 100_000) if kind == "softmax weights" else
+         torch.from_numpy((rng.normal(size=100_000) * 1e3).astype(np.float32)))
+    parts = _bf16_parts(x, 3)
+    total = sum(p.double() for p in parts)
+    assert torch.equal(total, x.double())
+    # two parts carry 16 bits: they miss some values by more than f32's
+    # half ulp, so the kernel takes three
+    two = parts[0].double() + parts[1].double()
+    assert float(((two - x.double()).abs() / x.double().abs()).max()) > 2.0**-24
+
+
+def test_bf16_value_has_zero_second_and_third_parts():
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.normal(size=100_000).astype(np.float32)).to(
+        torch.bfloat16)
+    parts = _bf16_parts(h.float(), 3)
+    assert torch.equal(parts[0], h)
+    assert not parts[1].float().any() and not parts[2].float().any()
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_three_a_parts_times_bf16_h_carry_the_f32_product(k):
+    """sum over qa of A_qa h (the three products (qa, 0) of mma_parts<3, 1>),
+    each product of bf16 values exact and summed in float64, is A h (one
+    term: exactly; k > 1 terms, a k step of one mma: to float64's
+    rounding), so it lies within f32's rounding, 2^-24 of |A h| per term,
+    of the f32 products."""
+    rng = np.random.default_rng(2)
+    a = _a_like(rng, (4096, k))
+    h = torch.from_numpy(rng.normal(size=(4096, k)).astype(np.float32)).to(
+        torch.bfloat16)
+    parts = _bf16_parts(a, 3)
+    got = sum((p.double() * h.double()).sum(-1) for p in parts)
+    magnitude = (a.double() * h.double()).abs().sum(-1)
+    exact = (a.double() * h.double()).sum(-1)
+    if k == 1:
+        assert torch.equal(got, exact)
+    assert bool(((got - exact).abs() <= 2.0**-50 * magnitude).all())
+    f32 = (a * h.float()).double().sum(-1)
+    assert bool(((got - f32).abs() <= 2.0**-24 * magnitude).all())

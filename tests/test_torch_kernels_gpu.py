@@ -29,7 +29,8 @@ f32 (sum order) and 2e-2 of it in bf16 (both sides sum the same bf16
 operands in f32 and round once; the residual block also rounds conv1's
 output, where one flipped rounding moves conv2's sum by a bf16 ulp).
 Their backward kernels (``utils.flat_cases.FLAT_BWD_CASES``): the pool's
-exact; every other output within ``FLAT_BWD_TOL`` (activation-shaped
+exact (also on each of its paths: 16-byte pieces, the scalar kernel for odd
+sizes, other widths and misaligned bases); every other output within ``FLAT_BWD_TOL`` (activation-shaped
 cotangents 1e-5 of max(1, max |want|) in f32, 2e-2 in bf16; weight and bias
 gradients, sums over every pixel of the batch in another order than
 cuDNN's, 1e-3 of max |want| in f32, 2e-2 in bf16), and the same bits on a
@@ -37,7 +38,9 @@ second run.
 The streaming attention (``fused_attention_cuda``): f32 output whatever the
 operands, 1e-5 of max(1, max |want|) against the blockwise plain version in
 f32 and for bf16 operands alike (both sides upcast the same bf16 values and
-compute in f32; nothing is rounded on the way out); its backward (the rows
+compute in f32; nothing is rounded on the way out), m within 1e-5 and l a
+relative 1e-5, the same bits on a second run at ragged T, and m to the bit
+with integer logits near 2e5; its backward (the rows
 kernel on an f32 cotangent, its f32 path) 1e-4 of the largest |gradient|
 in f32 and 2e-2 for bf16 operands (gradients rounded to bf16), and the same
 bits on a second run.
@@ -217,19 +220,80 @@ def test_fused_attention_kernel_matches_plain(cuda, n, t, cb, c, dtype):
     want, wm, wl = fused_attention_plain_stats(f, g, h)
     assert got.dtype == torch.float32 and got.shape == (n, t, c)
     assert _scaled_err(got, want) <= 1e-5
-    torch.testing.assert_close(m, wm, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(m, wm, rtol=0, atol=1e-5)
     torch.testing.assert_close(l, wl, rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("splits", [1, 2, 5])
-def test_fused_attention_kernel_any_split(cuda, splits):
-    f, g, h = (torch.from_numpy(a).to(cuda) for a in
-               attention_inputs(np.random.default_rng(1), 2, 1000, 8, 64))
-    got, _, _ = fused_attention_cuda(f, g, h, splits=splits)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("t", [66, 8200])
+def test_fused_attention_kernel_ragged_same_bits(cuda, t, n, dtype):
+    """Ragged T (the last 128-row chunk partly past T) at every batch the
+    grid layouts differ by, in both dtypes, and the same bits on a rerun."""
+    f, g, h = (torch.from_numpy(a).to(cuda, dtype) for a in
+               attention_inputs(np.random.default_rng(n), n, t, 8, 64))
+    got = fused_attention_cuda(f, g, h)
+    again = fused_attention_cuda(f, g, h)
     torch.cuda.synchronize()
-    want, _, _ = fused_attention_plain_stats(f, g, h)
+    want, wm, wl = fused_attention_plain_stats(f, g, h)
+    assert _scaled_err(got[0], want) <= 1e-5
+    torch.testing.assert_close(got[1], wm, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], wl, rtol=1e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_kernel_large_logits(cuda, dtype):
+    """Integer logits near 2e5, exact in any sum order in either operand
+    dtype, so m agrees to the bit (the exponent subtracts m first)."""
+    f, g, h, _ = _attention_case(cuda, 2, 1000, 8, 64, dtype, 100.0)
+    got, m, l = fused_attention_cuda(f, g, h)
+    want, wm, wl = fused_attention_plain_stats(f, g, h)
     assert _scaled_err(got, want) <= 1e-5
+    torch.testing.assert_close(m, wm, rtol=0, atol=0)
+    torch.testing.assert_close(l, wl, rtol=1e-5, atol=0)
+
+
+def _pool_input(rng, shape):
+    """A pool input quantized after a relu: many ties in every window."""
+    return np.round(np.maximum(rng.normal(size=shape), 0) * 2).astype(
+        np.float32) / 2
+
+
+# (N, C, H, W) of the pool backward's paths: the vector path in both
+# dtypes (W a multiple of 8), W a multiple of 4 only (f32 vector, bf16
+# scalar), an even W that is neither, odd H, odd W, both odd
+POOL_BWD_SHAPES = [(2, 3, 16, 32), (2, 3, 16, 12), (2, 3, 16, 10),
+                   (2, 3, 15, 32), (2, 3, 16, 31), (1, 2, 9, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", POOL_BWD_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pool_bwd_kernel_paths_exact(cuda, shape, dtype, offset):
+    """Every path of the pool backward against its plain version, exact;
+    ``offset`` 1 puts x, g and dx one element past an aligned base (the
+    scalar path)."""
+    from msau_tpu_torch.ops.flatconv import (
+        flat_maxpool2_bwd_cuda,
+        flat_maxpool2_bwd_plain,
+    )
+
+    rng = np.random.default_rng(7)
+    n, c, h, w = shape
+    gshape = (n, c, (h + 1) // 2, (w + 1) // 2)
+    x = torch.from_numpy(_pool_input(rng, shape)).to(cuda, dtype)
+    g = torch.from_numpy(rng.normal(size=gshape).astype(np.float32)).to(
+        cuda, dtype)
+    if offset:
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
+        g = torch.cat([g.new_zeros(offset), g.flatten()])[offset:].view(gshape)
+    got = flat_maxpool2_bwd_cuda(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, flat_maxpool2_bwd_plain(x, g))
 
 
 @pytest.mark.gpu
