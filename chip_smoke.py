@@ -16,9 +16,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      over the FP32 peak, or for the DTYPE_AWARE kernels in bf16 the
      tensor-core peak, and its bytes over the memory rate; the
      attention's exponentials over the SFUs' rate a floor of its own):
-       paint      512^2, B = 4096 (random overlapping / cross-tile / empty /
-                  zero-padded boxes, and the bench page's programs), exact;
-       CCL        512^2 blobby, noisy 3-class and maze maps, exact;
+       paint      a random 512^2 program (B = 4096: overlapping, cross-tile,
+                  empty and zero-padded boxes), the edge programs of
+                  utils/kernel_inputs.py at 512^2 and 130 x 97, and the
+                  serve path's instances (paint_ccl_instances: the three
+                  programs of the 512^2 bench page and of the page in the
+                  1024 bucket), exact and the same bits on a rerun, the
+                  instances timed (paint_ccl_times);
+       CCL        blobby, noisy 3-class and maze maps at 512^2 and 1024^2,
+                  the class map the decoder labels on each of those pages,
+                  and CCL_CASES (865 x 860, 1 x 4096, 4096 x 1, one class,
+                  a checkerboard), exact and the same bits on a rerun, the
+                  serve path's instances timed;
        attention  the resident forward and backward on every ATTN_CASES
                   entry (N 16 and N 1 at T 4096, Cb 8, C 64; ragged T 1000
                   and 66; every other width of KERNEL_WIDTHS), f32 and
@@ -313,8 +322,48 @@ def _max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def check_kernels(dev, bench_progs):
-    """Phase 1 -> {kernel: {max_abs_err, ms, plain_ms, cases}}."""
+# the card cases beside the serve path's instances (paint_ccl_instances):
+# paint at 512^2 and at an odd size, CCL at sizes no tile divides and on
+# the worst cases for root contention (one class) and for the number of
+# components (checker)
+PAINT_SIZES = ((512, 512), (130, 97))
+CCL_CASES = (("noisy", 865, 860), ("maze", 865, 860), ("noisy", 1, 4096),
+             ("noisy", 4096, 1), ("one_class", 1024, 1024),
+             ("checker", 512, 512))
+
+
+def paint_bound(n_boxes, h, w):
+    """Boxes [B, 4] and values [B] int32 read, the int32 grid written."""
+    return _bound(0, n_boxes * 5 * 4 + h * w * 4)
+
+
+def ccl_bound(h, w):
+    """The int32 class map read, the int32 label map written."""
+    return _bound(0, 2 * h * w * 4)
+
+
+def _same_bits_as_plain(name, kernel, plain):
+    """The kernel twice and its plain version on the same inputs: raises
+    unless all three agree bit for bit."""
+    import torch
+
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: a rerun gives other bits")
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f"{name}: {differ} values differ from the plain "
+                             "version")
+
+
+def check_kernels(dev):
+    """Phase 1, paint and CCL -> {kernel: {max_abs_err, ms, plain_ms,
+    library_ms, bound, cases, instances}}: every card case and every serve
+    instance bit for bit against the plain version and on a rerun; the
+    instances timed (``paint_ccl_times``), the JSON line's numbers taken at
+    the bench page's char program and the noisy 512^2 map."""
     import numpy as np
     import torch
 
@@ -323,63 +372,51 @@ def check_kernels(dev, bench_progs):
         connected_components_multiclass_plain,
     )
     from msau_tpu_torch.ops.paint import paint_boxes_cuda, paint_boxes_plain
-    from msau_tpu_torch.utils.kernel_inputs import ccl_map, paint_program
+    from msau_tpu_torch.utils.kernel_inputs import (
+        PAINT_EDGE_CASES,
+        ccl_map,
+        paint_edge_program,
+        paint_program,
+    )
 
-    out = {}
-    # ---- paint -------------------------------------------------------
-    cases = {"random_b4096": paint_program(np.random.default_rng(0), 3500,
-                                           512, 512, 4096)}
-    for name, prog in bench_progs.items():
-        cases[f"bench_{name}"] = prog
-    errs = {}
-    for name, (boxes, values) in cases.items():
+    paint_cases = {"random_b4096 512x512": (
+        paint_program(np.random.default_rng(0), 3500, 512, 512, 4096),
+        512, 512)}
+    for h, w in PAINT_SIZES:
+        for name in PAINT_EDGE_CASES:
+            paint_cases[f"{name} {h}x{w}"] = (paint_edge_program(name, h, w),
+                                               h, w)
+    for name, ((boxes, values), h, w) in paint_cases.items():
         b = torch.from_numpy(boxes).to(dev)
         v = torch.from_numpy(values).to(dev)
-        got = paint_boxes_cuda(b, v, 512, 512)
-        torch.cuda.synchronize()
-        want = paint_boxes_plain(b, v, 512, 512)
-        errs[name] = int((got != want).sum())
-        if errs[name]:
-            raise AssertionError(f"paint {name}: {errs[name]} pixels differ")
-    b = torch.from_numpy(bench_progs["char"][0]).to(dev)
-    v = torch.from_numpy(bench_progs["char"][1]).to(dev)
-    out["paint"] = {
-        "max_abs_err": 0.0, "cases": errs, "timed_on": "bench char program",
-        "n_boxes": int(b.shape[0]),
-        "ms": _cuda_ms(lambda: paint_boxes_cuda(b, v, 512, 512), 50),
-        "plain_ms": _cuda_ms(lambda: paint_boxes_plain(b, v, 512, 512), 3),
-        "library_ms": None,
-        # boxes [B, 4] and values [B] int32 in, the int32 512^2 grid out
-        "bound": _bound(0, b.shape[0] * 5 * 4 + 512 * 512 * 4),
-    }
-    print(f"[phase 1] paint exact on {list(errs)}; "
-          f"{out['paint']['ms']:.4f} ms vs plain {out['paint']['plain_ms']:.2f} ms",
-          flush=True)
-
-    # ---- CCL ---------------------------------------------------------
-    errs = {}
-    maps = {kind: torch.from_numpy(ccl_map(kind, 512, 512,
-                                           np.random.default_rng(5))).to(dev)
-            for kind in ("blobby", "noisy", "maze")}
-    for kind, cls in maps.items():
-        got = connected_components_multiclass_cuda(cls)
-        torch.cuda.synchronize()
-        want = connected_components_multiclass_plain(cls)
-        errs[kind] = int((got != want).sum())
-        if errs[kind]:
-            raise AssertionError(f"ccl {kind}: {errs[kind]} labels differ")
-    cls = maps["noisy"]
-    out["ccl_multiclass"] = {
-        "max_abs_err": 0.0, "cases": errs, "timed_on": "noisy 512^2",
-        "ms": _cuda_ms(lambda: connected_components_multiclass_cuda(cls), 50),
-        "plain_ms": _cuda_ms(lambda: connected_components_multiclass_plain(cls), 3),
-        "library_ms": None,
-        # the class map in, the label map out (int32)
-        "bound": _bound(0, 2 * cls.numel() * cls.element_size()),
-    }
-    print(f"[phase 1] ccl exact on {list(errs)}; "
-          f"{out['ccl_multiclass']['ms']:.4f} ms vs plain "
-          f"{out['ccl_multiclass']['plain_ms']:.2f} ms", flush=True)
+        _same_bits_as_plain(f"paint {name}",
+                            lambda: paint_boxes_cuda(b, v, h, w),
+                            lambda: paint_boxes_plain(b, v, h, w))
+    ccl_cases = {}
+    for kind, h, w in CCL_CASES:
+        cls = torch.from_numpy(ccl_map(kind, h, w,
+                                       np.random.default_rng(5))).to(dev)
+        ccl_cases[f"{kind} {h}x{w}"] = cls
+        _same_bits_as_plain(
+            f"ccl {kind} {h}x{w}",
+            lambda: connected_components_multiclass_cuda(cls),
+            lambda: connected_components_multiclass_plain(cls))
+    times = paint_ccl_times(dev, plain=True)
+    out = {}
+    for kernel, cases, prefix, at in (
+            ("paint", paint_cases, "paint ", "char 512"),
+            ("ccl_multiclass", ccl_cases, "ccl ", "noisy 512^2")):
+        inst = {k[len(prefix):]: v for k, v in times.items()
+                if k.startswith(prefix)}
+        out[kernel] = {
+            "max_abs_err": 0.0, "cases": sorted(cases) + sorted(inst),
+            "timed_on": at, "ms": inst[at]["ms"],
+            "plain_ms": inst[at]["plain_ms"], "library_ms": None,
+            "bound": inst[at]["bound"], "instances": inst}
+        print(f"[phase 1] {kernel} exact and the same bits on a rerun on "
+              f"{len(out[kernel]['cases'])} cases; {at}: "
+              f"{out[kernel]['ms']:.4f} ms vs plain "
+              f"{out[kernel]['plain_ms']:.2f} ms", flush=True)
     return out
 
 
@@ -1356,6 +1393,118 @@ def pool_bwd_times(dev, iters=20):
     return out
 
 
+def paint_ccl_instances(dev):
+    """The serve path's paint and CCL instances on ``dev`` -> (paint
+    {name: (boxes, values, h, w)}, CCL {name: class map}): the three box
+    programs of the 512^2 bench page and of the page in the 1024 bucket, as
+    ``KVModel`` pads them; ``ccl_map``'s blobby, noisy and maze maps at
+    512^2 and 1024^2; and the class map the decoder labels on each page
+    (``cls_map`` of ``decode_fields_device``, recorded during one f32
+    predict of the flagship at flat_scales 3 and of config 5, with the
+    serve phase's seeded random weights).  It runs on the package of
+    either checkout of a parent-against-change call, so it takes the
+    programs from ``KVModel._prepare_host``."""
+    import numpy as np
+    import torch
+
+    import msau_tpu_torch.infer.decode as decode
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.synth import make_page
+    from msau_tpu_torch.utils.kernel_inputs import ccl_map
+
+    paint, ccl = {}, {}
+    for side in (512, 1024):
+        for kind in ("blobby", "noisy", "maze"):
+            ccl[f"{kind} {side}^2"] = torch.from_numpy(
+                ccl_map(kind, side, side, np.random.default_rng(5))).to(dev)
+    pages = ((512, dict(FLAGSHIP, flat_scales=3), 5),
+             (1024, CONFIG5, 10))
+    for bucket, model, n_cols in pages:
+        page = page_from_label_dict(make_page(
+            np.random.default_rng(3), n_cols=n_cols, rows_per_col=2 * n_cols))
+        kv = _bench_kv(model, "float32", dev, bucket, page)
+        _, _, arrays, hb, wb = kv._prepare_host(page)
+        for i, name in enumerate(("char", "line_id", "char_id")):
+            paint[f"{name} {bucket}"] = tuple(
+                torch.from_numpy(a).to(dev) for a in arrays[2 * i:2 * i + 2]
+            ) + (hb, wb)
+        seen, label = [], decode.connected_components_multiclass
+        decode.connected_components_multiclass = (
+            lambda cls: seen.append(cls.cpu().numpy()) or label(cls))
+        try:
+            kv.predict(page, return_maps=False)
+        finally:
+            decode.connected_components_multiclass = label
+        ccl[f"decoder {bucket}"] = torch.from_numpy(seen[0]).to(dev)
+        del kv
+        torch.cuda.empty_cache()
+    return paint, ccl
+
+
+def _ms_by_kernel(fn, iters):
+    """Device ms per call of ``fn`` by kernel (and memset), from one
+    torch.profiler session after a warm-up call; {} when it recorded
+    nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.count:
+            name = evt.key.replace(_OURS, "").split("(")[0]
+            out[name] = getattr(evt, "self_device_time_total",
+                                getattr(evt, "self_cuda_time_total", 0.0)
+                                ) / 1e3 / iters
+    return out
+
+
+def paint_ccl_times(dev, plain=False, iters=50):
+    """Device ms of the paint and CCL kernels at ``paint_ccl_instances``,
+    beside their bounds (``paint_bound``, ``ccl_bound``), from whichever
+    msau_tpu_torch this process imports: loaded with ``importlib`` from
+    another checkout's root it times that version on the same card.  With
+    ``plain``, each instance's kernel output is also held to its plain
+    version's and to a rerun's, bit for bit, and at 512^2 the plain
+    version is timed."""
+    from msau_tpu_torch.ops.ccl import (
+        connected_components_multiclass_cuda,
+        connected_components_multiclass_plain,
+    )
+    from msau_tpu_torch.ops.paint import paint_boxes_cuda, paint_boxes_plain
+
+    paint, ccl = paint_ccl_instances(dev)
+    calls = {}
+    for name, (b, v, h, w) in paint.items():
+        calls[f"paint {name}"] = (
+            lambda b=b, v=v, h=h, w=w: paint_boxes_cuda(b, v, h, w),
+            lambda b=b, v=v, h=h, w=w: paint_boxes_plain(b, v, h, w),
+            paint_bound(b.shape[0], h, w), h * w)
+    for name, cls in ccl.items():
+        calls[f"ccl {name}"] = (
+            lambda cls=cls: connected_components_multiclass_cuda(cls),
+            lambda cls=cls: connected_components_multiclass_plain(cls),
+            ccl_bound(*cls.shape), cls.numel())
+    out = {}
+    for name, (kernel, ref, bound, pixels) in calls.items():
+        rec = out[name] = {"ms": _cuda_ms(kernel, iters), "bound": bound,
+                           "by_kernel": _ms_by_kernel(kernel, iters)}
+        if plain:
+            _same_bits_as_plain(name, kernel, ref)
+            # the plain versions are timed at 512^2 only: at 1024^2 one
+            # plain paint is 2 x 10^5 launches, and a profiler session that
+            # large left every later session of the run empty
+            if pixels <= 512 * 512:
+                rec["plain_ms"] = _cuda_ms(ref, 1)
+    print(f"[paint ccl times] {json.dumps(out)}", flush=True)
+    return out
+
+
 # kernel launches per request of the flagship's serve path at each
 # flat_scales; every other kernel launches no time
 SERVE_PER_REQUEST = {
@@ -2102,24 +2251,6 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s with loading): {lib.path.name}",
           flush=True)
 
-    from msau_tpu_torch.data.charset import Charset
-    from msau_tpu_torch.data.pages import page_from_label_dict
-    from msau_tpu_torch.data.rasterize import build_chargrid_programs, round_up
-    from msau_tpu_torch.data.synth import BENCH_CHARSET, make_page
-    import numpy as np
-
-    progs = build_chargrid_programs(
-        page_from_label_dict(make_page(np.random.default_rng(3), n_cols=5,
-                                       rows_per_col=10)),
-        Charset(chars=" $" + BENCH_CHARSET), scale_min=3.0, scale_max=3.0,
-        normalize_digits=True, char_w_cap_factor=1.2, pad_factor_fixed=3.0,
-        label_style="box")
-    bench_progs = {}
-    for name in ("char", "line_id", "char_id"):
-        p = getattr(progs, name)
-        p = p.padded(round_up(max(len(p.values), 1), 512))
-        bench_progs[name] = (p.boxes, p.values)
-
     seconds = {}
 
     def timed(name, fn, *args):
@@ -2129,7 +2260,7 @@ def main() -> int:
         print(f"[{name}] done in {seconds[name]:.1f} s", flush=True)
         return out
 
-    kernels = timed("phase 1 serve kernels", check_kernels, dev, bench_progs)
+    kernels = timed("phase 1 serve kernels", check_kernels, dev)
     kernels.update(timed("phase 1 attention", check_attention_kernels, dev))
     kernels.update(timed("phase 1 train kernels", check_train_kernels, dev))
     kernels.update(timed("phase 1 streaming attention",

@@ -5,94 +5,104 @@
 // (launcher paint_boxes_pallas), which walks the whole box list once per
 // 128-row VMEM tile and applies a masked select for every box touching it.
 //
-// What bounds it on the H100: the output is 1 MiB at 512^2 (int32), written
-// once — about 0.3 us of HBM time — so the cost is the box tests: every
-// pixel must find the LAST box covering it among B (4096 on the bench page).
-// A sequential select loop over the grid does O(B * H * W) work.
+// What bounds it on the H100: the output is 1 MiB at 512^2 and 4 MiB at
+// 1024^2 (int32), written once, and the box list (20 bytes a box, 5-26 K
+// boxes on a page) read once: a few microseconds of HBM time.  The boxes
+// are small (a page's char boxes are 3 x 2 pixels at the serve scale, its
+// line boxes up to 3 x 34), so the work a box brings is its area, not the
+// grid.  A design that tests every box against every tile does O(tiles x
+// B) work, quadratic in the page side.
 //
-// Design: one thread per output pixel, one block per 8x32 pixel tile (a warp
-// is one 128-byte row of the tile, so the store is coalesced).  The block
-// walks the box list from LAST to FIRST in chunks of 256: each thread loads
-// one box, the block keeps only the boxes that intersect its tile (order-
-// preserving compaction with warp ballots into shared memory), and each
-// pixel scans the kept boxes from last to first and stops at the first one
-// that covers it.  That is the same last-write-wins value without a
-// sequential loop over the grid, and a tile of small character boxes
-// tests only the handful that touch it.  The block stops as soon as every
-// pixel in it is decided.  A pixel no box covers is 0.  Zero-padded boxes
-// (y1 = y2 = 0) and boxes with x2 <= x1 or y2 <= y1 cover nothing.
+// Design: "the last write wins" is "the largest covering index wins", and a
+// maximum does not depend on order, so the boxes are scattered in any
+// order, in three passes on the stream:
+//  1. clear the grid (cudaMemsetAsync);
+//  2. scatter: atomicMax of i + 1 into every pixel box i covers, its
+//     coordinates clipped to the grid.  A thread owns one box: it paints a
+//     box of up to kOwnArea pixels itself; larger boxes go to a list in
+//     shared memory that the whole block paints afterwards, one box at a
+//     time with a thread per pixel, so a page-sized box costs H W / 256
+//     pixels a thread, not H W;
+//  3. map in place: w -> w ? values[w - 1] : 0.
+// The grid holds the winning index, never the value, so a later box of
+// value 0 still overwrites an earlier one.  The result is the same bits
+// whatever the order of the atomics.  Work: B + sum of box areas + H W.
+// Zero-padded boxes (y1 = y2 = 0) and boxes with y2 <= y1 or x2 <= x1
+// cover nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileH = 8;
-constexpr int kTileW = 32;
-constexpr int kThreads = kTileH * kTileW;   // 256: one chunk of boxes
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;   // boxes per block in the scatter pass
+constexpr int kOwnArea = 64;    // larger boxes are painted by the block
 
-__global__ void paint_kernel(const int4* __restrict__ boxes,
-                             const int* __restrict__ values, int n_boxes,
-                             int* __restrict__ out, int height, int width) {
-  __shared__ int4 s_box[kThreads];
-  __shared__ int s_val[kThreads];
-  __shared__ int s_warp_count[kWarps];
+// result unused: a reduction (RED) that returns nothing to the thread
+__device__ __forceinline__ void paint_pixel(int* out, int p, int win) {
+  atomicMax(out + p, win);
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.y * kTileH;
-  const int col0 = blockIdx.x * kTileW;
-  const int r = row0 + tid / kTileW;
-  const int c = col0 + tid % kTileW;
-  const bool inside = r < height && c < width;
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const int4* __restrict__ boxes, int n_boxes,
+               int* __restrict__ out, int height, int width) {
+  __shared__ int4 s_box[kThreads];   // clipped (y1, y2, x1, x2)
+  __shared__ int s_win[kThreads];
+  __shared__ int s_count;
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
 
-  int value = 0;
-  bool done = !inside;
-  const int n_chunks = (n_boxes + kThreads - 1) / kThreads;
-  for (int chunk = n_chunks - 1; chunk >= 0; --chunk) {
-    // every pixel of the tile decided: the earlier boxes cannot matter
-    if (__syncthreads_and(done)) break;
-    const int b = chunk * kThreads + tid;
-    int4 box = make_int4(0, 0, 0, 0);
-    int val = 0;
-    bool keep = false;
-    if (b < n_boxes) {
-      box = boxes[b];  // (y1, y2, x1, x2)
-      val = values[b];
-      keep = box.x < box.y && box.z < box.w && box.x < row0 + kTileH &&
-             box.y > row0 && box.z < col0 + kTileW && box.w > col0;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) s_warp_count[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = __popc(ballot & ((1u << lane) - 1u));
-    int n_kept = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int cnt = s_warp_count[w];
-      offset += (w < warp) ? cnt : 0;
-      n_kept += cnt;
-    }
-    if (keep) {
-      s_box[offset] = box;
-      s_val[offset] = val;
-    }
-    __syncthreads();
-    if (!done) {
-      for (int k = n_kept - 1; k >= 0; --k) {
-        const int4 bx = s_box[k];
-        if (r >= bx.x && r < bx.y && c >= bx.z && c < bx.w) {
-          value = s_val[k];
-          done = true;
-          break;
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b < n_boxes) {
+    const int4 box = boxes[b];
+    const int y1 = max(box.x, 0), y2 = min(box.y, height);
+    const int x1 = max(box.z, 0), x2 = min(box.w, width);
+    if (y1 < y2 && x1 < x2) {
+      const int w = x2 - x1;
+      if ((y2 - y1) * w <= kOwnArea) {
+        for (int y = y1; y < y2; ++y) {
+          for (int x = x1; x < x2; ++x) paint_pixel(out, y * width + x, b + 1);
         }
+      } else {
+        const int slot = atomicAdd(&s_count, 1);
+        s_box[slot] = make_int4(y1, y2, x1, x2);
+        s_win[slot] = b + 1;
       }
     }
-    // s_box / s_warp_count are rewritten by the next chunk: the
-    // __syncthreads_and at the loop head orders those writes
   }
-  if (inside) out[(int64_t)r * width + c] = value;
+  __syncthreads();
+  const int n_large = s_count;
+  for (int k = 0; k < n_large; ++k) {
+    const int4 box = s_box[k];
+    const int w = box.w - box.z;
+    const int area = (box.y - box.x) * w;
+    for (int i = threadIdx.x; i < area; i += kThreads) {
+      const int dy = i / w;
+      paint_pixel(out, (box.x + dy) * width + box.z + i - dy * w, s_win[k]);
+    }
+  }
+}
+
+__device__ __forceinline__ int value_of(const int* values, int win) {
+  return win ? __ldg(values + win - 1) : 0;
+}
+
+// out[p] = winner ? values[winner - 1] : 0, four pixels a thread
+__global__ void map_kernel(const int* __restrict__ values, int* out,
+                           int n_pixels) {
+  const int n4 = n_pixels / 4;
+  int4* out4 = reinterpret_cast<int4*>(out);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += gridDim.x * blockDim.x) {
+    int4 w = out4[i];
+    w.x = value_of(values, w.x);
+    w.y = value_of(values, w.y);
+    w.z = value_of(values, w.z);
+    w.w = value_of(values, w.w);
+    out4[i] = w;
+  }
+  const int tail = n4 * 4 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (tail < n_pixels) out[tail] = value_of(values, out[tail]);
 }
 
 }  // namespace
@@ -100,9 +110,19 @@ __global__ void paint_kernel(const int4* __restrict__ boxes,
 extern "C" int msau_paint_boxes(const void* boxes, const void* values,
                                 int n_boxes, void* out, int height, int width,
                                 void* stream) {
-  dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
-  paint_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)boxes, (const int*)values, n_boxes, (int*)out, height,
-      width);
+  // the wrapper holds height * width below 2^31
+  const int n_pixels = height * width;
+  if (n_pixels <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_pixels * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  if (n_boxes > 0) {
+    scatter_kernel<<<(n_boxes + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        (const int4*)boxes, n_boxes, (int*)out, height, width);
+    const int fill = n_pixels / 4 / kThreads + 1;
+    const int blocks = fill < 1024 ? fill : 1024;
+    map_kernel<<<blocks, kThreads, 0, s>>>((const int*)values, (int*)out,
+                                          n_pixels);
+  }
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,37 @@ def _is_state_dict(params: Mapping) -> bool:
     return any(isinstance(v, torch.Tensor) for v in params.values())
 
 
+def prepare_host(page: Page, charset: Charset, scale: float,
+                 buckets: Sequence[int] = (256, 512, 1024)):
+    """Host half of rasterization: box programs + padded paint inputs.
+    Returns (progs, scaled_lines, paint_arrays, hb, wb)."""
+    progs = build_chargrid_programs(
+        page,
+        charset,
+        scale_min=scale,
+        scale_max=scale,
+        normalize_digits=True,
+        char_w_cap_factor=1.2,
+        pad_factor_fixed=3.0,
+        label_style="box",
+    )
+    hb, wb = pad_to_bucket(progs.height, progs.width, buckets)
+    cap = round_up(max(len(progs.char.values), 1), 512)
+    char = progs.char.padded(cap)
+    lcap = round_up(max(len(progs.line_id.values), 1), 512)
+    lid = progs.line_id.padded(lcap)
+    cid = progs.char_id.padded(lcap)
+    arrays = (
+        char.boxes, char.values, lid.boxes, lid.values,
+        cid.boxes, cid.values,
+    )
+    # re-index scaled lines 1-based for decode bookkeeping
+    scaled = [
+        dataclasses.replace(l, id=i + 1) for i, l in enumerate(progs.scaled_lines)
+    ]
+    return progs, scaled, arrays, hb, wb
+
+
 class KVModel:
     """Load -> predict, mirroring the reference API surface.
 
@@ -160,35 +191,11 @@ class KVModel:
 
     # ------------------------------------------------------------------
     def _prepare_host(self, page: Page, buckets: Sequence[int] = (256, 512, 1024)):
-        """Host half of rasterization: box programs + padded paint inputs.
-        Returns (progs, scaled_lines, paint_arrays, hb, wb)."""
+        """Host half of rasterization (``prepare_host``) with this model's
+        charset and scale."""
         if self.charset is None:
             raise ValueError("no charset loaded")
-        progs = build_chargrid_programs(
-            page,
-            self.charset,
-            scale_min=self.cfg.scale,
-            scale_max=self.cfg.scale,
-            normalize_digits=True,
-            char_w_cap_factor=1.2,
-            pad_factor_fixed=3.0,
-            label_style="box",
-        )
-        hb, wb = pad_to_bucket(progs.height, progs.width, buckets)
-        cap = round_up(max(len(progs.char.values), 1), 512)
-        char = progs.char.padded(cap)
-        lcap = round_up(max(len(progs.line_id.values), 1), 512)
-        lid = progs.line_id.padded(lcap)
-        cid = progs.char_id.padded(lcap)
-        arrays = (
-            char.boxes, char.values, lid.boxes, lid.values,
-            cid.boxes, cid.values,
-        )
-        # re-index scaled lines 1-based for decode bookkeeping
-        scaled = [
-            dataclasses.replace(l, id=i + 1) for i, l in enumerate(progs.scaled_lines)
-        ]
-        return progs, scaled, arrays, hb, wb
+        return prepare_host(page, self.charset, self.cfg.scale, buckets)
 
     def _multiline_classes(self) -> Tuple[int, ...]:
         return tuple(

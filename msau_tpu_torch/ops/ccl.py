@@ -6,7 +6,7 @@ raster-first pixel + 1, so sorting roots ascending reproduces scipy's label
 numbering; background is 0.
 
 ``connected_components_multiclass`` is the entry point: a CUDA tensor
-launches the hand-written union-find kernel (``csrc/ccl.cu``, the port of the
+launches the hand-written block-based union-find (``csrc/ccl.cu``, the port of the
 TPU kernel ``msau_tpu/ops/ccl.py:_ccl_mc_kernel``); a CPU tensor takes
 ``connected_components_multiclass_plain``, same-class min propagation with
 pointer jumping.  Both run to convergence, with no sweep cap: they equal the
@@ -66,8 +66,9 @@ def connected_components_multiclass_plain(cls: torch.Tensor) -> torch.Tensor:
 
 
 def connected_components_multiclass_cuda(cls: torch.Tensor) -> torch.Tensor:
-    """Launch the three union-find kernels (init, merge, flatten) as one
-    call; ``connected_components_multiclass_cuda.launches`` counts calls."""
+    """Launch the three union-find kernels (tiles in shared memory, unions
+    across tile borders, flatten) as one call;
+    ``connected_components_multiclass_cuda.launches`` counts calls."""
     cuda_lib.require_cuda("connected_components_multiclass", cls,
                           torch.int32, 2)
     h, w = cls.shape

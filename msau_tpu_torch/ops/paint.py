@@ -1,9 +1,10 @@
 """Box-program painting into an int32 [H, W] grid, last write wins.
 
 ``paint_boxes`` is the entry point: a CUDA tensor launches the hand-written
-kernel (``csrc/paint.cu``, the port of the TPU kernel
-``msau_tpu/ops/paint_pallas.py:_paint_kernel``); a CPU tensor takes
-``paint_boxes_plain``, the masked-select loop of
+kernels (``csrc/paint.cu``, the port of the TPU kernel
+``msau_tpu/ops/paint_pallas.py:_paint_kernel``: the largest covering box
+index scattered by atomic maximum, then mapped to its value); a CPU tensor
+takes ``paint_boxes_plain``, the masked-select loop of
 ``msau_tpu.data.rasterize.paint_boxes``.
 """
 
@@ -33,7 +34,8 @@ def paint_boxes_plain(boxes: torch.Tensor, values: torch.Tensor,
 
 def paint_boxes_cuda(boxes: torch.Tensor, values: torch.Tensor,
                      height: int, width: int) -> torch.Tensor:
-    """Launch the paint kernel; ``paint_boxes_cuda.launches`` counts calls."""
+    """Launch the paint kernels (clear, scatter, map) as one call;
+    ``paint_boxes_cuda.launches`` counts calls."""
     cuda_lib.require_cuda("paint_boxes", boxes, torch.int32, 2)
     cuda_lib.require_cuda("paint_boxes", values, torch.int32, 1)
     n = boxes.shape[0]
@@ -42,6 +44,8 @@ def paint_boxes_cuda(boxes: torch.Tensor, values: torch.Tensor,
                          f"{tuple(values.shape)} mismatch")
     if boxes.data_ptr() % 16:
         raise ValueError("paint_boxes: boxes must be 16-byte aligned")
+    if height * width >= 2**31:
+        raise ValueError("paint_boxes: grid too large")
     if values.device != boxes.device:
         raise ValueError("paint_boxes: boxes and values on different devices")
     out = torch.empty((height, width), dtype=torch.int32, device=boxes.device)

@@ -70,3 +70,14 @@ def test_background_and_negative_classes_are_zero():
 def test_cuda_wrapper_rejects_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA"):
         connected_components_multiclass_cuda(torch.zeros((4, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind,h,w", [("noisy", 1, 300), ("noisy", 300, 1),
+                                      ("checker", 40, 56),
+                                      ("one_class", 48, 40)])
+def test_plain_matches_scipy_on_edge_maps(kind, h, w):
+    """One row and one column (no tile of the card kernel is full), every
+    pixel its own component, and one component over the whole map."""
+    cls = ccl_map(kind, h, w, np.random.default_rng(2))
+    got = connected_components_multiclass_plain(torch.from_numpy(cls))
+    np.testing.assert_array_equal(got.numpy(), _scipy_labels(cls))

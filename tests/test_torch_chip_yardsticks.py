@@ -1,5 +1,5 @@
-"""chip_smoke's yardsticks for the flat conv, the fused residual block and
-the attention kernels, on the CPU at small sizes: the library call it times beside the forward kernel
+"""chip_smoke's yardsticks for the flat conv, the fused residual block,
+the attention kernels, paint and the CCL, on the CPU at small sizes: the library call it times beside the forward kernel
 (one ``F.conv2d`` of the merge convs' pre-concatenated input), and the bound
 it sets beside each kernel (bf16 operations at the tensor-core peak where
 the fast path of ``csrc/conv_fast.cuh`` takes the shape, and for the
@@ -22,6 +22,7 @@ from msau_tpu_torch.utils.flat_cases import (
     flat_case_fns,
     flat_case_tensors,
 )
+from msau_tpu_torch.utils.kernel_inputs import page_programs
 
 
 def _case(op, name, **small):
@@ -206,5 +207,28 @@ def test_bound_of_the_pool_backward(name, itemsize, ms):
     case = _case("flat_maxpool2_bwd", name)
     assert case["per_step"] == 3
     got_ms, got_by = cs._flat_bound(case, cs.TIMED_BATCH, itemsize)
+    assert got_by == "bytes"
+    assert got_ms == pytest.approx(ms, abs=5e-5)
+
+
+# Paint's and the CCL's byte bounds at the serve path's instances: paint
+# reads 20 bytes a box and writes the int32 grid (the 512^2 bench page's
+# char program, 5632 padded boxes; the 1024-bucket page's, 23040), the CCL
+# reads the int32 class map and writes the int32 labels
+PAINT_CCL_BOUNDS = [("paint", 5, 512, 5632, 0.0003),
+                    ("paint", 10, 1024, 23040, 0.0014),
+                    ("ccl", 5, 512, None, 0.0006),
+                    ("ccl", 10, 1024, None, 0.0025)]
+
+
+@pytest.mark.parametrize("kernel,n_cols,side,n_boxes,ms", PAINT_CCL_BOUNDS)
+def test_bound_of_paint_and_ccl(kernel, n_cols, side, n_boxes, ms):
+    if kernel == "paint":
+        progs, hw = page_programs(n_cols)
+        assert hw == (side, side)
+        assert progs["char"][0].shape == (n_boxes, 4)
+        got_ms, got_by = cs.paint_bound(n_boxes, side, side)
+    else:
+        got_ms, got_by = cs.ccl_bound(side, side)
     assert got_by == "bytes"
     assert got_ms == pytest.approx(ms, abs=5e-5)

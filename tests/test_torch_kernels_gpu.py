@@ -5,7 +5,8 @@ card (which has none):
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q
 
-Tolerances: paint and CCL are integer maps, exact; the resident attention
+Tolerances: paint and CCL are integer maps, exact, with the same bits on a
+second run (both scatter or unite with atomics in any order); the resident attention
 forward within 1e-5 (rtol and atol) of its plain version in float64 for f32
 operands (three-part bf16 products with f32 sums against the exact answer;
 at N 16 on the H100 the kernel lies 9.9e-6 from it and 3.2e-5 from the f32
@@ -82,9 +83,12 @@ from msau_tpu_torch.utils.flat_cases import (
     flat_case_tensors,
 )
 from msau_tpu_torch.utils.kernel_inputs import (
+    PAINT_EDGE_CASES,
     attention_inputs,
     ccl_map,
     ce_inputs,
+    page_programs,
+    paint_edge_program,
     paint_program,
 )
 
@@ -96,25 +100,62 @@ def cuda():
     return torch.device("cuda")
 
 
+# paint: random programs, the edge programs at 512^2 and at an odd size
+# (the map pass's ragged tail), and the serve path's programs of the 512^2
+# bench page and of the page in the 1024 bucket
+PAINT_CASES = (["random 512x512", "random 100x70"]
+               + [f"{name} {h}x{w}" for h, w in ((512, 512), (130, 97))
+                  for name in PAINT_EDGE_CASES]
+               + [f"{name} page {side}" for side in (512, 1024)
+                  for name in ("char", "line_id", "char_id")])
+
+
+def _paint_case(case):
+    """-> (boxes, values, h, w) numpy int32 of one PAINT_CASES entry."""
+    name, size = case.rsplit(" ", 1)
+    if name == "random":
+        h, w = map(int, size.split("x"))
+        n, pad = (3000, 4096) if h == 512 else (50, 64)
+        return (*paint_program(np.random.default_rng(0), n, h, w, pad), h, w)
+    if name in PAINT_EDGE_CASES:
+        h, w = map(int, size.split("x"))
+        return (*paint_edge_program(name, h, w), h, w)
+    progs, (h, w) = page_programs(5 if size == "512" else 10)
+    return (*progs[name.split()[0]], h, w)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,w,n,pad", [(512, 512, 3000, 4096),
-                                       (100, 70, 50, 64)])
-def test_paint_kernel_matches_plain(cuda, h, w, n, pad):
-    boxes, values = paint_program(np.random.default_rng(0), n, h, w, pad)
+@pytest.mark.parametrize("case", PAINT_CASES)
+def test_paint_kernel_matches_plain(cuda, case):
+    boxes, values, h, w = _paint_case(case)
     b = torch.from_numpy(boxes).to(cuda)
     v = torch.from_numpy(values).to(cuda)
     got = paint_boxes_cuda(b, v, h, w)
+    again = paint_boxes_cuda(b, v, h, w)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     assert torch.equal(got, paint_boxes_plain(b, v, h, w))
 
 
+# CCL: the three map kinds at 512^2 and 1024^2, sizes no 32 x 32 tile
+# divides, one row and one column, one class over the whole map (root
+# contention) and a checkerboard (every pixel its own component)
+CCL_CASES = ([(kind, s, s) for s in (512, 1024)
+              for kind in ("blobby", "noisy", "maze")]
+             + [("noisy", 865, 860), ("maze", 865, 860), ("noisy", 1, 4096),
+                ("noisy", 4096, 1), ("one_class", 1024, 1024),
+                ("checker", 512, 512)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["blobby", "noisy", "maze"])
-def test_ccl_kernel_matches_plain(cuda, kind):
-    cls = ccl_map(kind, 512, 512, np.random.default_rng(5))
+@pytest.mark.parametrize("kind,h,w", CCL_CASES)
+def test_ccl_kernel_matches_plain(cuda, kind, h, w):
+    cls = ccl_map(kind, h, w, np.random.default_rng(5))
     t = torch.from_numpy(cls).to(cuda)
     got = connected_components_multiclass_cuda(t)
+    again = connected_components_multiclass_cuda(t)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     assert torch.equal(got, connected_components_multiclass_plain(t))
 
 

@@ -1,6 +1,9 @@
 """Paint parity: the port's paint_boxes against the TPU kernel
 (paint_boxes_pallas in interpret mode) and the host golden model
-paint_boxes_numpy.  Integer grids: exact equality."""
+paint_boxes_numpy, on random programs and on the edge programs the card
+kernel is held to (a later box of value 0, boxes overhanging every edge,
+a page-sized box under small ones, one box, none).  Integer grids: exact
+equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +15,11 @@ from msau_tpu.data.rasterize import paint_boxes_numpy as jax_paint_numpy
 from msau_tpu.ops.paint_pallas import paint_boxes_pallas
 from msau_tpu_torch.data.rasterize import BoxProgram, paint_boxes_numpy
 from msau_tpu_torch.ops.paint import paint_boxes, paint_boxes_cuda
-from msau_tpu_torch.utils.kernel_inputs import paint_program
+from msau_tpu_torch.utils.kernel_inputs import (
+    PAINT_EDGE_CASES,
+    paint_edge_program,
+    paint_program,
+)
 
 
 @pytest.mark.parametrize("h,w,n,pad", [(128, 128, 40, 64), (256, 96, 300, 512),
@@ -44,3 +51,23 @@ def test_cuda_wrapper_rejects_cpu_tensor():
     boxes = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         paint_boxes_cuda(boxes, torch.zeros(1, dtype=torch.int32), 8, 8)
+
+
+@pytest.mark.parametrize("case", PAINT_EDGE_CASES)
+def test_paint_edge_programs_match_pallas_and_numpy(case):
+    """The plain version against the host golden model on the raw boxes,
+    and against the TPU kernel, which takes clipped boxes (the serve path
+    clips them on the host): here they are clipped for it."""
+    h, w = 128, 96
+    boxes, values = paint_edge_program(case, h, w)
+    golden = paint_boxes_numpy(BoxProgram(boxes, values), h, w)
+    got = paint_boxes(torch.from_numpy(boxes), torch.from_numpy(values), h, w)
+    np.testing.assert_array_equal(got.numpy(), golden)
+    if case == "no_boxes":   # the TPU kernel cannot trace an empty box list
+        assert not golden.any()
+        return
+    clipped = np.clip(boxes, 0, [h, h, w, w]).astype(np.int32)
+    want = np.asarray(paint_boxes_pallas(jnp.asarray(clipped),
+                                         jnp.asarray(values), h, w,
+                                         interpret=True))
+    np.testing.assert_array_equal(want, golden)
