@@ -27,7 +27,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   the class map the decoder labels on each of those pages,
                   and CCL_CASES (865 x 860, 1 x 4096, 4096 x 1, one class,
                   a checkerboard), exact and the same bits on a rerun, the
-                  serve path's instances timed;
+                  serve path's instances timed; then its page axis
+                  (check_ccl_batched): the decoder's class maps of 8 and 3
+                  pages of the 512 bucket from one predict_batch, the map
+                  kinds stacked (B 3 and 8 at 512^2, B 3 at 865 x 860), one
+                  call a stack, each page equal to the plain version's and
+                  to the kernel's own [H, W] call, the same bits on a
+                  rerun, each stack timed beside ccl_bound times B;
        attention  the resident forward and backward on every ATTN_CASES
                   entry (N 16 and N 1 at T 4096, Cb 8, C 64; ragged T 1000
                   and 66; every other width of KERNEL_WIDTHS), f32 and
@@ -94,6 +100,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
      equal to the plain-version pipeline's, p50 of each stage, and the f32
      probabilities on the page's chargrid within 2e-3 (mean 1e-6) of the
      CPU's plain versions with the same weights;
+  2c. batched serving (serve_batch): KVModel.predict_batch of the flagship
+     at flat_scales 3 and 0, f32 and bf16, with phase 2's seeded weights,
+     on SERVE_BATCH_PAGES (six pages of the 512 bucket, two of the 1024
+     bucket, interleaved): 2 timed calls after a warm-up with the launch
+     counters reset just before and read just after (per call: paint 3 a
+     page; per group one CCL, three attention forwards, resident at 512^2
+     and streaming at 1024^2, and at flat_scales 3 the flat forward
+     kernels of one request); each page's decode tables equal to the
+     unbatched decoder's on its slice of the batched probabilities and its
+     results to those tables'; in f32 the batched probabilities within
+     5e-3 (mean 1e-6) of each page's predict, on the bench page within
+     twice predict's distance of the float64 forward, and the results
+     equal where the argmax maps agree; host ms and device busy ms
+     (torch.profiler) per page beside predict's, one request a page;
+  2d. field evaluation (field_eval): write_corpus of 8 labelled pages (rng
+     11) under build/, run_test with the flagship at flat_scales 3, bf16:
+     the launches per page a request's, num_label per class equal to the
+     label files' own count, the counters equal to the sum of per-page
+     predict(label_path=, eval_results=), the summary in [0, 1];
   3. the train path: the same model through Trainer.init_state and its
      train step (masked CE, Adam lr 1e-4, clip 1.0) at batch 16, 512^2, on
      the bench's structured batch, at flat_scales 3 (the bench's setting)
@@ -124,7 +149,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      streaming attention forced (attention_impl="pallas") to the exact one.
 
 The line before the last two is one JSON object with every kernel's route,
-source, the TPU kernel it replaces, its launches in phases 2 and 3, its
+source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
+included) and 3, its
 largest error against the plain version, its time, the plain version's,
 the library call's (or null) and its bound; then the card's name and power
 limit; the last line is the device record.  A fuller report, with nvcc's register and
@@ -1429,8 +1455,10 @@ def paint_ccl_instances(dev):
                 torch.from_numpy(a).to(dev) for a in arrays[2 * i:2 * i + 2]
             ) + (hb, wb)
         seen, label = [], decode.connected_components_multiclass
+        # [H, W], or [1, H, W] where the decoder has a page axis
         decode.connected_components_multiclass = (
-            lambda cls: seen.append(cls.cpu().numpy()) or label(cls))
+            lambda cls: seen.append(cls.reshape(cls.shape[-2:]).cpu().numpy())
+            or label(cls))
         try:
             kv.predict(page, return_maps=False)
         finally:
@@ -1830,6 +1858,350 @@ def serve_busy(dev, requests=7):
         del kv
         torch.cuda.empty_cache()
     return out
+
+
+def _pages(specs):
+    """Pages of ``make_page(rng seed, n_cols, rows_per_col)`` for each
+    (seed, n_cols, rows_per_col)."""
+    import numpy as np
+
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.synth import make_page
+
+    return [page_from_label_dict(make_page(np.random.default_rng(s),
+                                           n_cols=c, rows_per_col=r))
+            for s, c, r in specs]
+
+
+def _record_decoder_maps(kv, pages):
+    """The class maps the decoder labels in one ``predict_batch`` of
+    ``pages`` -> [int32 class map stack of each group, on the card]."""
+    import msau_tpu_torch.infer.decode as decode
+
+    seen, label = [], decode.connected_components_multiclass
+    decode.connected_components_multiclass = (
+        lambda cls: seen.append(cls.clone()) or label(cls))
+    try:
+        kv.predict_batch(pages)
+    finally:
+        decode.connected_components_multiclass = label
+    return seen
+
+
+# phase 1's page-axis instances of the CCL: the decoder's class maps of
+# eight pages of the 512 bucket (seeds 3-10; the first three too), the
+# blobby / noisy / maze maps stacked at 512^2 (B 3, and B 8 drawing each
+# kind in turn) and a ragged stack of three at 865 x 860
+CCL_BATCH_PAGES = tuple((s, 5, 10) for s in range(3, 11))
+
+
+def ccl_batch_instances(dev):
+    """{name: [B, H, W] int32 class maps on ``dev``} of the CCL's page axis
+    (``CCL_BATCH_PAGES``, ``ccl_map``)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.utils.kernel_inputs import ccl_map
+
+    kv = _bench_kv(dict(FLAGSHIP, flat_scales=3), "float32", dev, 512,
+                   _pages(CCL_BATCH_PAGES[:1])[0])
+    (maps,) = _record_decoder_maps(kv, _pages(CCL_BATCH_PAGES))
+    del kv
+    torch.cuda.empty_cache()
+    out = {"decoder B8 512^2": maps, "decoder B3 512^2": maps[:3].contiguous()}
+    kinds = ("blobby", "noisy", "maze")
+    for b, h, w in ((3, 512, 512), (8, 512, 512), (3, 865, 860)):
+        rng = np.random.default_rng(5)
+        out[f"stacked B{b} {h}x{w}"] = torch.from_numpy(np.stack(
+            [ccl_map(kinds[i % 3], h, w, rng) for i in range(b)])).to(dev)
+    return out
+
+
+def check_ccl_batched(dev, iters=50):
+    """Phase 1, the CCL's page axis: each ``ccl_batch_instances`` stack
+    labelled in one call, held page by page to the plain version of that
+    page alone and to the kernel's own [H, W] call, with the same bits on
+    a rerun; each timed beside ``ccl_bound`` times B -> {name: {B, ms,
+    bound}}."""
+    import torch
+
+    from msau_tpu_torch.ops.ccl import (
+        connected_components_multiclass_cuda as ccl,
+        connected_components_multiclass_plain,
+    )
+
+    out = {}
+    for name, maps in ccl_batch_instances(dev).items():
+        b, h, w = maps.shape
+        got, again = ccl(maps), ccl(maps)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"ccl {name}: a rerun gives other bits")
+        for i in range(b):
+            if not torch.equal(got[i], ccl(maps[i].contiguous())):
+                raise AssertionError(f"ccl {name}: page {i} differs from "
+                                     "the kernel's [H, W] call")
+            if not torch.equal(got[i],
+                               connected_components_multiclass_plain(maps[i])):
+                raise AssertionError(f"ccl {name}: page {i} differs from "
+                                     "the plain version")
+        ms, by = ccl_bound(h, w)
+        out[name] = {"B": b, "ms": _cuda_ms(lambda: ccl(maps), iters),
+                     "bound": (ms * b, by)}
+    print(f"[phase 1] ccl page axis exact page by page, equal to B = 1 and "
+          f"the same bits on a rerun: {json.dumps(out)}", flush=True)
+    return out
+
+
+# phase 2c's batch: six pages of the 512 bucket (seed 3 is phase 2's bench
+# page) and two of the 1024 bucket, interleaved, so that the results come
+# back in input order from two groups
+SERVE_BATCH_PAGES = ((3, 5, 10), (4, 5, 10), (3, 10, 20), (5, 5, 10),
+                     (6, 5, 10), (7, 5, 10), (4, 10, 20), (8, 5, 10))
+SERVE_BATCH_GROUPS = {512: 6, 1024: 2}   # bucket side: pages
+SERVE_BATCH_CALLS = 2
+# the batched f32 probabilities against each page's predict.  The batch
+# changes summation orders (cuDNN's algorithms, the attention's grid
+# layout), and this random model amplifies one-ulp differences at a few
+# pixels: a probe read, over the eight pages at fs 3 and 0, a largest
+# difference of 3.3e-5 to 2.0e-3 (at most 484 of 17.8 M probabilities over
+# 1e-4, on a 1024 page) with means of 3.3e-8 to 1.4e-7, while on the bench
+# page the batched and the single forward lay equally far from the float64
+# forward (largest 5.9e-5 and 4.5e-5 at fs 3, 8.9e-5 and 1.0e-4 at fs 0).
+# So the mean is held to 1e-6 and the largest to 5e-3, which a page-axis
+# fault (a page reading another's pixels) exceeds by orders of magnitude,
+# and on the bench page the batched forward to the float64 one within
+# twice the single forward's own distance (at least 1e-5)
+BATCH_PROBS_TOL = 5e-3
+BATCH_PROBS_MEAN_TOL = 1e-6
+
+
+def _batch_launches(fs, groups):
+    """Kernel launches of one ``predict_batch`` call: paint 3 a page; per
+    group one CCL, three attention forwards (resident below 8192 tokens,
+    streaming from there) and at flat_scales 3 the flat forward kernels of
+    one request."""
+    per = {"paint": 3 * sum(groups.values()),
+           "ccl_multiclass": len(groups)}
+    for side in groups:
+        attn = ("fused_attention_fwd" if (side // 8) ** 2 >= 8192
+                else "resident_attention_fwd")
+        per[attn] = per.get(attn, 0) + 3
+        for name, n in SERVE_PER_REQUEST[fs].items():
+            if name not in ("paint", "ccl_multiclass",
+                            "resident_attention_fwd"):
+                per[name] = per.get(name, 0) + n
+    return per
+
+
+def _exact_probs(kv, x):
+    """The float64 forward of the KVModel's network on the CPU (the plain
+    versions, no f32 rounding) on one page's one-hot ``x`` [H, W, V]."""
+    import dataclasses
+
+    import torch
+
+    from msau_tpu_torch.models.msau import build_model
+
+    exact = build_model(dataclasses.replace(kv.model_config, dtype="float64"),
+                        torch.Generator().manual_seed(0)).eval().double()
+    exact.load_state_dict({k: v.cpu().double()
+                           for k, v in kv.model.state_dict().items()})
+    with torch.inference_mode():
+        return exact(x[None].cpu().double())[0][0]
+
+
+def serve_batch(dev):
+    """Phase 2c: ``predict_batch`` of the flagship at flat_scales 3 and 0,
+    f32 and bf16 (phase 2's seeded weights) on ``SERVE_BATCH_PAGES`` ->
+    (launch counts, timings, checks).  Per model: launches per call
+    (``_batch_launches``), each page's decode tables equal to the unbatched
+    decoder's on that page's slice of the batched probabilities (which the
+    pages' strings come from); in f32 the
+    batched probabilities within BATCH_PROBS_TOL (mean BATCH_PROBS_MEAN_TOL)
+    of each page's ``predict``, on the first page as near the float64
+    forward as ``predict``'s, and, where the argmax maps agree, the same
+    results; host ms per page (p50 over SERVE_BATCH_CALLS calls) and
+    device busy ms per page beside ``predict``'s (one request per page,
+    host ms their mean)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.rasterize import round_up
+    from msau_tpu_torch.infer.decode import pack_decode_out
+
+    pages = _pages(SERVE_BATCH_PAGES)
+    n = len(pages)
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    timings, checks = {}, {}
+    for fs in (3, 0):
+        for dtype in ("float32", "bfloat16"):
+            key = f"batch_fs{fs}_{dtype}"
+            kv = _bench_kv(dict(FLAGSHIP, flat_scales=fs), dtype, dev, 512,
+                           pages[0])
+            rast = [kv.rasterize(p) for p in pages]
+            groups = {}
+            for x, *_ in rast:
+                groups[x.shape[0]] = groups.get(x.shape[0], 0) + 1
+            if fs == 3 and dtype == "float32":
+                print(f"[phase 2c] groups (bucket: pages) {groups}", flush=True)
+            if groups != SERVE_BATCH_GROUPS:
+                raise AssertionError(f"pages landed in buckets {groups}")
+            want = _batch_launches(fs, groups)
+            kv.predict_batch(pages)                 # warm-up
+            walls = []
+            ops.reset_launch_counts()
+            for _ in range(SERVE_BATCH_CALLS):
+                t0 = time.perf_counter()
+                results = kv.predict_batch(pages)
+                walls.append((time.perf_counter() - t0) * 1e3 / n)
+            counts = ops.launch_counts()
+            for name, got in counts.items():
+                if got != want.get(name, 0) * SERVE_BATCH_CALLS:
+                    raise AssertionError(
+                        f"{key}: {name} launched {got} times in "
+                        f"{SERVE_BATCH_CALLS} calls, want "
+                        f"{want.get(name, 0)} a call")
+                total[name] += got
+            singles = []
+            for p in pages:
+                t0 = time.perf_counter()
+                kv.predict(p, return_maps=False)
+                singles.append((time.perf_counter() - t0) * 1e3)
+            prof_b = _profile_steps(lambda: kv.predict_batch(pages), 1)
+            prof_1 = _profile_steps(
+                lambda: [kv.predict(p, return_maps=False) for p in pages], 1)
+            timings[key] = {
+                "batch_p50_ms_per_page": float(np.median(walls)),
+                "predict_mean_ms_per_page": float(np.mean(singles)),
+                "batch_busy_ms_per_page": prof_b["busy_ms"] / n,
+                "predict_busy_ms_per_page": prof_1["busy_ms"] / n,
+                "batch_kernels_per_page": prof_b["kernels"] / n,
+                "predict_kernels_per_page": prof_1["kernels"] / n}
+            print(f"[phase 2c] {key}: launches per call "
+                  f"{ {k: v // SERVE_BATCH_CALLS for k, v in counts.items() if v} }"
+                  f"; per page {json.dumps(timings[key])}", flush=True)
+
+            # each page's tables against the unbatched decoder on its slice
+            check = {"tables_equal_unbatched": True}
+            order = {}
+            for i, (x, *_rest) in enumerate(rast):
+                order.setdefault(tuple(x.shape), []).append(i)
+            probs_of = {}
+            for shape, idx in order.items():
+                nl = round_up(max(max(len(rast[i][3]) for i in idx), 1), 128)
+                packed, probs = kv.serve_group(
+                    torch.stack([rast[i][0] for i in idx]),
+                    torch.stack([rast[i][1] for i in idx]),
+                    torch.stack([rast[i][2] for i in idx]), nl)
+                for j, i in enumerate(idx):
+                    with torch.inference_mode():
+                        one = pack_decode_out(kv._decode(
+                            probs[j], rast[i][1], rast[i][2], nl))
+                    if not torch.equal(one, packed[j]):
+                        raise AssertionError(f"{key}: page {i}'s batched "
+                                             "tables differ from the "
+                                             "unbatched decoder's")
+                    probs_of[i] = probs[j].float()
+                    if not torch.isfinite(probs[j]).all():
+                        raise AssertionError(f"{key}: non-finite probs")
+            if dtype == "float32":
+                errs, means, same_results, argmax_equal = [], [], 0, 0
+                for i, p in enumerate(pages):
+                    res, ex = kv.predict(p, return_maps=True)
+                    errs.append(_max_abs(probs_of[i], ex["pred"]))
+                    means.append(float((probs_of[i] - ex["pred"]).abs().mean()))
+                    if i == 0:
+                        exact = _exact_probs(kv, rast[0][0])
+                        near = {"batched": _max_abs(probs_of[0].cpu(), exact),
+                                "predict": _max_abs(ex["pred"].cpu(), exact)}
+                    if torch.equal(probs_of[i].argmax(-1),
+                                   ex["pred"].argmax(-1)):
+                        argmax_equal += 1
+                        if res != results[i][0]:
+                            raise AssertionError(f"{key}: page {i}: results "
+                                                 "differ from predict's")
+                        same_results += 1
+                check.update(probs_max_abs_err=max(errs), tol=BATCH_PROBS_TOL,
+                             probs_mean_abs_err=max(means),
+                             mean_tol=BATCH_PROBS_MEAN_TOL,
+                             page0_max_abs_err_vs_float64=near,
+                             argmax_equal_pages=argmax_equal,
+                             results_equal_pages=same_results)
+                if not (max(errs) <= BATCH_PROBS_TOL
+                        and max(means) <= BATCH_PROBS_MEAN_TOL
+                        and near["batched"] <= 2 * max(near["predict"], 1e-5)):
+                    raise AssertionError(f"{key}: batched probs from "
+                                         f"predict's: {json.dumps(check)}")
+            checks[key] = check
+            print(f"[phase 2c] {key}: {json.dumps(check)}", flush=True)
+            del kv, rast, probs_of
+            torch.cuda.empty_cache()
+    return total, timings, checks
+
+
+def field_eval(dev):
+    """Phase 2d: ``write_corpus`` (8 labelled test pages, rng 11) under the
+    build directory, then ``run_test`` with the flagship at flat_scales 3,
+    bf16 (seeded random weights: the F1 means nothing) -> (launch counts,
+    check).  Checks: ``num_label`` per class equals the label files' own
+    count (``read_json_gt``), the counters equal the sum of per-page
+    ``predict(label_path=, eval_results=)``, the summary lies in [0, 1],
+    and the launches per page are a request's (SERVE_PER_REQUEST)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.pages import load_label_json_page
+    from msau_tpu_torch.data.synth import write_corpus
+    from msau_tpu_torch.infer.evaluate import read_json_gt
+    from msau_tpu_torch.ops import cuda_lib
+
+    root = str(cuda_lib.BUILD_DIR.parent / "field_eval")
+    _, tests, _ = write_corpus(root, 0, 8, np.random.default_rng(11))
+    kv = _bench_kv(dict(FLAGSHIP, flat_scales=3), "bfloat16", dev, 256,
+                   load_label_json_page(tests[0]))
+    ops.reset_launch_counts()
+    kv_results, eval_results, summary = kv.run_test(tests, label_dir=root)
+    counts = ops.launch_counts()
+    for name, got in counts.items():
+        if got != SERVE_PER_REQUEST[3].get(name, 0) * len(tests):
+            raise AssertionError(f"run_test: {name} launched {got} times "
+                                 f"for {len(tests)} pages")
+    labels = [0] * kv.n_class
+    summed = [{"num_pred": 0, "num_correct": 0, "num_label": 0}
+              for _ in range(kv.n_class)]
+    for path in tests:
+        for value_id in read_json_gt(path):
+            if value_id < kv.n_class:
+                labels[value_id] += 1
+        one = [{"num_pred": 0, "num_correct": 0, "num_label": 0}
+               for _ in range(kv.n_class)]
+        kv.predict(path, label_path=os.path.join(
+            root, os.path.basename(path)), eval_results=one)
+        for a, b in zip(summed, one):
+            for k in a:
+                a[k] += b[k]
+    if [c["num_label"] for c in eval_results] != labels:
+        raise AssertionError(f"run_test num_label {eval_results} against "
+                             f"the label files' {labels}")
+    if eval_results != summed:
+        raise AssertionError("run_test counters differ from the sum of "
+                             "per-page predict counters")
+    if not all(0.0 <= v <= 1.0 for v in summary.values()):
+        raise AssertionError(f"run_test summary out of [0, 1]: {summary}")
+    check = {"pages": len(tests), "results": len(kv_results),
+             "counters": eval_results, "summary": summary}
+    print(f"[phase 2d] run_test on {len(tests)} labelled pages (random "
+          f"weights: the F1 means nothing): counters "
+          f"{json.dumps(eval_results)}; summary {json.dumps(summary)}",
+          flush=True)
+    del kv
+    torch.cuda.empty_cache()
+    return counts, check
 
 
 FLAGSHIP = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
@@ -2261,6 +2633,8 @@ def main() -> int:
         return out
 
     kernels = timed("phase 1 serve kernels", check_kernels, dev)
+    kernels["ccl_multiclass"]["page_axis"] = timed(
+        "phase 1 ccl page axis", check_ccl_batched, dev)
     kernels.update(timed("phase 1 attention", check_attention_kernels, dev))
     kernels.update(timed("phase 1 train kernels", check_train_kernels, dev))
     kernels.update(timed("phase 1 streaming attention",
@@ -2272,9 +2646,16 @@ def main() -> int:
     counts, timings, checks = timed("phase 2 512^2", serve_path, dev)
     counts_1024, timings_1024, checks_1024 = timed(
         "phase 2 1024^2", serve_path_1024, dev)
-    counts = {k: counts[k] + counts_1024[k] for k in counts}
+    counts_batch, timings_batch, checks_batch = timed(
+        "phase 2c batched serve", serve_batch, dev)
+    counts_eval, checks["field_eval"] = timed("phase 2d field evaluation",
+                                              field_eval, dev)
+    counts = {k: counts[k] + counts_1024[k] + counts_batch[k] + counts_eval[k]
+              for k in counts}
     timings.update(timings_1024)
+    timings.update(timings_batch)
     checks.update(checks_1024)
+    checks.update(checks_batch)
     train_counts, train = timed("phase 3 train", train_path, dev)
     checks["train_step"] = timed("phase 3 step check", train_step_check, dev)
     launches = {k: counts[k] + train_counts[k] for k in counts}

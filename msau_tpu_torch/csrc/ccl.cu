@@ -1,6 +1,8 @@
-// Multiclass 4-connected component labelling: a pixel joins only neighbours
-// of the SAME class (class <= 0 is background).  The label of a component is
-// the linear index of its raster-first pixel + 1; background is 0.
+// Multiclass 4-connected component labelling of a stack of B pages: a pixel
+// joins only neighbours of the SAME class on the same page (class <= 0 is
+// background).  The label of a component is the linear index of its
+// raster-first pixel within its page + 1; background is 0.  This is what
+// jax.vmap of the TPU kernel gives on a [B, H, W] stack.
 //
 // Replaces the TPU kernel msau_tpu/ops/ccl.py:_ccl_mc_kernel (launcher
 // connected_components_multiclass_pallas), which keeps the [H, W] label map
@@ -39,6 +41,14 @@
 // on every run, and equal the TPU kernel's FIXPOINT exactly, with no sweep
 // cap; they differ from that kernel only where it stops at its cap
 // unconverged.
+//
+// The page axis: the tile and flatten kernels take their page from
+// blockIdx.z, and the border kernel's flat index runs over the pairs of
+// every page in turn.  Each kernel offsets its cls, parent and label
+// pointers by the page's H * W, so every index inside a find or a union is
+// page-local: no union crosses a page, a page's trees are the ones a B = 1
+// call builds, and B = 1 is the same three launches and the same bits as
+// an unbatched call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,6 +126,10 @@ __device__ void unite(int* parent, int a, int b) {
 __global__ void __launch_bounds__(kThreads, 2)
 local_kernel(const int* __restrict__ cls, int* __restrict__ parent,
              int* __restrict__ code, int height, int width) {
+  const size_t page = (size_t)blockIdx.z * height * width;
+  cls += page;
+  parent += page;
+  code += page;
   __shared__ int s_cls[kThreads];
   __shared__ int s_par[kThreads];
   const int li = threadIdx.x;
@@ -174,9 +188,15 @@ __device__ __forceinline__ int tile_root(const int* code, int y, int x,
 __global__ void __launch_bounds__(kBorderThreads)
 border_kernel(const int* __restrict__ cls, int* parent,
               const int* __restrict__ code, int height, int width,
-              int n_vertical, int n_pairs) {
-  const int i = blockIdx.x * kBorderThreads + threadIdx.x;
-  if (i >= n_pairs) return;
+              int n_vertical, int n_pairs, int batch) {
+  const long long k = (long long)blockIdx.x * kBorderThreads + threadIdx.x;
+  if (k >= (long long)n_pairs * batch) return;
+  const int b = (int)(k / n_pairs);
+  const int i = (int)(k - (long long)b * n_pairs);  // the pair in its page
+  const size_t page = (size_t)b * height * width;
+  cls += page;
+  parent += page;
+  code += page;
   int ya, xa, yb, xb, step;  // a before b; step back along the border
   if (i < n_vertical) {      // (y, xa) | (y, xa + 1) across a column border
     const int border = i / height;
@@ -203,6 +223,9 @@ border_kernel(const int* __restrict__ cls, int* parent,
 
 __global__ void __launch_bounds__(kThreads, 2)
 flatten_kernel(int* parent, int* code, int height, int width) {
+  const size_t page = (size_t)blockIdx.z * height * width;
+  parent += page;
+  code += page;
   __shared__ int s_root[kThreads];
   const int li = threadIdx.x;
   const int x = blockIdx.x * kTileW + (li & (kTileW - 1));
@@ -222,21 +245,26 @@ flatten_kernel(int* parent, int* code, int height, int width) {
 
 }  // namespace
 
+// cls, parent and labels are [batch, height, width] int32.
 extern "C" int msau_ccl_multiclass(const void* cls, void* parent, void* labels,
-                                   int height, int width, void* stream) {
-  if (height <= 0 || width <= 0) return 0;
+                                   int batch, int height, int width,
+                                   void* stream) {
+  if (batch <= 0 || height <= 0 || width <= 0) return 0;
+  if (batch > 65535) return (int)cudaErrorInvalidValue;  // gridDim.z
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 tiles((width + kTileW - 1) / kTileW,
-                   (height + kTileH - 1) / kTileH);
+                   (height + kTileH - 1) / kTileH, batch);
   local_kernel<<<tiles, kThreads, 0, s>>>((const int*)cls, (int*)parent,
                                           (int*)labels, height, width);
   const int n_vertical = (tiles.x - 1) * height;
-  const int n_pairs = n_vertical + (tiles.y - 1) * width;
-  if (n_pairs > 0)
-    border_kernel<<<(n_pairs + kBorderThreads - 1) / kBorderThreads,
+  const int n_pairs = n_vertical + (tiles.y - 1) * width;  // per page
+  const long long all_pairs = (long long)n_pairs * batch;
+  if (all_pairs > 0)
+    border_kernel<<<(unsigned)((all_pairs + kBorderThreads - 1) /
+                               kBorderThreads),
                     kBorderThreads, 0, s>>>((const int*)cls, (int*)parent,
                                             (const int*)labels, height, width,
-                                            n_vertical, n_pairs);
+                                            n_vertical, n_pairs, batch);
   flatten_kernel<<<tiles, kThreads, 0, s>>>((int*)parent, (int*)labels,
                                             height, width);
   return (int)cudaGetLastError();

@@ -6,7 +6,8 @@ Host half of ``msau_tpu.data.rasterize`` (``BoxProgram``,
 JAX; tests/test_torch_host_copies.py pins it to the original.  The host does
 only the cheap O(#chars) geometry, producing *box programs* — padded arrays
 of (y1, y2, x1, x2, value) records — and ``paint_boxes`` paints one plane on
-the device of its tensors (``msau_tpu_torch.ops.paint``).
+the device of its tensors (``msau_tpu_torch.ops.paint``); ``paint_planes``
+paints several planes through the same kernel in one call.
 
 Painting is sequential last-write-wins, exactly matching numpy slice
 assignment order; empty records (y1 >= y2 or x1 >= x2) are no-ops.
@@ -18,10 +19,11 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from msau_tpu_torch.data.charset import Charset
 from msau_tpu_torch.data.pages import Line, Page
-from msau_tpu_torch.ops.paint import paint_boxes  # noqa: F401  (re-export)
+from msau_tpu_torch.ops.paint import paint_boxes
 
 Array = np.ndarray
 
@@ -72,6 +74,30 @@ def paint_boxes_numpy(program: BoxProgram, height: int, width: int) -> Array:
         x1c, x2c = max(x1, 0), max(min(x2, width), 0)
         grid[y1c:y2c, x1c:x2c] = v
     return grid
+
+
+def paint_planes(boxes: torch.Tensor, values: torch.Tensor,
+                 plane_ids: torch.Tensor, height: int, width: int,
+                 num_planes: int) -> torch.Tensor:
+    """Paint several planes in one call -> [num_planes, H, W] int32: box i
+    paints only plane ``plane_ids[i]`` (none where that is out of range),
+    last write wins within a plane.
+
+    The planes are one [num_planes * H, W] grid for ``paint_boxes`` (the
+    paint kernel on a card): each box's rows are clipped to [0, H) before
+    they are offset by its plane's H, so that no box spills into the next
+    plane."""
+    b = boxes.to(torch.int32)
+    pid = plane_ids.to(torch.int32)
+    y1 = b[:, 0].clamp(0, height)
+    y2 = b[:, 1].clamp(0, height)
+    y2 = torch.where((pid >= 0) & (pid < num_planes), y2, y1)
+    off = pid.clamp(0, max(num_planes - 1, 0)) * height
+    stacked = torch.stack([y1 + off, y2 + off, b[:, 2], b[:, 3]], 1)
+    grid = paint_boxes(stacked.contiguous(),
+                       values.to(torch.int32).contiguous(),
+                       num_planes * height, width)
+    return grid.reshape(num_planes, height, width)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Synthetic form pages for the serve benchmark and smoke runs, and the
 bench's structured training batch.
 
-Host copy of ``make_page``, ``make_structured_batch`` and ``BENCH_CHARSET``
-from ``msau_tpu.data.synth`` (that package's ``__init__`` imports JAX);
+Host copy of ``make_page``, ``write_corpus``, ``make_structured_batch`` and
+``BENCH_CHARSET`` from ``msau_tpu.data.synth`` (that package's ``__init__`` imports JAX);
 tests/test_torch_host_copies.py pins each to the original.  Each page is a randomized bank-transfer-style form
 in the labeling-tool JSON dict format (``{'img_shape', 'lines': [{box, text,
 type, value}]}``) over the default 17-class schema.
@@ -10,6 +10,8 @@ type, value}]}``) over the default 17-class schema.
 
 from __future__ import annotations
 
+import json
+import os
 import string
 from typing import List, Tuple
 
@@ -87,6 +89,27 @@ def make_page(rng: np.random.Generator, *, n_cols: int = 1,
                     y += int(rng.integers(34, 56))
         y_max = max(y_max, y)
     return {"img_shape": [y_max + 30, n_cols * col_w], "lines": lines}
+
+
+def write_corpus(out_dir: str, n_train: int, n_test: int,
+                 rng: np.random.Generator, **page_kwargs
+                 ) -> Tuple[List[str], List[str], str]:
+    """Dump a page corpus + charset file; returns (train, test, charset)."""
+    os.makedirs(out_dir, exist_ok=True)
+    train_paths: List[str] = []
+    test_paths: List[str] = []
+    corpus: List[str] = []
+    for i in range(n_train + n_test):
+        doc = make_page(rng, **page_kwargs)
+        p = os.path.join(out_dir, f"page{i:03d}.json")
+        with open(p, "w") as f:
+            json.dump(doc, f)
+        (train_paths if i < n_train else test_paths).append(p)
+        corpus.extend(l["text"] for l in doc["lines"])
+    charset_path = os.path.join(out_dir, "charset.txt")
+    with open(charset_path, "w") as f:
+        f.write("".join(sorted(set("".join(corpus)))))
+    return train_paths, test_paths, charset_path
 
 
 def make_structured_batch(

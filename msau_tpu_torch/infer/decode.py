@@ -6,7 +6,10 @@ multiclass labelling (``ops.ccl``, the union-find CUDA kernel on a card),
 per-root stats and selection, and the component x line reductions — and only
 the small per-class tables reach the host, where ``extract_values`` (a host
 copy of the original, pinned by tests/test_torch_host_copies.py) replays the
-reference string policy.
+reference string policy.  A stack of pages ([B, H, W, C] probabilities)
+decodes in one pass with one labelling launch, every table gaining a
+leading B (``jax.vmap`` of the JAX decoder), and ``pack_decode_out`` packs
+it as [B, L].
 
 Tie rules kept from the JAX decoder:
   * argmax over classes takes the first maximum;
@@ -36,7 +39,11 @@ import torch
 
 from msau_tpu_torch.infer.reading_order import sort_box_reading_order
 from msau_tpu_torch.infer.schema import FieldSchema
-from msau_tpu_torch.ops.ccl import connected_components_multiclass
+from msau_tpu_torch.ops.ccl import (
+    connected_components_multiclass,
+    segment_reduce,
+    top_k_lower_index,
+)
 from msau_tpu_torch.ops.morphology import packed_closing
 
 INT_MAX = torch.iinfo(torch.int32).max
@@ -46,36 +53,21 @@ INT_MIN = torch.iinfo(torch.int32).min
 # ---------------------------------------------------------------------------
 # Device side
 # ---------------------------------------------------------------------------
-def _segment(src: torch.Tensor, seg: torch.Tensor, n: int, reduce: str,
-             identity: int) -> torch.Tensor:
-    """jax.ops.segment_{min,max}: empty segments hold the identity."""
-    out = torch.full((n,), identity, dtype=src.dtype, device=src.device)
-    return out.scatter_reduce(0, seg.long(), src, reduce, include_self=True)
-
-
 def _first_arg(vals: torch.Tensor, largest: bool) -> torch.Tensor:
-    """Index of the first max (min) along the last axis, by a unique int64
-    key, whatever order the backend's argmax would break ties in."""
+    """int32 index of the first max (min) along the last axis, whatever
+    order the backend's argmax would break ties in: the extreme, then the
+    least index holding it (int32 temporaries only)."""
     n = vals.shape[-1]
-    idx = torch.arange(n, device=vals.device, dtype=torch.int64)
-    v = vals.to(torch.int64) if largest else -vals.to(torch.int64)
-    return torch.argmax(v * n + (n - 1 - idx), dim=-1)
-
-
-def _top_k_lower_index(vals: torch.Tensor, k: int):
-    """``lax.top_k`` along the last axis: descending values, ties to the
-    lower index."""
-    n = vals.shape[-1]
-    idx = torch.arange(n, device=vals.device, dtype=torch.int64)
-    key = vals.to(torch.int64) * n + (n - 1 - idx)
-    top, _ = torch.topk(key, k, dim=-1)
-    return (top // n).to(vals.dtype), (n - 1 - top % n)
+    ext = (vals.amax(-1, keepdim=True) if largest
+           else vals.amin(-1, keepdim=True))
+    idx = torch.arange(n, dtype=torch.int32, device=vals.device)
+    return torch.where(vals == ext, idx, n).amin(-1)
 
 
 def decode_fields_device(
-    pred: torch.Tensor,        # [H, W, n_class] probs or logits
-    line_id: torch.Tensor,     # [H, W] int32, 1-based line ids (0 = none)
-    char_id: torch.Tensor,     # [H, W] int32, 1-based char positions
+    pred: torch.Tensor,        # [H, W, n_class] or [B, H, W, n_class]
+    line_id: torch.Tensor,     # [H, W] / [B, H, W] int32, 1-based line ids
+    char_id: torch.Tensor,     # [H, W] / [B, H, W] int32, 1-based char pos.
     multiline_classes: Tuple[int, ...] = (),
     *,
     n_class: int,
@@ -88,19 +80,40 @@ def decode_fields_device(
     Returns (leading dim n_class): active [C], main_bbox [C, 4] (x1, y1, x2,
     y2), alt_bbox [C, K, 4], alt_valid [C, K], line_overlap [C, L+1],
     comp_per_line [C, L+1], char_min / char_max [C, L+1], and chosen_class
-    [H, W], as ``msau_tpu.infer.decode.decode_fields_device``.
+    [H, W], as ``msau_tpu.infer.decode.decode_fields_device``.  With a
+    leading page axis on the inputs every table has a leading B, as
+    ``jax.vmap`` of that function gives: one closing, one labelling launch
+    and one set of segment reductions for all pages.
     """
-    h, w = line_id.shape
+    if line_id.ndim == 2:
+        out = _decode_pages(pred[None], line_id[None], char_id[None],
+                            multiline_classes, n_class=n_class,
+                            num_lines=num_lines, k=k, min_area=min_area)
+        return {key: v[0] for key, v in out.items()}
+    return _decode_pages(pred, line_id, char_id, multiline_classes,
+                         n_class=n_class, num_lines=num_lines, k=k,
+                         min_area=min_area)
+
+
+def _decode_pages(pred, line_id, char_id, multiline_classes, *, n_class,
+                  num_lines, k, min_area):
+    """``decode_fields_device`` on [B, ...] inputs.  Per-page tables of H*W
+    + 1 roots are reduced as one flat table, each page's ids offset by
+    b * (H*W + 1) (and the (slot, line) ids by b * the page's segment
+    count), so that no reduction mixes pages."""
+    b, h, w = line_id.shape
     dev = line_id.device
-    hw1 = h * w + 1
+    hw = h * w
+    hw1 = hw + 1
     c2 = n_class - 2          # classes 0/1 are never decoded
     if c2 > 32:
         raise ValueError("packed closing supports up to 32 decodable classes")
     i32 = torch.int32
     pred_class = torch.argmax(pred, dim=-1).to(i32)
-    lid_flat = line_id.reshape(-1)
-    cid_flat = char_id.reshape(-1)
+    lid_flat = line_id.reshape(b, hw)
+    cid_flat = char_id.reshape(b, hw)
     nl = num_lines + 1
+    pages = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
 
     one = torch.ones((), dtype=i32, device=dev)
     bits = torch.where(
@@ -110,65 +123,77 @@ def decode_fields_device(
     closed_bits = packed_closing(bits, (1, 3))
     # owner = lowest set bit: the lowest class wins overlapping closings
     owner = torch.full_like(closed_bits, c2)
-    for b in range(c2 - 1, -1, -1):
-        owner = torch.where(((closed_bits >> b) & 1) != 0,
-                            torch.full_like(owner, b), owner)
+    for bit in range(c2 - 1, -1, -1):
+        owner = torch.where(((closed_bits >> bit) & 1) != 0,
+                            torch.full_like(owner, bit), owner)
     cls_map = torch.where(closed_bits != 0, owner + 2, torch.zeros_like(owner))
-    labels = connected_components_multiclass(cls_map)
+    del bits, closed_bits, owner
+    labels = connected_components_multiclass(cls_map)   # page-local labels
 
     # a root IS its component's raster-first pixel: existence is
     # labels.flat[r-1] == r and y1 = (r-1) // W
-    lbl_flat = labels.reshape(-1)
+    lbl_flat = labels.reshape(b, hw)
     ar = torch.arange(hw1, dtype=i32, device=dev)
-    exists = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
-                        lbl_flat == ar[1:]])
+    exists = torch.cat([torch.zeros((b, 1), dtype=torch.bool, device=dev),
+                        lbl_flat == ar[1:]], 1)                  # [B, HW+1]
     y1 = torch.where(exists, torch.div(ar - 1, w, rounding_mode="floor"),
                      torch.zeros_like(ar))
-    pix = torch.arange(h * w, dtype=i32, device=dev)
-    rows_flat = torch.div(pix, w, rounding_mode="floor")
-    cols_flat = pix % w
-    y2 = _segment(rows_flat, lbl_flat, hw1, "amax", INT_MIN) + 1
-    x1 = _segment(cols_flat, lbl_flat, hw1, "amin", INT_MAX)
-    x2 = _segment(cols_flat, lbl_flat, hw1, "amax", INT_MIN) + 1
-    area = torch.where(exists, (y2 - y1) * (x2 - x1), torch.zeros_like(ar))
-    cls_of = torch.cat([torch.zeros(1, dtype=i32, device=dev),
-                        cls_map.reshape(-1)])
+    pix = torch.arange(hw, dtype=i32, device=dev)
+    rows_flat = torch.div(pix, w, rounding_mode="floor").expand(b, hw)
+    cols_flat = (pix % w).expand(b, hw)
+    root_seg = (lbl_flat + pages * hw1).reshape(-1)
+
+    def per_root(src, reduce, identity):
+        return segment_reduce(src.reshape(-1), root_seg, b * hw1, reduce,
+                              identity).view(b, hw1)
+
+    y2 = per_root(rows_flat, "amax", INT_MIN) + 1
+    x1 = per_root(cols_flat, "amin", INT_MAX)
+    x2 = per_root(cols_flat, "amax", INT_MIN) + 1
+    area = torch.where(exists, (y2 - y1) * (x2 - x1), torch.zeros_like(y1))
+    cls_of = torch.cat([torch.zeros((b, 1), dtype=i32, device=dev),
+                        cls_map.reshape(b, hw)], 1)
 
     def select(cs: List[int], multiline: bool):
+        nc = len(cs)
         ct = torch.tensor(cs, dtype=i32, device=dev)
-        in_c = exists[None] & (cls_of[None] == ct[:, None])      # [nc, HW+1]
+        # [B, nc, HW+1] masks and int32 keys, freed when this returns
+        in_c = exists[:, None] & (cls_of[:, None] == ct[None, :, None])
         if multiline:
             # topmost center (2*ycenter is monotone)
-            ycenter2 = torch.where(in_c, (y1 + y2)[None],
-                                   torch.full_like(in_c, INT_MAX, dtype=i32))
-            main = _first_arg(ycenter2, largest=False)
+            main = _first_arg(torch.where(in_c, (y1 + y2)[:, None], INT_MAX),
+                              largest=False)
         else:
-            main = _first_arg(torch.where(in_c, area[None],
-                                          torch.full_like(in_c, -1, dtype=i32)),
+            main = _first_arg(torch.where(in_c, area[:, None], -1),
                               largest=True)
-        rows = torch.arange(len(cs), device=dev)
-        active = in_c[rows, main] & (area[main] >= min_area)
-        main_bbox = torch.stack([x1[main], y1[main], x2[main], y2[main]], -1)
-        main_bbox = torch.where(active[:, None], main_bbox,
+        main_l = main.long()                                    # [B, nc]
+        take = lambda t: torch.gather(t, 1, main_l)
+        active = (torch.gather(in_c, 2, main_l[..., None])[..., 0]
+                  & (take(area) >= min_area))
+        main_bbox = torch.stack([take(x1), take(y1), take(x2), take(y2)], -1)
+        main_bbox = torch.where(active[..., None], main_bbox,
                                 torch.zeros_like(main_bbox))
         if not multiline:
-            zk = torch.zeros((len(cs), k), dtype=i32, device=dev)
+            zk = torch.zeros((b, nc, k), dtype=i32, device=dev)
             return {
                 "active": active,
                 "main_bbox": main_bbox,
-                "alt_bbox": torch.zeros((len(cs), k, 4), dtype=i32, device=dev),
-                "alt_valid": torch.zeros((len(cs), k), dtype=torch.bool,
-                                         device=dev),
-                "roots": torch.cat([main[:, None].to(i32), zk], 1),
-                "roots_valid": torch.cat([active[:, None], zk.bool()], 1),
+                "alt_bbox": torch.zeros((b, nc, k, 4), dtype=i32, device=dev),
+                "alt_valid": zk.bool(),
+                "roots": torch.cat([main[..., None], zk], -1),
+                "roots_valid": torch.cat([active[..., None], zk.bool()], -1),
             }
-        is_alt = (in_c & (area > min_area)[None]
-                  & (ar[None].long() != main[:, None]))
-        alt_vals, alt_roots = _top_k_lower_index(
-            torch.where(is_alt, area[None], torch.zeros_like(area)[None]), k)
-        alt_valid = (alt_vals > 0) & active[:, None]
-        alt_bbox = torch.stack([x1[alt_roots], y1[alt_roots], x2[alt_roots],
-                                y2[alt_roots]], -1)
+        is_alt = (in_c & (area > min_area)[:, None]
+                  & (ar[None, None] != main[..., None]))
+        del in_c
+        alt_vals, alt_roots = top_k_lower_index(
+            torch.where(is_alt, area[:, None], 0), k)           # [B, nc, k]
+        del is_alt
+        alt_valid = (alt_vals > 0) & active[..., None]
+        take_k = lambda t: torch.gather(t, 1, alt_roots.reshape(b, -1)
+                                        ).reshape(b, nc, k)
+        alt_bbox = torch.stack([take_k(x1), take_k(y1), take_k(x2),
+                                take_k(y2)], -1)
         alt_bbox = torch.where(alt_valid[..., None], alt_bbox,
                                torch.zeros_like(alt_bbox))
         return {
@@ -176,8 +201,8 @@ def decode_fields_device(
             "main_bbox": main_bbox,
             "alt_bbox": alt_bbox,
             "alt_valid": alt_valid,
-            "roots": torch.cat([main[:, None], alt_roots], 1).to(i32),
-            "roots_valid": torch.cat([active[:, None], alt_valid], 1),
+            "roots": torch.cat([main[..., None], alt_roots.to(i32)], -1),
+            "roots_valid": torch.cat([active[..., None], alt_valid], -1),
         }
 
     ml_ids = sorted(c for c in set(multiline_classes) if 2 <= c < n_class)
@@ -191,54 +216,61 @@ def decode_fields_device(
     for key in ("active", "main_bbox", "alt_bbox", "alt_valid", "roots",
                 "roots_valid"):
         proto = parts[0][1][key]
-        out = torch.zeros((c2,) + tuple(proto.shape[1:]), dtype=proto.dtype,
+        out = torch.zeros((b, c2) + tuple(proto.shape[2:]), dtype=proto.dtype,
                           device=dev)
         for ids, part in parts:
-            out[torch.tensor([c - 2 for c in ids], device=dev)] = part[key]
+            out[:, torch.tensor([c - 2 for c in ids], device=dev)] = part[key]
         sel[key] = out
 
-    # slot table: root -> global slot ci*(K+1)+j; sentinel = C2*(K+1)
+    # slot table: root -> global slot ci*(K+1)+j; sentinel = C2*(K+1); a
+    # page's table is H*W+1 roots and one slot for the invalid ones
     n_slots = c2 * (k + 1)
-    flat_slots = torch.arange(n_slots, dtype=i32, device=dev)
-    idxs = torch.where(sel["roots_valid"].reshape(-1),
-                       sel["roots"].reshape(-1),
-                       torch.full((n_slots,), hw1, dtype=i32, device=dev))
-    slot_of_root = _segment(flat_slots, idxs, hw1 + 1, "amin", n_slots)[:hw1]
-    slot_of_root[0] = n_slots
-    slot_pix = slot_of_root[lbl_flat.long()]                  # [HW]
+    flat_slots = torch.arange(n_slots, dtype=i32, device=dev).expand(b, n_slots)
+    idxs = torch.where(sel["roots_valid"].reshape(b, n_slots),
+                       sel["roots"].reshape(b, n_slots),
+                       torch.full((b, n_slots), hw1, dtype=i32, device=dev))
+    slot_of_root = segment_reduce(
+        flat_slots.reshape(-1), (idxs + pages * (hw1 + 1)).reshape(-1),
+        b * (hw1 + 1), "amin", n_slots).view(b, hw1 + 1)[:, :hw1].clone()
+    slot_of_root[:, 0] = n_slots
+    slot_pix = torch.gather(slot_of_root, 1, lbl_flat.long())    # [B, HW]
     chosen_flat = slot_pix < n_slots
     class_ix = torch.div(slot_pix, k + 1, rounding_mode="floor")
 
     seg_slot = torch.where(chosen_flat, slot_pix * nl + lid_flat,
                            torch.full_like(slot_pix, n_slots * nl))
     nseg = n_slots * nl + 1
+    seg_all = (seg_slot + pages * nseg).reshape(-1)
+
+    def per_slot_line(src, reduce, identity):
+        """[B, C2, K+1, L+1] reductions over each page's (slot, line)."""
+        out = segment_reduce(src.reshape(-1), seg_all, b * nseg, reduce,
+                             identity).view(b, nseg)
+        return out[:, : n_slots * nl].reshape(b, c2, k + 1, nl)
+
     # a scatter-add, not bincount: CUDA bincount reads max() back to the host
-    bucket = torch.zeros(nseg, dtype=i32, device=dev).scatter_add_(
-        0, seg_slot.long(), torch.ones_like(seg_slot))[: n_slots * nl]
-    present = bucket.reshape(c2, k + 1, nl) > 0
-    comp_per_line = present.sum(1).to(i32)
-    comp_per_line[:, 0] = 0
-    line_overlap = present.any(1)
-    line_overlap[:, 0] = False
+    present = per_slot_line(torch.ones_like(seg_slot), "sum", 0) > 0
+    comp_per_line = present.sum(2).to(i32)
+    comp_per_line[:, :, 0] = 0
+    line_overlap = present.any(2)
+    line_overlap[:, :, 0] = False
 
     cid_min_src = torch.where(chosen_flat & (cid_flat > 0), cid_flat,
                               torch.full_like(cid_flat, INT_MAX))
-    cmin_slot = _segment(cid_min_src, seg_slot, nseg, "amin", INT_MAX)
-    char_min = cmin_slot[: n_slots * nl].reshape(c2, k + 1, nl).amin(1)
+    char_min = per_slot_line(cid_min_src, "amin", INT_MAX).amin(2)
     char_min = torch.where(char_min == INT_MAX, torch.zeros_like(char_min),
                            char_min)
-    char_min[:, 0] = 0
+    char_min[:, :, 0] = 0
     cmax_src = torch.where(chosen_flat, cid_flat, torch.zeros_like(cid_flat))
-    cmax_slot = _segment(cmax_src, seg_slot, nseg, "amax", INT_MIN)
-    char_max = cmax_slot[: n_slots * nl].reshape(c2, k + 1, nl).amax(1)
-    char_max[:, 0] = 0
+    char_max = per_slot_line(cmax_src, "amax", INT_MIN).amax(2)
+    char_max[:, :, 0] = 0
 
     chosen_class = torch.where(chosen_flat, class_ix + 2,
-                               torch.zeros_like(class_ix)).reshape(h, w)
+                               torch.zeros_like(class_ix)).reshape(b, h, w)
 
     def pad_front(x):
-        return torch.cat([torch.zeros((2,) + tuple(x.shape[1:]),
-                                      dtype=x.dtype, device=dev), x], 0)
+        return torch.cat([torch.zeros((b, 2) + tuple(x.shape[2:]),
+                                      dtype=x.dtype, device=dev), x], 1)
 
     return {
         "active": pad_front(sel["active"]),
@@ -277,9 +309,11 @@ def _pack_shapes(n_class: int, k: int, num_lines: int):
 
 
 def pack_decode_out(dev: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Flatten the host-bound decode tables into one int32 vector."""
-    return torch.cat([dev[key].to(torch.int32).reshape(-1)
-                      for key in _PACK_KEYS])
+    """Flatten the host-bound decode tables into one int32 vector, or into
+    [B, L] where the tables have a page axis."""
+    lead = tuple(dev["active"].shape[:-1])   # () or (B,)
+    return torch.cat([dev[key].to(torch.int32).reshape(lead + (-1,))
+                      for key in _PACK_KEYS], -1)
 
 
 def unpack_decode_out(

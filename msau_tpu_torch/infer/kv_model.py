@@ -4,7 +4,10 @@
 buffer, and runs paint x3 -> one-hot -> MSAU forward -> device decode on
 the model's device (the hand-written CUDA kernels on a card); ONE packed
 int32 vector of decode tables comes back, and the host assembles the
-strings.
+strings.  ``predict_batch`` groups pages by bucket and runs one forward and
+one batched decode (one labelling launch) per group, with one packed [B, L]
+fetch; ``predict(label_path=, eval_results=)`` and ``run_test`` count
+field matches against labelled pages (``infer.evaluate``).
 
 Charset convention at inference: file contents prefixed with ' ' and '$',
 blank index 1.
@@ -12,10 +15,12 @@ blank index 1.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import os
 import time
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +40,7 @@ from msau_tpu_torch.infer.decode import (
     pack_decode_out,
     unpack_decode_out,
 )
+from msau_tpu_torch.infer.evaluate import accumulate_field_eval, read_json_gt
 from msau_tpu_torch.infer.schema import FieldSchema, post_process_kv
 from msau_tpu_torch.models.msau import DTYPES, build_model, check_supported
 from msau_tpu_torch.utils.checkpoint import read_params
@@ -79,7 +85,7 @@ def prepare_host(page: Page, charset: Charset, scale: float,
 
 
 class KVModel:
-    """Load -> predict, mirroring the reference API surface.
+    """Load -> predict -> run_test, mirroring the reference API surface.
 
     ``device`` is required: the model never picks a device by itself.  The
     compute dtype is ``model_config.dtype`` ("float32" or "bfloat16");
@@ -205,11 +211,17 @@ class KVModel:
             )
         )
 
-    @torch.inference_mode()
-    def _serve(self, buf: torch.Tensor, *, hb: int, wb: int, num_lines: int,
-               cap: int, lcap: int):
-        """paint x3 -> one-hot -> forward -> decode on ``buf``'s device;
-        returns (packed tables, probs [H, W, C], chosen_class [H, W])."""
+    @staticmethod
+    def _pack_host(arrays) -> Tuple[np.ndarray, int, int]:
+        """The six box-program arrays as ONE int32 buffer, for one upload
+        -> (buffer, cap, lcap)."""
+        cap, lcap = arrays[1].shape[0], arrays[3].shape[0]
+        buf = np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays])
+        return buf, cap, lcap
+
+    def _paint(self, buf: torch.Tensor, hb: int, wb: int, cap: int, lcap: int):
+        """paint x3 from the packed buffer -> (one-hot [H, W, V] f32,
+        line_id [H, W], char_id [H, W])."""
         o = 0
         cb = buf[o:o + cap * 4].view(cap, 4); o += cap * 4
         cv = buf[o:o + cap]; o += cap
@@ -222,14 +234,44 @@ class KVModel:
         char_id = paint_boxes(db, dv, hb, wb)
         tokens = torch.arange(self.charset.n_token, dtype=torch.int32,
                               device=buf.device)
-        x = (ids[..., None] == tokens).to(torch.float32)   # one-hot [H, W, V]
-        probs, _, _ = self.model(x[None])
-        dev = decode_fields_device(
-            probs[0], line_id, char_id, self._multiline_classes(),
+        return (ids[..., None] == tokens).to(torch.float32), line_id, char_id
+
+    def _decode(self, probs, line_id, char_id, num_lines: int):
+        return decode_fields_device(
+            probs, line_id, char_id, self._multiline_classes(),
             n_class=self.n_class, num_lines=num_lines, k=8,
             min_area=self.cfg.min_component_area,
         )
+
+    @torch.inference_mode()
+    def _serve(self, buf: torch.Tensor, *, hb: int, wb: int, num_lines: int,
+               cap: int, lcap: int):
+        """paint x3 -> one-hot -> forward -> decode on ``buf``'s device;
+        returns (packed tables, probs [H, W, C], chosen_class [H, W])."""
+        x, line_id, char_id = self._paint(buf, hb, wb, cap, lcap)
+        probs, _, _ = self.model(x[None])
+        dev = self._decode(probs[0], line_id, char_id, num_lines)
         return pack_decode_out(dev), probs[0], dev["chosen_class"]
+
+    @torch.inference_mode()
+    def serve_group(self, x: torch.Tensor, line_id: torch.Tensor,
+                    char_id: torch.Tensor, num_lines: int):
+        """One bucket group of ``predict_batch``: a batched forward of
+        ``x`` [B, H, W, V], then one batched decode -> (packed tables [B,
+        L], probs [B, H, W, C])."""
+        probs, _, _ = self.model(x)
+        return pack_decode_out(self._decode(probs, line_id, char_id,
+                                            num_lines)), probs
+
+    def rasterize(self, page: Page, buckets: Sequence[int] = (256, 512, 1024)):
+        """KV-variant chargrid on the model's device: digits normalized,
+        box-filled line ids, char-position plane -> (one-hot [H, W, V] f32,
+        line_id, char_id, scaled lines, programs)."""
+        progs, scaled, arrays, hb, wb = self._prepare_host(page, buckets)
+        buf, cap, lcap = self._pack_host(arrays)
+        onehot, line_id, char_id = self._paint(
+            torch.from_numpy(buf).to(self.device), hb, wb, cap, lcap)
+        return onehot, line_id, char_id, scaled, progs
 
     # ------------------------------------------------------------------
     def predict(
@@ -248,11 +290,13 @@ class KVModel:
         ``return_maps=False`` is the serving protocol: extras omit the
         probability map 'pred' and the selected-class map 'chosen_class'
         (both [H, W] tensors left on the device).
+
+        With ``label_path`` (a labelled page JSON) and ``eval_results``
+        (per-class counter dicts), the page's field boxes are matched
+        against the labels, brought into the chargrid's frame, and the
+        counters updated (``accumulate_field_eval``); a label file that
+        cannot be read counts nothing.
         """
-        if label_path is not None and eval_results is not None:
-            raise NotImplementedError(
-                "field evaluation (infer/evaluate.py) is not ported yet: "
-                "ROADMAP Queue 1 item 8")
         if self.model is None:
             raise ValueError("no model loaded")
         if isinstance(data, tuple):
@@ -261,8 +305,7 @@ class KVModel:
         t0 = time.perf_counter()
         progs, scaled_lines, arrays, hb, wb = self._prepare_host(page, buckets)
         num_lines = round_up(max(len(scaled_lines), 1), 128)
-        cap, lcap = arrays[1].shape[0], arrays[3].shape[0]
-        buf = np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays])
+        buf, cap, lcap = self._pack_host(arrays)
         t1 = time.perf_counter()
         # one host->device upload, one packed device->host fetch
         buf_dev = torch.from_numpy(buf).to(self.device)
@@ -287,12 +330,88 @@ class KVModel:
         if return_maps:
             extras["pred"] = pred
             extras["chosen_class"] = chosen
+        if label_path is not None and eval_results is not None:
+            offset = (progs.extent[0] - progs.pad, progs.extent[1] - progs.pad)
+            try:
+                correct = read_json_gt(label_path, scale=progs.scale,
+                                       offset=offset)
+            except IOError:
+                correct = None
+            if correct is not None:
+                accumulate_field_eval(values, correct, eval_results,
+                                      iou_threshold=self.cfg.iou_threshold)
         return kv_results, extras
 
-    def predict_batch(self, pages, buckets=(256, 512, 1024)):
-        raise NotImplementedError(
-            "predict_batch is not ported yet: ROADMAP Queue 1 item 8")
+    # ------------------------------------------------------------------
+    def predict_batch(self, pages: Sequence, buckets=(256, 512, 1024)):
+        """Batched serving: rasterize every page, group the pages by bucket
+        shape, run one forward and one batched decode per group (``num_lines``
+        the group's most lines, rounded up to 128), fetch the group's packed
+        [B, L] tables at once, and assemble the strings page by page.
 
-    def run_test(self, list_inf, out_dir=None, label_dir=None, img_dir=None):
-        raise NotImplementedError(
-            "run_test is not ported yet: ROADMAP Queue 1 item 8")
+        Returns a list of (kv_results, values) in input order.
+        """
+        if self.model is None:
+            raise ValueError("no model loaded")
+        groups = collections.defaultdict(list)
+        for i, page in enumerate(pages):
+            if not isinstance(page, Page):
+                page = load_label_json_page(page)
+            x, line_id, char_id, scaled, _ = self.rasterize(page, buckets)
+            groups[tuple(x.shape)].append((i, x, line_id, char_id, scaled))
+
+        results: List = [None] * len(pages)
+        for items in groups.values():
+            nl = round_up(max(max(len(it[4]) for it in items), 1), 128)
+            packed, _ = self.serve_group(
+                torch.stack([it[1] for it in items]),
+                torch.stack([it[2] for it in items]),
+                torch.stack([it[3] for it in items]), nl)
+            for (i, _, _, _, scaled), vec in zip(items, packed.cpu().numpy()):
+                host = unpack_decode_out(vec, self.n_class, 8, nl)
+                values = extract_values(host, scaled, self.schema)
+                results[i] = (post_process_kv(values, self.schema), values)
+        return results
+
+    # ------------------------------------------------------------------
+    def run_test(
+        self,
+        list_inf: Sequence[str],
+        out_dir: Optional[str] = None,
+        label_dir: Optional[str] = None,
+        img_dir: Optional[str] = None,
+    ):
+        """Predict every page of ``list_inf``; with ``label_dir`` (labels
+        named as the pages, ``<name>.json``) also count field matches and
+        summarise them as precision, recall and F1 over all classes.
+        ``out_dir`` and ``img_dir`` are accepted for the JAX signature and
+        not used.  Returns (kv_results, eval_results, summary or None)."""
+        eval_results = [
+            {"num_pred": 0, "num_correct": 0, "num_label": 0}
+            for _ in range(self.n_class)
+        ]
+        kv_results = []
+        for file_path in list_inf:
+            basename = os.path.basename(file_path).split(".")[0]
+            label_path = (
+                os.path.join(label_dir, basename + ".json") if label_dir else None
+            )
+            result, _ = self.predict(
+                file_path, label_path=label_path, eval_results=eval_results
+            )
+            kv_results.append(result)
+
+        summary = None
+        if label_dir is not None:
+            num_correct = sum(c["num_correct"] for c in eval_results)
+            num_label = sum(c["num_label"] for c in eval_results)
+            num_pred = sum(c["num_pred"] for c in eval_results)
+            recall = num_correct / num_label if num_label else 0.0
+            precision = num_correct / num_pred if num_pred else 0.0
+            f1 = (
+                2 * recall * precision / (recall + precision)
+                if (recall + precision)
+                else 0.0
+            )
+            summary = {"precision": precision, "recall": recall, "f1": f1}
+        return kv_results, eval_results, summary

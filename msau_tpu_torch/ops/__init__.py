@@ -4,7 +4,8 @@ backward, multiclass CCL, fused masked CE
 forward and backward, and the flat-layout ops: entry layout, max pool, conv
 with its fused epilogue, concat 1x1 conv, stride-2 deconv and the fused
 residual block, with their backward: pool, conv stage 1 and dx, the
-concat 1x1 conv's one pass, deconv dx and dw, residual block) and the torch-op morphology."""
+concat 1x1 conv's one pass, deconv dx and dw, residual block), and the
+torch-op morphology and single-map labelling that ``msau_tpu.ops`` exports."""
 
 from msau_tpu_torch.ops.attention import (
     fused_attention_bwd_cuda,
@@ -12,7 +13,10 @@ from msau_tpu_torch.ops.attention import (
     resident_attention_bwd_cuda,
     resident_attention_cuda,
 )
-from msau_tpu_torch.ops.ccl import connected_components_multiclass_cuda
+from msau_tpu_torch.ops.ccl import (
+    connected_components_jax,
+    connected_components_multiclass_cuda,
+)
 from msau_tpu_torch.ops.ce_loss import masked_ce_bwd_cuda, masked_ce_fwd_cuda
 from msau_tpu_torch.ops.flatconv import (
     concat_conv1x1_bwd_cuda,
@@ -30,6 +34,12 @@ from msau_tpu_torch.ops.flatconv import (
 from msau_tpu_torch.ops.flatres import (
     flat_res_block_bwd_cuda,
     flat_res_block_cuda,
+)
+from msau_tpu_torch.ops.morphology import (
+    r_closing,
+    r_dilation,
+    r_erosion,
+    r_opening,
 )
 from msau_tpu_torch.ops.paint import paint_boxes_cuda
 

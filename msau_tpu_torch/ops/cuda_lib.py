@@ -45,8 +45,9 @@ SIGNATURES = {
     # f, g, h, out, m, l, n, t, cb, c, is_bf16, stream
     "msau_resident_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _P),
-    # cls, parent, labels, height, width, stream
-    "msau_ccl_multiclass": (_P, _P, _P, _I, _I, _P),
+    # cls, parent, labels ([batch, height, width]), batch, height, width,
+    # stream
+    "msau_ccl_multiclass": (_P, _P, _P, _I, _I, _I, _P),
     # cb, c, is_bf16, dout_f32 -> the attention backward's block slots on
     # the card (occupancy API x SMs), or a negative error
     "msau_attention_bwd_slots": (_I, _I, _I, _I),

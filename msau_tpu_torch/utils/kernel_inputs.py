@@ -25,6 +25,22 @@ def paint_program(rng: np.random.Generator, n: int, h: int, w: int,
     return boxes, values
 
 
+def planes_program(rng: np.random.Generator, n: int, h: int, w: int,
+                   num_planes: int):
+    """(boxes [B, 4], values [B], plane_ids [B]) int32 for ``paint_planes``:
+    overlapping boxes, boxes overhanging every edge (rows below 0 and past
+    H, which must not spill into a neighbouring plane), empty boxes, and
+    plane ids out of range (-1 and ``num_planes``: painted nowhere)."""
+    y1 = rng.integers(-h // 4, h, n)
+    x1 = rng.integers(-w // 4, w, n)
+    y2 = y1 + rng.integers(-1, max(h // 2, 2), n)
+    x2 = x1 + rng.integers(-1, max(w // 2, 2), n)
+    boxes = np.stack([y1, y2, x1, x2], 1).astype(np.int32)
+    values = rng.integers(1, 100, n).astype(np.int32)
+    plane_ids = rng.integers(-1, num_planes + 1, n).astype(np.int32)
+    return boxes, values, plane_ids
+
+
 # edge programs of paint_edge_program, each exact on every implementation
 PAINT_EDGE_CASES = ("value_0_overwrites", "overhanging", "page_under_small",
                     "one_box", "no_boxes")

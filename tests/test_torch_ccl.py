@@ -81,3 +81,73 @@ def test_plain_matches_scipy_on_edge_maps(kind, h, w):
     cls = ccl_map(kind, h, w, np.random.default_rng(2))
     got = connected_components_multiclass_plain(torch.from_numpy(cls))
     np.testing.assert_array_equal(got.numpy(), _scipy_labels(cls))
+
+
+@pytest.mark.parametrize("kinds,h,w", [(("blobby", "noisy", "maze"), 40, 56),
+                                       (("noisy", "maze"), 33, 17),
+                                       (("one_class",), 9, 70)])
+def test_batched_plain_matches_each_page(kinds, h, w):
+    """A [B, H, W] stack labels each page on its own: page-local labels,
+    the same as the page's [H, W] call and scipy's."""
+    rng = np.random.default_rng(3)
+    stack = np.stack([ccl_map(k, h, w, rng) for k in kinds])
+    got = connected_components_multiclass(torch.from_numpy(stack))
+    assert got.shape == stack.shape and got.dtype == torch.int32
+    for i, cls in enumerate(stack):
+        one = connected_components_multiclass_plain(torch.from_numpy(cls))
+        assert torch.equal(got[i], one)
+        np.testing.assert_array_equal(got[i].numpy(), _scipy_labels(cls))
+
+
+def _mask_with_ties():
+    """Blobs of a boolean mask, two pairs with equal bbox areas."""
+    m = np.zeros((24, 40), bool)
+    m[1:4, 1:5] = True        # area 12
+    m[6:9, 10:14] = True      # area 12, a tie with the first
+    m[12:20, 3:6] = True      # area 24
+    m[2:8, 20:24] = True      # area 24, a tie
+    m[15, 30:39] = True       # area 9
+    m[20:23, 30:31] = True    # area 3
+    return m
+
+
+@pytest.mark.parametrize("case", ["ties", "random"])
+def test_single_map_functions_match_jax(case):
+    """connected_components_jax, component_stats and top_k_components
+    against the JAX package's (XLA) functions, with equal-area ties going to
+    the lower root as lax.top_k breaks them."""
+    from msau_tpu.ops.ccl import component_stats as jax_stats
+    from msau_tpu.ops.ccl import connected_components_jax as jax_ccl
+    from msau_tpu.ops.ccl import top_k_components as jax_top_k
+    from msau_tpu_torch.ops.ccl import (
+        component_stats,
+        connected_components_jax,
+        top_k_components,
+    )
+
+    mask = (_mask_with_ties() if case == "ties"
+            else np.random.default_rng(4).random((30, 50)) < 0.45)
+    want = np.asarray(jax_ccl(jnp.asarray(mask), max_iters=256))
+    got = connected_components_jax(torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, _scipy_labels(mask.astype(np.int32)))
+    wstats = jax_stats(jnp.asarray(want))
+    gstats = component_stats(got)
+    assert set(gstats) == set(wstats)
+    for key in wstats:
+        assert gstats[key].dtype == torch.int32, key
+        np.testing.assert_array_equal(gstats[key].numpy(),
+                                      np.asarray(wstats[key]), err_msg=key)
+    for k in (4, 8):
+        wtop = jax_top_k(wstats, k=k)
+        gtop = top_k_components(gstats, k=k)
+        assert set(gtop) == set(wtop)
+        for key in wtop:
+            np.testing.assert_array_equal(gtop[key].numpy(),
+                                          np.asarray(wtop[key]), err_msg=key)
+    if case == "ties":
+        top = top_k_components(gstats, k=8)
+        assert top["bbox_area"].tolist()[:4] == [24, 24, 12, 12]
+        assert top["root"].tolist()[:4] == sorted(top["root"].tolist()[:2]) \
+            + sorted(top["root"].tolist()[2:4])
+        assert not top["valid"][6:].any()

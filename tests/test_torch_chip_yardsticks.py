@@ -232,3 +232,40 @@ def test_bound_of_paint_and_ccl(kernel, n_cols, side, n_boxes, ms):
         got_ms, got_by = cs.ccl_bound(side, side)
     assert got_by == "bytes"
     assert got_ms == pytest.approx(ms, abs=5e-5)
+
+
+@pytest.mark.parametrize("fs", [0, 3])
+def test_batch_launches_are_a_requests_per_group(fs):
+    """Phase 2c's launches per predict_batch call: paint three a page; one
+    CCL, three attention forwards (resident at 512^2, streaming at 1024^2,
+    where the deepest of four scales holds 16384 tokens) and at flat_scales
+    3 the flat forward kernels of one request, per bucket group."""
+    got = cs._batch_launches(fs, cs.SERVE_BATCH_GROUPS)
+    one = cs.SERVE_PER_REQUEST[fs]
+    assert got["paint"] == 3 * len(cs.SERVE_BATCH_PAGES) == 24
+    assert got["ccl_multiclass"] == 2
+    assert got["resident_attention_fwd"] == got["fused_attention_fwd"] == 3
+    flat = {k: v for k, v in one.items()
+            if k not in ("paint", "ccl_multiclass", "resident_attention_fwd")}
+    assert bool(flat) == (fs == 3)
+    for name, n in flat.items():
+        assert got[name] == 2 * n, name
+    assert set(got) == set(flat) | {"paint", "ccl_multiclass",
+                                    "resident_attention_fwd",
+                                    "fused_attention_fwd"}
+
+
+def test_serve_batch_pages_fill_two_buckets():
+    """The host programs of SERVE_BATCH_PAGES land six pages in the 512
+    bucket and two in the 1024 bucket, as phase 2c asserts on the card."""
+    from msau_tpu_torch.data.charset import Charset
+    from msau_tpu_torch.data.synth import BENCH_CHARSET
+    from msau_tpu_torch.infer.kv_model import prepare_host
+
+    cs_ = Charset(chars=" $" + BENCH_CHARSET)
+    sides = {}
+    for page in cs._pages(cs.SERVE_BATCH_PAGES):
+        hb, wb = prepare_host(page, cs_, 3.0)[3:]
+        assert hb == wb
+        sides[hb] = sides.get(hb, 0) + 1
+    assert sides == cs.SERVE_BATCH_GROUPS

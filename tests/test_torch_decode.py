@@ -11,11 +11,11 @@ import torch
 from msau_tpu.infer.decode import decode_fields_device as jax_decode
 from msau_tpu.infer.decode import pack_decode_out as jax_pack
 from msau_tpu_torch.infer.decode import (
-    _top_k_lower_index,
     decode_fields_device,
     pack_decode_out,
     unpack_decode_out,
 )
+from msau_tpu_torch.ops.ccl import top_k_lower_index
 
 N_CLASS = 9
 MULTILINE = (5,)
@@ -67,7 +67,7 @@ def test_decode_tables_match_jax(h, w, seed):
 
 def test_top_k_ties_go_to_lower_index():
     vals = torch.tensor([[3, 7, 5, 7, 0, 5, 7]], dtype=torch.int32)
-    v, i = _top_k_lower_index(vals, 5)
+    v, i = top_k_lower_index(vals, 5)
     assert v.tolist() == [[7, 7, 7, 5, 5]]
     assert i.tolist() == [[1, 3, 6, 2, 5]]
 
@@ -88,3 +88,74 @@ def test_owner_is_lowest_class_where_closings_overlap():
     for key in want:
         np.testing.assert_array_equal(out[key].numpy(), np.asarray(want[key]),
                                       err_msg=key)
+
+
+def page_stack(b, h, w, seed):
+    """``b`` pages of rectangles (rows of at most h // 2 pixels, so the
+    8-row maps hold them too) with equal-area pairs in classes 5 and 3."""
+    rng = np.random.default_rng(seed)
+    rh = min(6, h // 2)
+    preds, lids, cids = [], [], []
+    for _ in range(b):
+        cls = np.zeros((h, w), np.int64)
+        line_id = np.zeros((h, w), np.int32)
+        char_id = np.zeros((h, w), np.int32)
+        rects = [(c, int(rng.integers(0, h - rh + 1)),
+                  int(rng.integers(0, w - 20)))
+                 for c in [5, 5, 3, 3] + list(rng.integers(2, N_CLASS, 5))]
+        for i, (c, y, x) in enumerate(rects):
+            cls[y:y + rh, x:x + 16] = c
+            line_id[y:y + rh, x:x + 18] = i + 1
+            char_id[y:y + rh, x:x + 18] = np.arange(1, 19)[None, :]
+        preds.append(np.eye(N_CLASS, dtype=np.float32)[cls] + rng.normal(
+            0, 0.05, (h, w, N_CLASS)).astype(np.float32))
+        lids.append(line_id)
+        cids.append(char_id)
+    return np.stack(preds), np.stack(lids), np.stack(cids)
+
+
+@pytest.mark.parametrize("b,h,w,pallas", [(3, 64, 64, False),
+                                          (2, 8, 128, True)])
+def test_batched_decode_matches_jax_vmap(monkeypatch, b, h, w, pallas):
+    """A page axis through the decoder against ``jax.vmap`` of the JAX
+    decoder; at 8 x 128 the JAX labelling is the Pallas kernel (interpret
+    mode), at 64 x 64 its XLA sweeps.  Each page's tables also equal the
+    unbatched call's."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    seen = []
+    real = pl.pallas_call
+
+    def spy(kernel, *args, **kwargs):
+        seen.append(getattr(kernel, "func", kernel).__name__)
+        return real(kernel, *args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", spy)
+    pred, line_id, char_id = page_stack(b, h, w, seed=b)
+    kw = dict(n_class=N_CLASS, num_lines=16, k=4, min_area=2)
+    want = jax.vmap(lambda p, l, c: jax_decode(p, l, c, MULTILINE, **kw,
+                                               max_iters=64))(
+        jnp.asarray(pred), jnp.asarray(line_id), jnp.asarray(char_id))
+    assert seen == (["_ccl_mc_kernel"] if pallas else [])
+    got = decode_fields_device(torch.from_numpy(pred),
+                               torch.from_numpy(line_id),
+                               torch.from_numpy(char_id), MULTILINE, **kw)
+    assert set(got) == set(want)
+    assert np.asarray(want["active"]).sum() >= b   # something was decoded
+    assert np.asarray(want["alt_valid"])[:, 5].sum() >= 1   # top_k ran
+    for key in want:
+        assert got[key].shape[0] == b
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    packed = pack_decode_out(got)
+    assert packed.shape[0] == b
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jax.vmap(jax_pack)(want)))
+    for i in range(b):
+        one = decode_fields_device(torch.from_numpy(pred[i]),
+                                   torch.from_numpy(line_id[i]),
+                                   torch.from_numpy(char_id[i]), MULTILINE,
+                                   **kw)
+        assert torch.equal(pack_decode_out(one), packed[i])
+        assert torch.equal(one["chosen_class"], got["chosen_class"][i])

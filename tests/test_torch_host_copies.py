@@ -15,10 +15,11 @@ from msau_tpu.data import pages as o_pages
 from msau_tpu.data import rasterize as o_rast
 from msau_tpu.data import synth as o_synth
 from msau_tpu.infer import decode as o_decode
+from msau_tpu.infer import evaluate as o_evaluate
 from msau_tpu.infer import reading_order as o_ro
 from msau_tpu.infer import schema as o_schema
 from msau_tpu_torch.data import charset, pages, rasterize, synth
-from msau_tpu_torch.infer import decode, reading_order, schema
+from msau_tpu_torch.infer import decode, evaluate, reading_order, schema
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -125,6 +126,57 @@ def test_extract_values_matches():
     ub = o_decode.unpack_decode_out(vec, n_class, k, nl - 1)
     for key in ub:
         np.testing.assert_array_equal(ua[key], ub[key])
+
+
+def test_write_corpus_matches(tmp_path):
+    """The same pages, paths and charset file from the same seed."""
+    kw = dict(n_cols=2, rows_per_col=1)
+    a = synth.write_corpus(str(tmp_path / "a"), 2, 3,
+                           np.random.default_rng(11), **kw)
+    b = o_synth.write_corpus(str(tmp_path / "b"), 2, 3,
+                             np.random.default_rng(11), **kw)
+    assert [len(x) for x in a[:2]] == [2, 3]
+    for pa, pb in zip(a[0] + a[1] + [a[2]], b[0] + b[1] + [b[2]]):
+        assert os.path.basename(pa) == os.path.basename(pb)
+        with open(pa) as fa, open(pb) as fb:
+            assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_evaluate_matches(tmp_path, seed):
+    """read_json_gt on a labelled synthetic page (scaled and offset) and
+    accumulate_field_eval on predictions near, on and far from its boxes;
+    the IoU helpers on random boxes."""
+    rng = np.random.default_rng(seed)
+    path = synth.write_corpus(str(tmp_path), 0, 1, rng, n_cols=2)[1][0]
+    kw = dict(scale=0.37 + seed, offset=(11.5, -3.0))
+    got, want = evaluate.read_json_gt(path, **kw), o_evaluate.read_json_gt(path, **kw)
+    assert got == want and len(got) >= 3
+    n_class = 17
+    values = []
+    for c in range(n_class):
+        if c not in got or rng.random() < 0.2:
+            values.append(decode.FieldValue("", None, None, None))
+            continue
+        gt = np.asarray(got[c][0][0])
+        boxes = [list(map(int, gt + rng.integers(-j * 4, j * 4 + 1, 4)))
+                 for j in range(int(rng.integers(1, 4)))]
+        boxes.append(list(map(int, gt + [300, 0, 300, 0])))   # far off
+        values.append(decode.FieldValue("x", boxes, None, None))
+    counts = [{"num_pred": 0, "num_correct": 0, "num_label": 0}
+              for _ in range(n_class)]
+    ocounts = [dict(c) for c in counts]
+    evaluate.accumulate_field_eval(values, got, counts, iou_threshold=0.7)
+    o_evaluate.accumulate_field_eval(values, want, ocounts, iou_threshold=0.7)
+    assert counts == ocounts
+    assert 0 < sum(c["num_correct"] for c in counts) < \
+        sum(c["num_pred"] for c in counts)
+    for a, b in rng.integers(0, 60, (20, 2, 4)):
+        a, b = sorted(a[:2]) + sorted(a[2:]), sorted(b[:2]) + sorted(b[2:])
+        a, b = [a[0], a[2], a[1], a[3]], [b[0], b[2], b[1], b[3]]
+        assert evaluate.rect_area(a) == o_evaluate.rect_area(a)
+        assert evaluate.intersect_area(a, b) == o_evaluate.intersect_area(a, b)
+        assert evaluate.iou_pred(a, b) == o_evaluate.iou_pred(a, b)
 
 
 def test_port_imports_without_jax():

@@ -6,7 +6,10 @@ card (which has none):
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q
 
 Tolerances: paint and CCL are integer maps, exact, with the same bits on a
-second run (both scatter or unite with atomics in any order); the resident attention
+second run (both scatter or unite with atomics in any order); the CCL's
+page axis too (each page of a [B, H, W] stack against the plain version of
+that page alone and against the kernel's own [H, W] call), and
+``paint_planes`` through the paint kernel; the resident attention
 forward within 1e-5 (rtol and atol) of its plain version in float64 for f32
 operands (three-part bf16 products with f32 sums against the exact answer;
 at N 16 on the H100 the kernel lies 9.9e-6 from it and 3.2e-5 from the f32
@@ -90,6 +93,7 @@ from msau_tpu_torch.utils.kernel_inputs import (
     page_programs,
     paint_edge_program,
     paint_program,
+    planes_program,
 )
 
 
@@ -157,6 +161,55 @@ def test_ccl_kernel_matches_plain(cuda, kind, h, w):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert torch.equal(got, connected_components_multiclass_plain(t))
+
+
+def ccl_stack(b, h, w, seed):
+    """[B, H, W] int32: the blobby, noisy and maze kinds in turn, each page
+    its own draw."""
+    rng = np.random.default_rng(seed)
+    kinds = ("blobby", "noisy", "maze")
+    return np.stack([ccl_map(kinds[i % 3], h, w, rng) for i in range(b)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("h,w", [(512, 512), (865, 860)])
+def test_ccl_kernel_page_axis_matches_plain(cuda, b, h, w):
+    """One call labels the stack: each page equals the plain version of that
+    page alone and the kernel's [H, W] call on it, the same bits on a
+    rerun."""
+    t = torch.from_numpy(ccl_stack(b, h, w, seed=b)).to(cuda)
+    before = connected_components_multiclass_cuda.launches
+    got = connected_components_multiclass_cuda(t)
+    assert connected_components_multiclass_cuda.launches == before + 1
+    again = connected_components_multiclass_cuda(t)
+    torch.cuda.synchronize()
+    assert got.shape == t.shape
+    assert torch.equal(got, again)
+    for i in range(b):
+        assert torch.equal(got[i], connected_components_multiclass_plain(t[i]))
+        assert torch.equal(got[i], connected_components_multiclass_cuda(
+            t[i].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,n,planes", [(512, 512, 3000, 3),
+                                          (130, 97, 200, 4)])
+def test_paint_planes_on_card_matches_plain(cuda, h, w, n, planes):
+    from msau_tpu_torch.data.rasterize import paint_planes
+
+    boxes, values, ids = planes_program(np.random.default_rng(n), n, h, w,
+                                        planes)
+    b, v, i = (torch.from_numpy(a).to(cuda) for a in (boxes, values, ids))
+    before = paint_boxes_cuda.launches
+    got = paint_planes(b, v, i, h, w, planes)
+    assert paint_boxes_cuda.launches == before + 1
+    again = paint_planes(b, v, i, h, w, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for p in range(planes):
+        sel = i == p
+        assert torch.equal(got[p], paint_boxes_plain(b[sel], v[sel], h, w))
 
 
 def _scaled_err(got, want):

@@ -1,13 +1,15 @@
-"""The serve slice end to end: the port's KVModel.predict against the JAX
-KVModel.predict on tests/fixtures/kv_sample.json, with the tiny config of
-tests/test_kv_model.py and the same (bridged) weights.
+"""The serve slice end to end: the port's KVModel (predict, rasterize,
+predict_batch, field evaluation, run_test) against the JAX KVModel on
+tests/fixtures/kv_sample.json, with the tiny config of tests/test_kv_model.py
+and the same (bridged) weights.
 
 Probabilities: atol 1e-5 (f32 on both sides).  The argmax maps are asserted
 equal first — a flipped argmax would change the decode legitimately — and
 then the decode tables, the extracted values and the result dict must be
-equal.
+equal.  Chargrids, eval counters and batched results: exact.
 """
 
+import functools
 import os
 
 import jax
@@ -17,9 +19,12 @@ import pytest
 import torch
 
 from msau_tpu.config import InferConfig, ModelConfig
+from msau_tpu.data.pages import page_from_label_dict as jax_page_from_label_dict
 from msau_tpu.infer.kv_model import KVModel as JaxKVModel
 from msau_tpu.infer.schema import FieldSchema as JaxFieldSchema
 from msau_tpu.models.msau import build_model as jax_build_model
+from msau_tpu_torch.data.pages import page_from_label_dict
+from msau_tpu_torch.data.synth import make_page
 from msau_tpu_torch.infer.kv_model import INFER_SPECIALS, KVModel
 from msau_tpu_torch.infer.schema import FieldSchema
 from msau_tpu_torch.ops import launch_counts
@@ -103,14 +108,86 @@ def test_init_from_generator_is_seeded(charset_file):
         assert ka == kb and torch.equal(va, vb)
 
 
-def test_unported_entry_points_raise(pair):
-    _, tkv = pair
-    for call in (lambda: tkv.predict_batch([FIXTURE]),
-                 lambda: tkv.run_test([FIXTURE]),
-                 lambda: tkv.predict(FIXTURE, label_path=FIXTURE,
-                                     eval_results=[])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+# small buckets keep the chargrids at most 128^2: the fixture lands in 64 x
+# 64, the synthetic page (25 lines) in 128 x 128
+SMALL_BUCKETS = (64, 128)
+
+
+def _values(values):
+    return [tuple(v) for v in values]
+
+
+def test_rasterize_matches_jax(pair):
+    jkv, tkv = pair
+    page = page_from_label_dict(make_page(np.random.default_rng(0),
+                                          rows_per_col=2))
+    jpage = jax_page_from_label_dict(make_page(np.random.default_rng(0),
+                                               rows_per_col=2))
+    got = tkv.rasterize(page, SMALL_BUCKETS)
+    want = jkv.rasterize(jpage, SMALL_BUCKETS)
+    assert got[0].shape == (128, 128, tkv.charset.n_token)
+    assert got[0].dtype == torch.float32
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert [(l.box, l.text, l.id) for l in got[3]] == \
+        [(l.box, l.text, l.id) for l in want[3]]
+    assert (got[4].height, got[4].width, got[4].scale) == \
+        (want[4].height, want[4].width, want[4].scale)
+
+
+def test_predict_batch_matches_jax_predict(pair):
+    """[fixture, a page of the 128 bucket, fixture]: one group of two pages
+    and one of one; each page's results and values equal the JAX predict's
+    on that page alone (and the JAX predict_batch's), in input order."""
+    jkv, tkv = pair
+    doc = make_page(np.random.default_rng(0), rows_per_col=2)
+    pages = [FIXTURE, page_from_label_dict(doc), FIXTURE]
+    jpages = [FIXTURE, jax_page_from_label_dict(doc), FIXTURE]
+    before = launch_counts()
+    got = tkv.predict_batch(pages, SMALL_BUCKETS)
+    assert launch_counts() == before    # the plain versions on the CPU
+    # the JAX predict takes its buckets from _prepare_host's default
+    jkv._prepare_host = functools.partial(JaxKVModel._prepare_host, jkv,
+                                          buckets=SMALL_BUCKETS)
+    try:
+        want = [jkv.predict(p) for p in jpages]
+    finally:
+        del jkv._prepare_host
+    want_batch = jkv.predict_batch(jpages, SMALL_BUCKETS)
+    assert len(got) == 3
+    for (res, values), (wres, wex), (bres, bvalues) in zip(got, want,
+                                                           want_batch):
+        assert _values(values) == _values(wex["values"]) == _values(bvalues)
+        assert res == wres == bres
+    assert got[0] == got[2]
+    assert _values(got[1][1]) != _values(got[0][1])
+
+
+def test_predict_field_eval_matches_jax(pair):
+    jkv, tkv = pair
+    got = [{"num_pred": 0, "num_correct": 0, "num_label": 0}
+           for _ in range(N_CLASS)]
+    want = [dict(c) for c in got]
+    tres, _ = tkv.predict(FIXTURE, label_path=FIXTURE, eval_results=got)
+    jres, _ = jkv.predict(FIXTURE, label_path=FIXTURE, eval_results=want)
+    assert tres == jres
+    assert got == want
+    assert sum(c["num_label"] for c in got) == 3   # values 1-3 of the page
+    # a label file that cannot be read counts nothing
+    missing = [dict(c) for c in got]
+    tkv.predict(FIXTURE, label_path=FIXTURE + ".missing",
+                eval_results=missing)
+    assert missing == got
+
+
+def test_run_test_matches_jax(pair):
+    jkv, tkv = pair
+    label_dir = os.path.dirname(FIXTURE)
+    got = tkv.run_test([FIXTURE], label_dir=label_dir)
+    want = jkv.run_test([FIXTURE], label_dir=label_dir)
+    assert got == want
+    assert got[2] is not None and set(got[2]) == {"precision", "recall", "f1"}
+    assert tkv.run_test([FIXTURE])[2] is None
 
 
 def test_predict_at_flat_scales_2_gives_the_decode_tables_of_0(charset_file):

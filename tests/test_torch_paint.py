@@ -71,3 +71,28 @@ def test_paint_edge_programs_match_pallas_and_numpy(case):
                                          jnp.asarray(values), h, w,
                                          interpret=True))
     np.testing.assert_array_equal(want, golden)
+
+
+@pytest.mark.parametrize("h,w,n,planes", [(32, 32, 20, 3), (48, 70, 200, 4),
+                                          (17, 9, 5, 1)])
+def test_paint_planes_matches_jax(h, w, n, planes):
+    """``paint_planes`` (one paint of a [P*H, W] grid) against the JAX
+    package's per-plane select loop, with boxes over every edge and plane
+    ids out of range."""
+    from msau_tpu.data.rasterize import paint_planes as jax_paint_planes
+    from msau_tpu_torch.data.rasterize import paint_planes
+    from msau_tpu_torch.utils.kernel_inputs import planes_program
+
+    boxes, values, ids = planes_program(np.random.default_rng(n), n, h, w,
+                                        planes)
+    want = np.asarray(jax_paint_planes(jnp.asarray(boxes), jnp.asarray(values),
+                                       jnp.asarray(ids), h, w, planes))
+    got = paint_planes(torch.from_numpy(boxes), torch.from_numpy(values),
+                       torch.from_numpy(ids), h, w, planes)
+    assert got.dtype == torch.int32 and got.shape == (planes, h, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for p in range(planes):
+        sel = ids == p
+        np.testing.assert_array_equal(
+            want[p], paint_boxes_numpy(BoxProgram(boxes[sel], values[sel]),
+                                       h, w))
