@@ -146,7 +146,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      scratch beside what was allocated while it ran and the step's peak (at
      the flagship's steps too);
      train_step_check also holds the card's flat_scales 2 step with the
-     streaming attention forced (attention_impl="pallas") to the exact one.
+     streaming attention forced (attention_impl="pallas") to the exact one;
+  4. the model variants and entry A: (a) BASELINE config 4, the BMSAU (box
+     convolutions: 2 a block, 3 boxes a channel, max 28) at 256^2, batch
+     4, remat, f32 and bf16, on rng(0) uniform inputs and random labels
+     (bench_configs.time_train): 2 warm-up and 5 timed steps (launches per
+     step PER_STEP_REMAT: 6 resident attention forwards, 2 backwards, 2 CE
+     forwards and backwards), the loss below its first value after 10
+     steps, a device profile; (b) one f32 step at 64^2, batch 2, of the
+     BMSAU and of the flagship with use_lstm and use_spn (the LSTM's
+     cuDNN cell, the CSPN), on the card within F32_VS_EXACT of the exact
+     (float64, CPU) step and of the CPU's f32 step within twice that; (c)
+     KVModel.predict of the BMSAU on the 512^2 bench page, f32: launches
+     per request (paint 3, attention 3, CCL 1) and the decode tables equal
+     to the plain pipeline's; (d) BASELINE config 3, the flagship's widths
+     on 832 input channels, 256^2, batch 8, remat, f32, 3 timed steps; (e)
+     entry A: preprocess_funsd of the FUNSD fixture, then train_funsd
+     --device cuda --epochs 2 with --features chargrid, bert (the
+     char-ngram fallback, 768 channels) and bow, and with a
+     model_kwargs.json naming msau_box: paint 2 per run (one page),
+     checkpoints 0, 1, 2 under the gen_prefix directory.
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
@@ -1593,7 +1612,8 @@ def _bench_kv(model_kwargs, dtype, dev, bucket, page):
     return kv
 
 
-def _serve_requests(kv, page, n_req, per_request, label, total):
+def _serve_requests(kv, page, n_req, per_request, label, total,
+                    phase="phase 2"):
     """``n_req`` requests with the launch counters reset just before and
     read just after -> p50 ms of each predict stage; the launches per
     request are held to ``per_request`` and added into ``total``."""
@@ -1614,13 +1634,13 @@ def _serve_requests(kv, page, n_req, per_request, label, total):
             raise AssertionError(f"{label}: {name} launched {n} times in "
                                  f"{n_req} requests, want {want}")
         total[name] += n
-    print(f"[phase 2] {label}: launches per request "
+    print(f"[{phase}] {label}: launches per request "
           f"{ {k: v / n_req for k, v in counts.items() if v} }", flush=True)
     return {k: float(np.median([r[k] for r in rows]))
             for k in ("prep", "device", "strings")}
 
 
-def _decode_check(kv, page, hb, dev, label):
+def _decode_check(kv, page, hb, dev, label, phase="phase 2"):
     """One request with its maps: finite probabilities of the bucket's
     shape that sum to 1, and decode tables equal to the same pipeline's
     with the plain versions (CPU) on the same probabilities -> (check,
@@ -1667,7 +1687,7 @@ def _decode_check(kv, page, hb, dev, label):
     check = {"decode_tables_equal_plain": True,
              "active_fields": int(card["active"].sum()),
              "n_results": len(res), "lines": len(extras["scaled_lines"])}
-    print(f"[phase 2] {label}: decode tables equal the plain pipeline's; "
+    print(f"[{phase}] {label}: decode tables equal the plain pipeline's; "
           f"{check['active_fields']} active classes", flush=True)
     return check, probs.float()
 
@@ -2350,11 +2370,14 @@ def _attention_bwd_memory(step, dev, kernel):
 
 
 def _train_run(dev, label, model_kwargs, dtype, batch_hw, timed, per_step,
-               total):
+               total, batch=None, fall_after=None, phase="phase 3",
+               profile_steps=3):
     """One model through Trainer at ``batch_hw``: 2 warm-up steps, ``timed``
     timed steps with the launch counters reset just before (held to
-    ``per_step`` and added into ``total``), 20 steps in all when bf16 (the
-    loss must fall), then a device profile of 3 more -> results."""
+    ``per_step`` and added into ``total``), ``fall_after`` steps in all
+    (default 20 when bf16, none when f32: the loss must fall), then a
+    device profile of ``profile_steps`` more -> results.  ``batch``, numpy
+    (x, y), replaces the bench's structured batch."""
     import numpy as np
     import torch
 
@@ -2364,7 +2387,10 @@ def _train_run(dev, label, model_kwargs, dtype, batch_hw, timed, per_step,
     from msau_tpu_torch.train.trainer import Trainer
 
     (bs, hw), warm = batch_hw, 2
-    x, y = make_structured_batch(np.random.default_rng(0), bs, hw, 17, 64)
+    x, y = batch if batch is not None else make_structured_batch(
+        np.random.default_rng(0), bs, hw, 17, 64)
+    if fall_after is None:
+        fall_after = 20 if dtype == "bfloat16" else 0
     tcfg = TrainConfig(learning_rate=1e-4, lr_decay_staircase=False)
     tr = Trainer(ModelConfig(**model_kwargs, dtype=dtype), tcfg, device=dev)
     tr.init_state(x, seed=0)
@@ -2399,14 +2425,15 @@ def _train_run(dev, label, model_kwargs, dtype, batch_hw, timed, per_step,
            "grad_norm": float(metrics["grad_norm"]),
            "launches_per_step": {k: v / timed for k, v in counts.items()
                                  if v}}
-    if dtype == "bfloat16":
-        for _ in range(20 - warm - timed):
+    if fall_after:
+        for _ in range(fall_after - warm - timed):
             tr.state, metrics = tr.train_step(tr.state, batch)
         losses.append(float(metrics["loss"]))
-        res["loss_after_20"] = losses[-1]
+        res[f"loss_after_{fall_after}"] = losses[-1]
         if not losses[-1] < losses[0]:
-            raise AssertionError(f"{label} bf16 loss did not fall in 20 "
-                                 f"steps: {losses[0]} -> {losses[-1]}")
+            raise AssertionError(f"{label} {dtype} loss did not fall in "
+                                 f"{fall_after} steps: {losses[0]} -> "
+                                 f"{losses[-1]}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label} {dtype}: non-finite loss {losses}")
     res["losses"] = losses
@@ -2414,23 +2441,23 @@ def _train_run(dev, label, model_kwargs, dtype, batch_hw, timed, per_step,
     def step():
         tr.state, _ = tr.train_step(tr.state, batch)
 
-    res["profile"] = _profile_steps(step, 3)
+    res["profile"] = _profile_steps(step, profile_steps)
     kernel = ("fused_attention_bwd" if per_step.get("fused_attention_bwd")
               else "resident_attention_bwd")
     if per_step.get(kernel):
         mem = res["attention_bwd_memory"] = _attention_bwd_memory(step, dev,
                                                                   kernel)
-        print(f"[phase 3] {label} {dtype}: the attention backward's scratch "
+        print(f"[{phase}] {label} {dtype}: the attention backward's scratch "
               f"{mem['scratch_mib']:.1f} MiB; {mem['allocated_during_mib']:.1f}"
               f" MiB allocated while it ran, the step's peak "
               f"{1024 * res['peak_mem_gib']:.1f} MiB", flush=True)
-    print(f"[phase 3] {label} {dtype} bs {bs} {hw}^2: "
+    print(f"[{phase}] {label} {dtype} bs {bs} {hw}^2: "
           f"{res['ms_per_step']:.2f} ms/step, {res['img_per_s']:.3f} "
           f"img/s, peak {res['peak_mem_gib']:.2f} GiB, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches/step "
           f"{res['launches_per_step']}", flush=True)
     prof = res["profile"]
-    print(f"[phase 3] {label} {dtype} profile (3 steps): wall "
+    print(f"[{phase}] {label} {dtype} profile ({profile_steps} steps): wall "
           f"{prof['wall_ms']:.2f} ms/step, device busy "
           f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f} "
           f"%), {prof['kernels']:.0f} kernels/step; by family "
@@ -2598,6 +2625,214 @@ def train_step_check(dev):
     return checks
 
 
+# ---- phase 4: the model variants and entry A ------------------------------
+# BASELINE config 4 (scripts/bench_configs.py:144-158): the box-convolution
+# MSAU at 256^2, batch 4, remat; config 3 (:122-141): the flagship's widths
+# on 832 input channels (a 768-wide text embedding beside the 64-channel
+# chargrid) at 256^2, batch 8, remat.  Both feed rng(0) uniform inputs and
+# random labels, as bench_configs.time_train does
+CONFIG4 = dict(model="msau_box", img_channels=64, n_class=17,
+               scale_space_num=4, res_depth=2, feat_root=8, num_blocks=3,
+               remat=True, num_box_convs=2, num_box_per_channel=3,
+               max_box_size=28)
+CONFIG4_BATCH = (4, 256)
+CONFIG3 = dict(img_channels=768 + 64, n_class=17, scale_space_num=4,
+               res_depth=2, feat_root=8, num_blocks=3, remat=True)
+CONFIG3_BATCH = (8, 256)
+VARIANT_TIMED = {"config 4": 5, "config 3": 3}
+# per step with remat: each stage's forward runs again in the backward, so
+# 3 + 3 resident attention forwards (T = 32^2 at the deepest scale); the
+# last stage's attention output feeds nothing, so 2 backwards
+PER_STEP_REMAT = {"resident_attention_fwd": 6, "resident_attention_bwd": 2,
+                  "masked_ce_fwd": 2, "masked_ce_bwd": 2}
+# the bottleneck extras at the flagship's widths: the row / column LSTM in
+# every stage, the CSPN in the last
+LSTM_SPN = dict(FLAGSHIP, use_lstm=True, use_spn=True)
+VARIANT_CHECK_BATCH = (2, 64)
+# entry A: the FUNSD word grid of the fixture page (one page, 2 paint calls
+# a page: the char ids and the labels, or the cell ids and the labels)
+ENTRY_A_RUNS = (("chargrid", None), ("bert", None), ("bow", None),
+                ("chargrid", "msau_box"))
+ENTRY_A_BOX_KWARGS = dict(model="msau_box", final_act="softmax", featRoot=8,
+                          scale_space_num=4, res_depth=2, n_class=5,
+                          img_channels=1, num_box_convs=2,
+                          num_box_per_channels=3, max_box_sizes=28)
+
+
+def _uniform_batch(model_kwargs, bs, hw):
+    """bench_configs.time_train's batch: rng(0) uniform inputs, then
+    random labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    x = rng.random((bs, hw, hw, model_kwargs["img_channels"])).astype(
+        np.float32)
+    y = rng.integers(0, model_kwargs["n_class"], (bs, hw, hw)).astype(np.int32)
+    return x, y
+
+
+def variants_train(dev):
+    """Phase 4a and 4d: config 4 (BMSAU) in f32 and bf16 and config 3 in
+    f32 through Trainer -> (launch counts, results).  Config 4's loss on
+    its fixed batch must fall within 10 steps in both dtypes."""
+    from msau_tpu_torch import ops
+
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    results = {}
+    runs = [("config 4", CONFIG4, CONFIG4_BATCH, dtype, 10)
+            for dtype in ("float32", "bfloat16")]
+    runs.append(("config 3", CONFIG3, CONFIG3_BATCH, "float32", 0))
+    for label, kwargs, batch_hw, dtype, fall in runs:
+        results[f"{label.replace(' ', '')}_{dtype}"] = _train_run(
+            dev, label, kwargs, dtype, batch_hw, VARIANT_TIMED[label],
+            PER_STEP_REMAT, total, batch=_uniform_batch(kwargs, *batch_hw),
+            fall_after=fall, phase="phase 4", profile_steps=1)
+    return total, results
+
+
+def variant_step_check(dev):
+    """Phase 4b: one f32 step at VARIANT_CHECK_BATCH of the BMSAU (config
+    4's widths) and of the flagship with use_lstm and use_spn, on the card
+    and on the CPU, each held to the exact step (the CPU in float64) as
+    train_step_check holds the flagship's: the card within F32_VS_EXACT of
+    the bound (loss rel 1e-5, grad_norm rel GRAD_NORM_VS_EXACT), the card
+    against the CPU's f32 step within twice that; the CPU's f32 step a
+    reading."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.config import ModelConfig
+    from msau_tpu_torch.data.synth import make_structured_batch
+    from msau_tpu_torch.models.msau import build_model
+    from msau_tpu_torch.train.optimizer import global_norm
+    from msau_tpu_torch.train.trainer import make_loss_and_grad
+
+    x, y = make_structured_batch(np.random.default_rng(1),
+                                 *VARIANT_CHECK_BATCH, 17, 64)
+    batch = {"input": torch.from_numpy(x), "label": torch.from_numpy(y),
+             "valid": torch.ones(y.shape, dtype=torch.bool)}
+    checks = {}
+    for name, kwargs in (("bmsau", dict(CONFIG4, final_act="softmax")),
+                         ("lstm_spn", LSTM_SPN)):
+        def step(where, dtype):
+            model = build_model(ModelConfig(**kwargs, dtype=dtype),
+                                torch.Generator().manual_seed(0))
+            model = model.to(where, getattr(torch, dtype))
+            loss, _, grads = make_loss_and_grad(model)(
+                {k: v.to(where) for k, v in batch.items()})
+            return (float(loss), float(global_norm(list(grads.values()))),
+                    {k: v.cpu().double() for k, v in grads.items()})
+
+        out = {"exact": step("cpu", "float64"), "cpu": step("cpu", "float32"),
+               "card": step(dev, "float32")}
+        for pair, factor, norm_tol in (
+                (("card", "exact"), F32_VS_EXACT, GRAD_NORM_VS_EXACT),
+                (("cpu", "exact"), None, None),
+                (("card", "cpu"), 2 * F32_VS_EXACT, 2 * GRAD_NORM_VS_EXACT)):
+            (l_a, n_a, g_a), (l_b, n_b, g_b) = out[pair[0]], out[pair[1]]
+            ratios = _grad_ratios(g_a, g_b)
+            worst_name = max(ratios, key=ratios.get)
+            c = {"loss": l_a, "loss_ref": l_b,
+                 "loss_rel_err": abs(l_a - l_b) / abs(l_b),
+                 "grad_norm_rel_err": abs(n_a - n_b) / abs(n_b),
+                 "worst_grad_err_over_bound": ratios[worst_name],
+                 "worst_grad": worst_name, "bound_factor": factor}
+            key = f"{name}_{pair[0]}_vs_{pair[1]}"
+            checks[key] = c
+            print(f"[phase 4] step {VARIANT_CHECK_BATCH[1]}^2 bs "
+                  f"{VARIANT_CHECK_BATCH[0]}, {key}: loss rel err "
+                  f"{c['loss_rel_err']:.3e}, grad_norm rel err "
+                  f"{c['grad_norm_rel_err']:.3e}, worst gradient at "
+                  f"{ratios[worst_name]:.3e} of its bound ({worst_name}; "
+                  f"allowed {factor})", flush=True)
+            if c["loss_rel_err"] > 1e-5 or (factor is not None and (
+                    ratios[worst_name] > factor
+                    or c["grad_norm_rel_err"] > norm_tol)):
+                raise AssertionError(f"{key}: {json.dumps(c)}")
+    return checks
+
+
+def variant_serve(dev):
+    """Phase 4c: KVModel.predict of the BMSAU (config 4's widths, seeded
+    random weights) on the 512^2 bench page, f32: 3 requests with the
+    launch counts held to a request's (paint 3, resident attention 3, CCL
+    1), the decode tables equal to the plain-version pipeline's -> (launch
+    counts, stage p50s, check)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.synth import make_page
+
+    page = page_from_label_dict(
+        make_page(np.random.default_rng(3), n_cols=5, rows_per_col=10))
+    kv = _bench_kv(dict(CONFIG4, final_act="softmax"), "float32", dev, 512,
+                   page)
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    timings = _serve_requests(kv, page, 3, SERVE_PER_REQUEST[0], "BMSAU f32",
+                              total, phase="phase 4")
+    print(f"[phase 4] BMSAU f32 predict p50 ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()), flush=True)
+    check, _ = _decode_check(kv, page, 512, dev, "bmsau_f32", phase="phase 4")
+    del kv
+    torch.cuda.empty_cache()
+    return total, timings, check
+
+
+def entry_a(dev):
+    """Phase 4e: preprocess_funsd of the FUNSD fixture, then train_funsd
+    --device cuda --epochs 2 with each --features and with a
+    model_kwargs.json naming msau_box, each run with the launch counters
+    reset just before and read just after (paint: 2 a page) -> (launch
+    counts, seconds by run)."""
+    import os
+    import shutil
+
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.ops import cuda_lib
+    from msau_tpu_torch.tools import preprocess_funsd, train_funsd
+
+    if dev.type != "cuda":
+        raise ValueError(f"entry A runs on the card, not {dev}")
+    root = cuda_lib.BUILD_DIR.parent / "entry_a"
+    shutil.rmtree(root, ignore_errors=True)
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    pp = str(root / "pp")
+    preprocess_funsd.main(["--train_dir", fixtures, "--out_dir", pp])
+    box_kwargs = root / "model_kwargs_box.json"
+    box_kwargs.write_text(json.dumps(ENTRY_A_BOX_KWARGS))
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    seconds = {}
+    for features, model in ENTRY_A_RUNS:
+        key = features if model is None else f"{features}_{model}"
+        argv = ["--data_dir", pp, "--ckptdir", str(root / key), "--epochs",
+                "2", "--train_ratio", "1.0", "--features", features,
+                "--checkpoint_every", "1", "--device", "cuda"]
+        if model is not None:
+            argv += ["--model_kwargs_path", str(box_kwargs)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_funsd.main(argv)
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts["paint"] != 2:
+            raise AssertionError(f"entry A {key}: paint launched "
+                                 f"{counts['paint']} times for one page")
+        ckpts = sorted(p.name for p in (root / key).glob("funsd_msau_*/*"))
+        if ckpts != ["0", "1", "2"]:
+            raise AssertionError(f"entry A {key}: checkpoints {ckpts}")
+        for name, n in counts.items():
+            total[name] += n
+        print(f"[phase 4] entry A {key}: {seconds[key]:.1f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return total, seconds
+
+
 def main() -> int:
     import torch
 
@@ -2658,12 +2893,31 @@ def main() -> int:
     checks.update(checks_batch)
     train_counts, train = timed("phase 3 train", train_path, dev)
     checks["train_step"] = timed("phase 3 step check", train_step_check, dev)
-    launches = {k: counts[k] + train_counts[k] for k in counts}
     if not (counts["fused_attention_fwd"] and train_counts["fused_attention_fwd"]):
         raise AssertionError("the streaming attention did not launch in both "
                              "the serve and the train phase")
     print(f"[phase 3] launches: serve {counts}, train {train_counts}",
           flush=True)
+    var_train_counts, variants = timed("phase 4a, 4d variants train",
+                                       variants_train, dev)
+    checks["variant_step"] = timed("phase 4b variant step check",
+                                   variant_step_check, dev)
+    var_serve_counts, timings["bmsau_f32"], checks["bmsau_serve"] = timed(
+        "phase 4c BMSAU serve", variant_serve, dev)
+    entry_counts, entry_seconds = timed("phase 4e entry A", entry_a, dev)
+    for name, phase_counts in (
+            ("resident_attention_fwd", var_train_counts),
+            ("resident_attention_bwd", var_train_counts),
+            ("masked_ce_fwd", var_train_counts),
+            ("masked_ce_bwd", var_train_counts),
+            ("paint", var_serve_counts), ("ccl_multiclass", var_serve_counts),
+            ("paint", entry_counts)):
+        if not phase_counts[name]:
+            raise AssertionError(f"phase 4: {name} did not launch")
+    phase4 = {k: var_train_counts[k] + var_serve_counts[k] + entry_counts[k]
+              for k in counts}
+    print(f"[phase 4] launches: {phase4}", flush=True)
+    launches = {k: counts[k] + train_counts[k] + phase4[k] for k in counts}
 
     sources = {
         "paint": ("msau_tpu_torch/csrc/paint.cu",
@@ -2700,8 +2954,11 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_seconds": lib.build_seconds,
               "ptxas": lib.build_log, "seconds": seconds, "timer": TIMER,
               "kernels": kernels, "partial_sums": sums,
-              "launches": {"serve": counts, "train": train_counts},
-              "predict_p50_ms": timings, "train": train, "checks": checks}
+              "launches": {"serve": counts, "train": train_counts,
+                           "variants": phase4},
+              "predict_p50_ms": timings, "train": train,
+              "variants": variants, "entry_a_seconds": entry_seconds,
+              "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)
     print(f"[timer] {TIMER['profiler_calls']} calls timed by torch.profiler, "

@@ -1,9 +1,10 @@
-"""Per-character box records of the rasterizer, in numpy.
+"""Per-character box records of the rasterizer and of the word grid, in
+numpy.
 
-The port's copy of the numpy path of ``msau_tpu.native.char_records``
-(``_char_records_numpy``): the JAX package also has a C core for it, which
-the port does not build.  ``tests/test_torch_host_copies.py`` pins the two
-to the same records.
+The port's copies of the numpy paths of ``msau_tpu.native.char_records``
+(``_char_records_numpy``) and ``msau_tpu.native.wordgrid_records``: the JAX
+package also has a C core for them, which the port does not build.
+``tests/test_torch_host_copies.py`` pins each to its original.
 """
 
 from __future__ import annotations
@@ -41,3 +42,27 @@ def char_records(line_boxes: np.ndarray, text_offsets: np.ndarray,
     rec = np.stack([y1[line_of], y2[line_of], sx, ex, char_ids],
                    axis=1).astype(np.int32)
     return rec, (line_of + 1).astype(np.int32), (pos + 1).astype(np.int32)
+
+
+def wordgrid_records(word_boxes: np.ndarray, text_offsets: np.ndarray,
+                     char_ids: np.ndarray, min_x: float, min_y: float,
+                     min_scale: float, min_h: float) -> np.ndarray:
+    """word_boxes [W, 4] float64 (x, y, w, h), text_offsets [W+1], char_ids
+    [total] -> records [total, 5] (y1, y2, x1, x2, id) in cell units: each
+    word's chars side by side, ``max(nw // len, 1)`` cells wide."""
+    word_boxes = np.ascontiguousarray(word_boxes, np.float64)
+    text_offsets = np.ascontiguousarray(text_offsets, np.int32)
+    char_ids = np.ascontiguousarray(char_ids, np.int32)
+    lens = np.diff(text_offsets)
+    x, y, w, h = word_boxes.T
+    nx = ((x - min_x) / min_scale).astype(np.int64)
+    ny = ((y - min_y) / min_h).astype(np.int64)
+    nw = np.maximum((w / min_scale).astype(np.int64), 1)
+    nh = np.maximum((h / min_h).astype(np.int64), 1)
+    pcw = np.maximum(nw // np.maximum(lens, 1), 1)
+    word_of = np.repeat(np.arange(len(lens)), lens)
+    pos = np.arange(len(char_ids)) - np.repeat(text_offsets[:-1], lens)
+    sx = nx[word_of] + pcw[word_of] * pos
+    return np.stack(
+        [ny[word_of], ny[word_of] + nh[word_of], sx, sx + pcw[word_of],
+         char_ids], axis=1).astype(np.int32)

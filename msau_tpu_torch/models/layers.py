@@ -61,7 +61,7 @@ class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: Tuple[int, int],
                  gen: torch.Generator, *, weight_std: Optional[float] = None,
                  bias_mean: float = 0.1, bias_std: float = 1e-5,
-                 lecun: bool = False):
+                 lecun: bool = False, use_bias: bool = True):
         super().__init__()
         kh, kw = kernel_size
         shape = (cout, cin, kh, kw)
@@ -76,22 +76,35 @@ class Conv(nn.Module):
             w = _normal(shape, weight_std if weight_std is not None
                         else tf_conv_std(kh, kw, cin, cout), gen)
         self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(_normal((cout,), bias_std, gen, bias_mean))
+        self.bias = (nn.Parameter(_normal((cout,), bias_std, gen, bias_mean))
+                     if use_bias else None)
 
-    def forward(self, x: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dilation: int = 1,
+                stride: Tuple[int, int] = (1, 1)) -> torch.Tensor:
         """Computes in ``x``'s dtype: the parameters are cast at use, as
         flax ``nn.Conv(dtype=...)`` does (f32 parameters, bf16 compute)."""
         kh, kw = self.weight.shape[-2:]
-        ph, pw = same_padding(kh, dilation), same_padding(kw, dilation)
+        ph = same_padding_strided(x.shape[-2], kh, dilation, stride[0])
+        pw = same_padding_strided(x.shape[-1], kw, dilation, stride[1])
         if ph != (0, 0) or pw != (0, 0):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, stride=stride,
                         dilation=dilation)
 
 
+def same_padding_strided(n: int, k: int, dilation: int, stride: int):
+    """TF-SAME (lo, hi) padding of a size-``n`` axis: ceil(n / stride)
+    outputs, the extra pixel at hi."""
+    if stride == 1:
+        return same_padding(k, dilation)
+    total = max((-(-n // stride) - 1) * stride + (k - 1) * dilation + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
 class ConvBnLrnDrop(nn.Module):
-    """Stride-1 TF-SAME conv + optional act / LRN (reference
-    ``Conv2dBnLrnDrop``; serving has no BatchNorm or dropout).
+    """TF-SAME conv (``strides``, default 1) + optional act / LRN
+    (reference ``Conv2dBnLrnDrop``; serving has no BatchNorm or dropout).
 
     ``flat`` (a scale below ``flat_scales``) runs the whole layer as one
     flat-layout op with the act and LRN fused (``ops.flatconv``): a pair of
@@ -100,9 +113,13 @@ class ConvBnLrnDrop(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  activation: Optional[str] = "relu", use_lrn: bool = False,
-                 *, gen: torch.Generator, rate: int = 1, flat: bool = False):
+                 *, gen: torch.Generator, rate: int = 1, flat: bool = False,
+                 strides: Tuple[int, int] = (1, 1)):
         super().__init__()
+        if flat and tuple(strides) != (1, 1):
+            raise ValueError(f"the flat conv has stride 1, not {strides}")
         self.Conv_0 = Conv(cin, features, tuple(kernel_size), gen)
+        self.strides = tuple(strides)
         self.activation = activation
         self.use_lrn = use_lrn
         self.rate = rate
@@ -121,7 +138,7 @@ class ConvBnLrnDrop(nn.Module):
                                lrn_size=self.features if self.use_lrn else 0)
         if isinstance(x, tuple):
             x = torch.cat(x, dim=1)
-        y = self.Conv_0(x, dilation=self.rate)
+        y = self.Conv_0(x, dilation=self.rate, stride=self.strides)
         act = get_activation(self.activation)
         if act is not None:
             y = act(y)
@@ -226,3 +243,42 @@ class MultiConvResidualBlock(nn.Module):
         y = y + x
         act = get_activation(self.activation)
         return act(y) if act is not None else y
+
+
+def maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """TF-SAME k x k / stride k max pool: odd sizes pad bottom/right with
+    -inf, which is what ceil_mode's partial last window computes."""
+    return F.max_pool2d(x, kernel_size=k, stride=k, ceil_mode=True)
+
+
+class DownSampleResNet(nn.Module):
+    """Residual conv stack -> SAME max pool -> 4x4 class conv at
+    ``aux_stride`` (reference ``DownSampleResNet``; the guidance network of
+    the CSPN path)."""
+
+    def __init__(self, channel_in: int, channel_out: int, filter_size: int = 3,
+                 res_depth: int = 3, pool_size: int = 2,
+                 activation: str = "relu", aux_stride: int = 2, *,
+                 gen: torch.Generator):
+        super().__init__()
+        self.res_depth = res_depth
+        self.pool_size = pool_size
+        self.activation = activation
+        k = (filter_size, filter_size)
+        for i in range(res_depth):
+            act = activation if i < res_depth - 1 else None
+            self.add_module(f"ConvBnLrnDrop_{i}", ConvBnLrnDrop(
+                channel_in, channel_in, k, activation=act, gen=gen))
+        self.add_module(f"ConvBnLrnDrop_{res_depth}", ConvBnLrnDrop(
+            channel_in, channel_out, (4, 4), activation="relu", gen=gen,
+            strides=(aux_stride, aux_stride)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        orig = x
+        for i in range(self.res_depth):
+            x = getattr(self, f"ConvBnLrnDrop_{i}")(x)
+        x = x + orig
+        act = get_activation(self.activation)
+        x = act(x) if act is not None else x
+        x = maxpool_same(x, self.pool_size)
+        return getattr(self, f"ConvBnLrnDrop_{self.res_depth}")(x)

@@ -11,8 +11,14 @@
   * Up tower, per scale: deconv to the exact skip shape -> concat skip ->
     KxK merge conv -> residual block -> (stages > 0) 1x1 coupling with the
     previous stage's up activation.
+  * Optional bottleneck refinements of the deepest tensor the up tower
+    takes (``models.extras``): ``use_lstm``, a row and a column LSTM, in
+    every stage; ``use_spn``, CSPN affinity propagation guided by the
+    second-deepest scale, in the last stage only.
   * A 4x4 ``end_conv`` maps feat_root -> n_class per stage; stage n-2's
     output is the auxiliary logits head.
+  * ``model="msau_box"`` (``models.msau_box``) puts box convolutions in
+    every residual block; its wrapper holds the network at ``net.bmsau``.
 
 Modules work in NCHW; the public forward takes NHWC input and returns
 ``(probs, logits, aux)`` like ``MSAUWrapper``, NHWC or NCHW
@@ -45,17 +51,20 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from msau_tpu_torch.config import ModelConfig
 from msau_tpu_torch.models.attention import SelfAttentionBlock
+from msau_tpu_torch.models.extras import SeparableRNNBlock, affinity_propagate
 from msau_tpu_torch.models.layers import (
     ConvBnLrnDrop,
     DeconvBnLrnDrop,
     DilConvBnLrnDrop,
+    DownSampleResNet,
     MultiConvResidualBlock,
+    maxpool_same,
 )
+from msau_tpu_torch.models.msau_box import BMSAUNet, MultiBoxConvBlock
 from msau_tpu_torch.ops.flatconv import flat_maxpool2, to_nchw
 from msau_tpu_torch.ops.precision import wide
 
@@ -70,30 +79,33 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.flat_scales > 0 and cfg.pool_size != 2:
         raise ValueError("flat_scales > 0 needs pool_size 2 (the flat pool "
                          "and deconv are 2x2, stride 2)")
+    if cfg.flat_scales > 0 and (cfg.model == "msau_box" or cfg.use_spn):
+        raise ValueError("flat_scales > 0 needs the conv residual blocks and "
+                         "no use_spn: the box and CSPN paths are NHWC only")
     if cfg.spatial_shards > 1:
         raise NotImplementedError(
             "spatial_shards > 1: spatial sharding is ROADMAP Queue 1 item 13")
-    if cfg.model == "msau_box":
-        raise NotImplementedError(
-            "model='msau_box' (box convolutions) is ROADMAP Queue 1 item 10 (4)")
-    if cfg.use_lstm or cfg.use_spn:
-        raise NotImplementedError(
-            "use_lstm / use_spn (models/extras.py) are ROADMAP Queue 1 item 12")
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
 
 
-def _maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    # TF-SAME k x k / stride k pool: odd sizes pad bottom/right with -inf,
-    # which is what ceil_mode's partial last window computes
-    return F.max_pool2d(x, kernel_size=k, stride=k, ceil_mode=True)
+def _make_res_block(cfg: ModelConfig, variant: str, channels: int,
+                    gen: torch.Generator, flat: bool) -> nn.Module:
+    """The residual block of a scale: dense convs, or box convs for the
+    "box" variant (never flat: ``check_supported``)."""
+    if variant == "box":
+        return MultiBoxConvBlock(
+            channels, cfg.num_box_convs, cfg.num_box_per_channel,
+            cfg.max_box_size, cfg.activation_name, gen=gen)
+    return MultiConvResidualBlock(channels, cfg.res_depth, cfg.filter_size,
+                                  cfg.activation_name, gen=gen, flat=flat)
 
 
 class DownSamplingUNetBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, cin: int, coupled: bool,
-                 gen: torch.Generator):
+                 gen: torch.Generator, variant: str = "conv"):
         super().__init__()
         self.cfg = cfg
         self.coupled = coupled
@@ -104,9 +116,8 @@ class DownSamplingUNetBlock(nn.Module):
             self.add_module(f"dil_conv_{layer}", DilConvBnLrnDrop(
                 c_in, feats, (k, k), rate=pool ** layer, activation=None,
                 use_lrn=cfg.use_lrn, gen=gen, flat=flat))
-            self.add_module(f"res_block_{layer}", MultiConvResidualBlock(
-                feats, cfg.res_depth, k, cfg.activation_name, gen=gen,
-                flat=flat))
+            self.add_module(f"res_block_{layer}", _make_res_block(
+                cfg, variant, feats, gen, flat))
             if coupled:
                 self.add_module(f"couple_conv_{layer}", ConvBnLrnDrop(
                     2 * feats, feats, (1, 1), activation=cfg.activation_name,
@@ -132,12 +143,13 @@ class DownSamplingUNetBlock(nn.Module):
             else:
                 dw_h_convs.append(y)
                 x = (flat_maxpool2(y) if layer < self.cfg.flat_scales
-                     else _maxpool_same(y, self.cfg.pool_size))
+                     else maxpool_same(y, self.cfg.pool_size))
         return dw_h_convs, x
 
 
 class UpSamplingUNetBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, coupled: bool, gen: torch.Generator):
+    def __init__(self, cfg: ModelConfig, coupled: bool, gen: torch.Generator,
+                 variant: str = "conv"):
         super().__init__()
         self.cfg = cfg
         self.coupled = coupled
@@ -150,9 +162,8 @@ class UpSamplingUNetBlock(nn.Module):
             self.add_module(f"merge_conv_{layer}", ConvBnLrnDrop(
                 2 * feats, feats, (k, k), activation=None, gen=gen,
                 flat=flat))
-            self.add_module(f"res_block_{layer}", MultiConvResidualBlock(
-                feats, cfg.res_depth, k, cfg.activation_name, gen=gen,
-                flat=flat))
+            self.add_module(f"res_block_{layer}", _make_res_block(
+                cfg, variant, feats, gen, flat))
             if coupled:
                 self.add_module(f"couple_conv_{layer}", ConvBnLrnDrop(
                     2 * feats, feats, (1, 1), activation=cfg.activation_name,
@@ -175,14 +186,35 @@ class UpSamplingUNetBlock(nn.Module):
 
 class UNetBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, cin: int, coupled: bool,
-                 gen: torch.Generator):
+                 gen: torch.Generator, variant: str = "conv",
+                 use_spn: bool = False):
         super().__init__()
-        self.down = DownSamplingUNetBlock(cfg, cin, coupled, gen)
-        self.up = UpSamplingUNetBlock(cfg, coupled, gen)
+        S, pool = cfg.scale_space_num, cfg.pool_size
+        self.down = DownSamplingUNetBlock(cfg, cin, coupled, gen, variant)
+        if cfg.use_lstm:
+            self.lstm = SeparableRNNBlock(cfg.feat_root * pool ** (S - 1),
+                                          identity=False, gen=gen)
+        if use_spn:
+            # aux_stride 1 keeps the guidance at the deepest map's size
+            self.spn_guidance = DownSampleResNet(
+                cfg.feat_root * pool ** (S - 2), 8, cfg.filter_size,
+                cfg.res_depth, pool, cfg.activation_name, aux_stride=1,
+                gen=gen)
+        self.up = UpSamplingUNetBlock(cfg, coupled, gen, variant)
 
     def forward(self, x, prev_dw=None, prev_up=None):
         dw_h_convs, deepest = self.down(x, prev_dw)
-        out, up_h_convs = self.up(dw_h_convs, deepest, prev_up)
+        dtype = deepest.dtype
+        if hasattr(self, "lstm"):
+            deepest = self.lstm(deepest)
+        if hasattr(self, "spn_guidance"):
+            gh, gw = deepest.shape[-2:]
+            guidance = self.spn_guidance(dw_h_convs[-2])[:, :, :gh, :gw]
+            deepest = deepest + affinity_propagate(
+                guidance, deepest.mean(1, keepdim=True))
+        # the LSTM computes in its f32 parameters' dtype; the up tower's
+        # first layer takes the stage's dtype, as flax's ``dtype=`` casts
+        out, up_h_convs = self.up(dw_h_convs, deepest.to(dtype), prev_up)
         return out, dw_h_convs, up_h_convs
 
 
@@ -190,13 +222,17 @@ class MSAUNet(nn.Module):
     """num_blocks coupled U-Net stages + per-stage 4x4 end convs; NCHW in,
     NCHW f32 (logits, aux_logits) out."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 block_variant: str = "conv"):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         for b in range(cfg.num_blocks):
             cin = cfg.img_channels if b == 0 else cfg.n_class
-            self.add_module(f"block_{b}", UNetBlock(cfg, cin, b > 0, gen))
+            # SPN only on the last stage (reference model/model.py:365-368)
+            self.add_module(f"block_{b}", UNetBlock(
+                cfg, cin, b > 0, gen, block_variant,
+                use_spn=cfg.use_spn and b == cfg.num_blocks - 1))
             self.add_module(f"end_conv_{b}", ConvBnLrnDrop(
                 cfg.feat_root, cfg.n_class, (4, 4), activation=None, gen=gen,
                 flat=cfg.flat_scales > 0))
@@ -230,7 +266,8 @@ class MSAUWrapper(nn.Module):
     def __init__(self, config: ModelConfig, generator: torch.Generator):
         super().__init__()
         self.config = config
-        self.net = MSAUNet(config, generator)
+        self.net = (BMSAUNet(config, generator) if config.model == "msau_box"
+                    else MSAUNet(config, generator))
 
     @property
     def compute_dtype(self) -> torch.dtype:

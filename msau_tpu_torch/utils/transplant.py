@@ -7,7 +7,11 @@ one to one: ``net/block_0/down/dil_conv_0/Conv_0/kernel`` is
   * conv kernel HWIO ``[kh, kw, in, out]`` <-> torch OIHW ``[out, in, kh, kw]``;
   * deconv kernel (``deconv_{l}``): flax stores it HWIO in correlation
     orientation, the spatial flip of torch's transposed-conv weight
-    ``[in, out, kh, kw]``.
+    ``[in, out, kh, kw]``;
+  * dense kernel (the LSTM cells' gates) ``[in, out]`` <-> torch
+    ``[out, in]``;
+  * the box convolution's ``ybox`` / ``xbox`` ``[2, C, B]`` keep their
+    name and layout.
 
 The flax side is a nested dict of numpy arrays, with or without the outer
 ``{"params": ...}``; the torch side is a state_dict of tensors.
@@ -19,6 +23,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+BOX_LEAVES = ("ybox", "xbox")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -42,13 +48,15 @@ def flax_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
     for path, v in _flatten(tree).items():
         leaf = path[-1]
         if leaf == "kernel":
-            if _is_deconv(path):
+            if v.ndim == 2:
+                w = v.T
+            elif _is_deconv(path):
                 w = np.flip(v, (0, 1)).transpose(2, 3, 0, 1)
             else:
                 w = v.transpose(3, 2, 0, 1)
             name = "weight"
-        elif leaf == "bias":
-            w, name = v, "bias"
+        elif leaf == "bias" or leaf in BOX_LEAVES:
+            w, name = v, leaf
         else:
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
         key = ".".join(path[:-1] + (name,))
@@ -63,13 +71,15 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         parts = key.split(".")
         v = t.detach().to("cpu", torch.float32).numpy()
         if parts[-1] == "weight":
-            if _is_deconv(parts):
+            if v.ndim == 2:
+                v = v.T
+            elif _is_deconv(parts):
                 v = np.flip(v.transpose(2, 3, 0, 1), (0, 1))
             else:
                 v = v.transpose(2, 3, 1, 0)
             leaf = "kernel"
-        elif parts[-1] == "bias":
-            leaf = "bias"
+        elif parts[-1] == "bias" or parts[-1] in BOX_LEAVES:
+            leaf = parts[-1]
         else:
             raise KeyError(f"unexpected torch parameter {key}")
         node = params

@@ -3,6 +3,7 @@ outputs on the fixtures and on synthetic pages (the originals live in
 packages whose ``__init__`` imports JAX, so the port cannot import them)."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -14,11 +15,12 @@ from msau_tpu.data import charset as o_charset
 from msau_tpu.data import pages as o_pages
 from msau_tpu.data import rasterize as o_rast
 from msau_tpu.data import synth as o_synth
+from msau_tpu.data import wordgrid as o_wordgrid
 from msau_tpu.infer import decode as o_decode
 from msau_tpu.infer import evaluate as o_evaluate
 from msau_tpu.infer import reading_order as o_ro
 from msau_tpu.infer import schema as o_schema
-from msau_tpu_torch.data import charset, pages, rasterize, synth
+from msau_tpu_torch.data import charset, pages, rasterize, synth, wordgrid
 from msau_tpu_torch.infer import decode, evaluate, reading_order, schema
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -251,9 +253,20 @@ def test_char_records_copy_matches(seed):
     assert [e.shape for e in empty] == [(0, 5), (0,), (0,)]
 
 
+# modules the walk below must reach (the box model, the extras, the word-
+# and feature-grid data side, metrics and io, and the FUNSD tools among them)
+NEW_PORT_MODULES = (
+    "msau_tpu_torch.ops.boxconv", "msau_tpu_torch.models.msau_box",
+    "msau_tpu_torch.models.extras", "msau_tpu_torch.data.wordgrid",
+    "msau_tpu_torch.data.featgrid", "msau_tpu_torch.utils.metrics",
+    "msau_tpu_torch.utils.io", "msau_tpu_torch.tools.preprocess_funsd",
+    "msau_tpu_torch.tools.train_funsd")
+
+
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """Every module of msau_tpu_torch, and chip_smoke, imported in a fresh
-    interpreter: neither jax nor any msau_tpu module gets loaded."""
+    """Every module of msau_tpu_torch (the tools too), and chip_smoke,
+    imported in a fresh interpreter: neither jax nor any msau_tpu module
+    gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import msau_tpu_torch\n"
@@ -265,9 +278,68 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "m.startswith('jax.') or m == 'msau_tpu' or "
         "m.startswith('msau_tpu.'))\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('msau_tpu_torch')]))\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('msau_tpu_torch')))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) > 20
+    loaded = set(proc.stdout.split())
+    assert len(loaded) > 20
+    assert set(NEW_PORT_MODULES) <= loaded, set(NEW_PORT_MODULES) - loaded
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wordgrid_records_copy_matches(seed, monkeypatch):
+    """Seeded words (some empty) through the port's records and the JAX
+    package's numpy path (its C core switched off)."""
+    from msau_tpu import native as o_native
+    from msau_tpu_torch.data.native import wordgrid_records
+
+    monkeypatch.setattr(o_native, "_load", lambda: None)
+    rng = np.random.default_rng(seed)
+    n = 11
+    boxes = np.stack([rng.uniform(0, 400, n), rng.uniform(0, 400, n),
+                      rng.uniform(3, 120, n), rng.uniform(5, 30, n)], 1)
+    lens = rng.integers(0, 9, n)
+    lens[seed] = 0
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    ids = rng.integers(0, 64, int(offsets[-1])).astype(np.int32)
+    geo = (float(boxes[:, 0].min()), float(boxes[:, 1].min()), 2.5,
+           float(boxes[:, 3].min()))
+    got = wordgrid_records(boxes, offsets, ids, *geo)
+    want = o_native.wordgrid_records(boxes, offsets, ids, *geo)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def _params(fn):
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("module,names", [
+    ("data.wordgrid", ("preprocess_funsd_dir", "save_preprocessed",
+                       "load_preprocessed", "wordgrid_programs",
+                       "bow_features", "char_ngram_features",
+                       "sentence_embedding_features")),
+    ("data.featgrid", ("cell_unit_layout", "cell_index_programs")),
+    ("utils.io", ("gen_prefix", "create_filename", "read_image_list",
+                  "glob_folder", "write_csv_report_by_row",
+                  "write_csv_report_by_field")),
+    ("utils.metrics", ("micro_metrics", "confusion_matrix",
+                       "confusion_matrix_device", "report_from_confusion",
+                       "classification_report")),
+])
+def test_new_host_copies_keep_signatures(module, names):
+    """The host copies of this slice take the originals' parameters (names,
+    kinds, defaults); their outputs are pinned in test_torch_wordgrid,
+    test_torch_featgrid and test_torch_tools."""
+    import importlib
+
+    ours = importlib.import_module(f"msau_tpu_torch.{module}")
+    orig = importlib.import_module(f"msau_tpu.{module}")
+    for name in names:
+        assert _params(getattr(ours, name)) == _params(getattr(orig, name)), name
+    ex = [f.name for f in dataclasses.fields(wordgrid.WordGridExample)]
+    assert ex == [f.name for f in dataclasses.fields(o_wordgrid.WordGridExample)]

@@ -489,3 +489,47 @@ def test_flat_bwd_kernels_match_plain(cuda, case, dtype):
         assert err <= tol, (kind, err, tol)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_tf32_stays_off_after_import(cuda):
+    """Importing the port turns TF32 off for cuDNN and for matmul, so the
+    f32 products of this slice (cuDNN convs, the LSTM's cuDNN cell, the
+    box convolution's banded einsums) keep f32's rounding: each within
+    1e-5 of max(1, max |want|) of the float64 result on the CPU (on the
+    CPU in f32: 5e-7, 4e-7 and 3e-7), where TF32's 10-bit mantissa misses
+    the matmul by 2.7e-4; the box convolution within 5e-5 (its f32
+    integral image cancels: 4.6e-6 on the CPU), where TF32 would round
+    prefix sums near 2000 by ~1."""
+    import msau_tpu_torch  # noqa: F401  (sets the policy)
+    from msau_tpu_torch.models.extras import LSTMCell
+    from msau_tpu_torch.ops.boxconv import box_conv2d
+
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator().manual_seed(0)
+
+    def err(got, want):
+        return float((got.cpu().double() - want).abs().max()
+                     / max(1.0, float(want.abs().max())))
+
+    a, b = torch.randn(512, 1024, generator=gen), torch.randn(1024, 256,
+                                                                generator=gen)
+    assert err(a.to(cuda) @ b.to(cuda), a.double() @ b.double()) <= 1e-5
+    x, w = torch.randn(2, 64, 40, 40, generator=gen), torch.randn(
+        64, 64, 3, 3, generator=gen)
+    assert err(torch.nn.functional.conv2d(x.to(cuda), w.to(cuda)),
+               torch.nn.functional.conv2d(x.double(), w.double())) <= 1e-5
+    cell = LSTMCell(64, 64, gen=gen)
+    seq = torch.randn(8, 48, 64, generator=gen)
+    with torch.no_grad():
+        want = cell.double()(seq.double())
+        got = cell.float().to(cuda)(seq.to(cuda))
+    assert err(got, want) <= 1e-5
+    img = torch.rand(2, 8, 64, 64, generator=gen)
+    lo = torch.rand(4, 8, 3, generator=gen) * 20 - 14
+    coords = [lo[0], lo[0] + 6, lo[1], lo[1] + 9]
+    kw = dict(max_h=28, max_w=28)
+    want = box_conv2d(img.double(), *(c.double() for c in coords), **kw)
+    got = box_conv2d(img.to(cuda), *(c.to(cuda) for c in coords), **kw)
+    assert err(got, want) <= 5e-5
