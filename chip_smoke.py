@@ -165,17 +165,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
      --device cuda --epochs 2 with --features chargrid, bert (the
      char-ngram fallback, 768 channels) and bow, and with a
      model_kwargs.json naming msau_box: paint 2 per run (one page),
-     checkpoints 0, 1, 2 under the gen_prefix directory.
+     checkpoints 0, 1, 2 under the gen_prefix directory;
+  5. entry B: (a) ChargridProvider._assemble (upload, paint x4, the
+     one-hot, affine + elastic + rotation warps) on the card against the
+     same on the CPU, from the same programs and augmentation seed, on the
+     512^2 bench page and with rotate_mod90 on a 256 x 512 page, two
+     examples each: the id planes exact, the binarised planes, labels and
+     valid exact except where the CPU's value before its threshold lies
+     within 1e-6 of it (counted), paint 4 an example; (b) write_corpus
+     (rng 5) of 24 bench-sized pages under build/, random_split 0.75,
+     train_generic (its library call, with fit(log_dir=)) at the
+     flagship's widths, flat_scales 3, affine + elastic + rotate, batch 2,
+     2 epochs of 6 steps: each step's loss finite and its launches phase
+     3's flat kernels with the attention of its bucket (resident below
+     8192 tokens, streaming from there) and no masked CE, paint 4 an
+     example pulled, the checkpoints and metrics.jsonl written; ms/step
+     and per example the worker's host ms, the device ms of upload, paint
+     and warps, and the fetch ms; (c) run_kv_test --device cuda
+     --flat_scales 3 on the val pages with the last checkpoint: a
+     request's launches per page (paint 3, CCL 1, the flat forward
+     kernels, the attention of the page's bucket) and the summary in [0,
+     1].
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
-included) and 3, its
+included), 3, 4 and 5 (5b and 5c), its
 largest error against the plain version, its time, the plain version's,
 the library call's (or null) and its bound; then the card's name and power
 limit; the last line is the device record.  A fuller report, with nvcc's register and
 shared-memory lines for each kernel, goes to build/chip_smoke.json.
 """
 
+import glob
 import json
 import subprocess
 import sys
@@ -2302,8 +2323,8 @@ def _profile_steps(step, steps):
     """torch.profiler over ``steps`` calls of ``step`` -> per step: wall ms
     (host clock, ending in a synchronize), device busy ms (the sum of kernel
     times; kernels on one stream do not overlap), busy share, kernel count,
-    busy ms by KERNEL_FAMILIES (the rest: "other torch ops"), and the top
-    kernels."""
+    busy ms by KERNEL_FAMILIES (the rest: "other torch ops"), the top
+    kernels, and the top host ops by their own host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2315,9 +2336,10 @@ def _profile_steps(step, steps):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    fams, names, busy, count = {}, {}, 0.0, 0
+    fams, names, host, busy, count = {}, {}, {}, 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host[evt.key] = evt.self_cpu_time_total
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
@@ -2329,12 +2351,14 @@ def _profile_steps(step, steps):
         fams[fam] = fams.get(fam, 0.0) + us
     per = lambda us: us / 1e3 / steps
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall, "busy_ms": per(busy),
             "busy_share": per(busy) / wall if wall else 0.0,
             "kernels": count / steps,
             "families_ms": {k: per(v) for k, v in
                             sorted(fams.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms": {k[:120]: per(v) for k, v in top}}
+            "top_kernels_ms": {k[:120]: per(v) for k, v in top},
+            "top_host_ops_ms": {k[:120]: per(v) for k, v in top_host}}
 
 
 def _attention_bwd_memory(step, dev, kernel):
@@ -2833,6 +2857,346 @@ def entry_a(dev):
     return total, seconds
 
 
+# ---- phase 5: entry B ------------------------------------------------------
+# (a) the training input on the card against the CPU: the 512^2 bench page
+# with affine + elastic + rotation, and a non-square page (256 x 512) with
+# rotate_mod90, each two examples from one augmentation stream
+ENTRY_B_PARITY = (("affine_elastic_rotate", dict(n_cols=5, rows_per_col=10),
+                   dict(affine=True, elastic=True, rotate=True)),
+                  ("rotate_mod90", dict(n_cols=5, rows_per_col=4),
+                   dict(rotate_mod90=True)))
+ENTRY_B_NEAR = 1e-6       # the CPU tests' near-threshold window
+ENTRY_B_PROFILED = 4      # examples in 5a's trace of _assemble
+# (b) write_corpus (rng 5) of 24 bench-sized pages, random_split 0.75, then
+# train_generic at the flagship's widths
+ENTRY_B_PAGES = 24
+ENTRY_B_ARGS = ["--n_classes", "17", "--feat_root", "8",
+                "--scale_space_num", "4", "--res_depth", "2",
+                "--flat_scales", "3", "--affine", "--elastic", "--rotate",
+                "--per_device_batch", "2", "--epochs", "2",
+                "--batch_steps_per_epoch", "6", "--device", "cuda"]
+ENTRY_B_STEPS = 12        # epochs x batch_steps_per_epoch
+# per entry-B step at flat_scales 3: phase 3's flat kernels, the attention
+# by the step's bucket, no masked CE (entry B trains with unet_loss)
+_FLAT3 = {k: v for k, v in PER_STEP[3].items()
+          if not k.startswith(("resident_attention", "masked_ce"))}
+
+
+def _attention_kind(h, w, scales=4):
+    """The deepest scale's attention op at an h x w input ("auto")."""
+    from msau_tpu_torch.models.attention import STREAMING_MIN_TOKENS
+
+    d = 2 ** (scales - 1)
+    return ("fused_attention" if (h // d) * (w // d) >= STREAMING_MIN_TOKENS
+            else "resident_attention")
+
+
+def _entry_b_per_step(h, w):
+    kind = _attention_kind(h, w)
+    return {**_FLAT3, f"{kind}_fwd": 3, f"{kind}_bwd": 2}
+
+
+def entry_b_parity(dev):
+    """Phase 5a: ChargridProvider._assemble (paint x4, the one-hot, the
+    warps) on the card against the same on the CPU, same programs and
+    augmentation seed: the id planes exact; the binarised planes, labels
+    and valid exact except where the CPU's value before the threshold lies
+    within ENTRY_B_NEAR of it (counted); then one torch.profiler trace of
+    the card's _assemble with the elastic warp -> checks."""
+    import copy
+
+    import numpy as np
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import DataConfig
+    from msau_tpu_torch.data import augment, pipeline
+    from msau_tpu_torch.data.charset import Charset
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.rasterize import build_chargrid_programs
+    from msau_tpu_torch.data.synth import BENCH_CHARSET, make_page
+
+    cs = Charset(chars="◫⎅" + BENCH_CHARSET)
+    checks = {}
+    for name, page_kw, flags in ENTRY_B_PARITY:
+        page = page_from_label_dict(make_page(np.random.default_rng(3),
+                                              **page_kw))
+        progs = build_chargrid_programs(page, cs, scale_min=3.0,
+                                        scale_max=3.0,
+                                        label_style="underline")
+        cfg = DataConfig(n_classes=17, **flags)
+        out = {}
+        for where in ("card", "cpu"):
+            prov = pipeline.ChargridProvider(
+                None, None, cs, cfg, device=dev if where == "card" else "cpu")
+            prov._aug_rng = np.random.default_rng(20260816)
+            soft, real = [], pipeline.augment_example
+
+            def recording(inp, label, valid, n_classes, rng, **kw):
+                s, _ = augment.warp_example(inp, label, valid, n_classes,
+                                            copy.deepcopy(rng), **kw)
+                soft.append(s.numpy())
+                return real(inp, label, valid, n_classes, rng, **kw)
+
+            if where == "cpu":
+                pipeline.augment_example = recording
+            ops.reset_launch_counts()
+            try:
+                out[where] = [prov._assemble(progs) for _ in range(2)]
+            finally:
+                pipeline.augment_example = real
+            paints = ops.launch_counts()["paint"]
+            if where == "card" and paints != 8:
+                raise AssertionError(f"entry B parity {name}: paint "
+                                     f"launched {paints} times for 2 "
+                                     "examples")
+            out[where + "_soft"] = soft
+        excused = 0
+        for card, cpu, soft in zip(out["card"], out["cpu"], out["cpu_soft"]):
+            n_soft = cpu["input"].shape[-1] - 2
+            if not np.array_equal(card["input"][..., n_soft:],
+                                  cpu["input"][..., n_soft:]):
+                raise AssertionError(f"entry B parity {name}: id planes")
+            near_tok = np.abs(soft[..., :n_soft] - 0.25) <= ENTRY_B_NEAR
+            near_lab = (np.abs(soft[..., n_soft:-1] - 0.25)
+                        <= ENTRY_B_NEAR).any(-1)
+            near_val = np.abs(soft[..., -1] - 0.5) <= ENTRY_B_NEAR
+            for key, plane, near in (
+                    ("input", np.s_[..., :n_soft], near_tok),
+                    ("label", np.s_[...], near_lab),
+                    ("valid", np.s_[...], near_val)):
+                a, b = card[key][0][plane], cpu[key][0][plane]
+                if a.shape != b.shape or not np.array_equal(a[~near],
+                                                            b[~near]):
+                    raise AssertionError(f"entry B parity {name}: {key} "
+                                         "differs outside the near-"
+                                         "threshold pixels")
+            excused += int(near_tok.sum() + near_lab.sum() + near_val.sum())
+        checks[name] = {"shape": list(out["card"][0]["input"].shape),
+                        "excused": excused}
+        print(f"[phase 5] entry B parity {name}: card equals the CPU on "
+              f"{checks[name]['shape']} (2 examples), {excused} "
+              f"near-threshold values excused; paint 4 an example",
+              flush=True)
+        if flags.get("elastic"):
+            # where the consumer's time goes: one torch.profiler trace of
+            # ENTRY_B_PROFILED examples (upload, paint x4, warps, fetch)
+            prov = pipeline.ChargridProvider(None, None, cs, cfg, device=dev)
+            prov._aug_rng = np.random.default_rng(20260816)
+            prof = _profile_steps(lambda: prov._assemble(progs),
+                                  ENTRY_B_PROFILED)
+            prof["assemble_ms"] = [t["assemble_ms"] for t in prov.timings]
+            prof["fetch_ms"] = [t["fetch_ms"] for t in prov.timings]
+            checks[name]["profile"] = prof
+            print(f"[phase 5] _assemble {name} by torch.profiler, "
+                  f"{ENTRY_B_PROFILED} examples: wall {prof['wall_ms']:.2f} "
+                  f"ms an example, device busy {prof['busy_ms']:.2f} ms "
+                  f"({100 * prof['busy_share']:.1f} %), "
+                  f"{prof['kernels']:.0f} kernels; top "
+                  f"{json.dumps(prof['top_kernels_ms'])}; top host ops "
+                  f"{json.dumps(prof['top_host_ops_ms'])}", flush=True)
+    return checks
+
+
+def entry_b(dev):
+    """Phase 5b and 5c: write_corpus (rng 5) of ENTRY_B_PAGES bench-sized
+    pages under build/, random_split 0.75, train_generic through its
+    library call with fit(log_dir=), each step and each pull checked
+    (finite loss, launches by the step's bucket, paint 4 an example); then
+    run_kv_test --device cuda on the val pages with the last checkpoint,
+    and KVModel.run_test at flat_scales 3, each page served entry B's
+    input -> (launch counts, results)."""
+    import dataclasses
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.charset import Charset
+    from msau_tpu_torch.data.pages import load_label_json_page
+    from msau_tpu_torch.data.synth import write_corpus
+    from msau_tpu_torch.infer.kv_model import KVModel, prepare_host
+    from msau_tpu_torch.ops import cuda_lib
+    from msau_tpu_torch.tools import random_split, run_kv_test, train_generic
+
+    if dev.type != "cuda":
+        raise ValueError(f"entry B runs on the card, not {dev}")
+    root = cuda_lib.BUILD_DIR.parent / "entry_b"
+    shutil.rmtree(root, ignore_errors=True)
+    _, _, cs_path = write_corpus(str(root / "all"), ENTRY_B_PAGES, 0,
+                                 np.random.default_rng(5), n_cols=5,
+                                 rows_per_col=10)
+    train_names, val_names = random_split.random_split(str(root / "all"),
+                                                       0.75, seed=5)
+    for split, names in (("train", train_names), ("val", val_names)):
+        os.makedirs(root / split)
+        for n in names:
+            shutil.copy(root / "all" / n, root / split / n)
+    args = train_generic.build_parser().parse_args(
+        ["--train_dir", str(root / "train"), "--val_dir", str(root / "val"),
+         "--charset", cs_path, "--output_path", str(root / "out")]
+        + ENTRY_B_ARGS)
+
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    steps, pulls = [], []
+
+    def instrument(trainer, chargrid, provider):
+        real_step, real_next = trainer.train_step, chargrid.next_data
+
+        def step(state, batch):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = real_step(state, batch)
+            loss = float(metrics["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            n, h, w, _ = batch["input"].shape
+            got = {k: after[k] - before[k] for k in after}
+            want = _entry_b_per_step(h, w)
+            for k, v in got.items():
+                if v != want.get(k, 0):
+                    raise AssertionError(f"entry B step {len(steps)} at "
+                                         f"{n} x {h} x {w}: {k} launched "
+                                         f"{v} times, want {want.get(k, 0)}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"entry B step {len(steps)}: loss {loss}")
+            steps.append({"shape": [n, h, w], "loss": loss, "ms": ms})
+            return state, metrics
+
+        def next_data(split="train"):
+            before = ops.launch_counts()["paint"]
+            item = real_next(split)
+            paints = ops.launch_counts()["paint"] - before
+            if item is not None and paints != 4:
+                raise AssertionError(f"entry B: paint launched {paints} "
+                                     f"times for one {split} example")
+            pulls.append(split)
+            return item
+
+        trainer.train_step, chargrid.next_data = step, next_data
+        instrument.chargrid = chargrid
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, history = train_generic.train(args, log_dir=str(root / "logs"),
+                                           setup=instrument)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k in total:
+        total[k] += counts[k]
+    if len(steps) != ENTRY_B_STEPS:
+        raise AssertionError(f"entry B ran {len(steps)} steps, want "
+                             f"{ENTRY_B_STEPS}")
+    if counts["masked_ce_fwd"] or counts["masked_ce_bwd"]:
+        raise AssertionError("entry B launched the masked CE")
+    ckpts = sorted((p for p in (root / "out").glob("model*")),
+                   key=lambda p: int(p.name[5:]))
+    if not ckpts or not (ckpts[-1] / "train_state.pt").exists():
+        raise AssertionError(f"entry B checkpoints: {ckpts}")
+    rows = [json.loads(l) for l in
+            (root / "logs" / "metrics.jsonl").read_text().splitlines()]
+    if [sorted(r) for r in rows] != [
+            ["epoch", "step", "train/accuracy", "train/loss"],
+            ["step", "val/accuracy", "val/loss"]] * 2:
+        raise AssertionError(f"entry B metrics.jsonl rows {rows}")
+    timings = list(instrument.chargrid.timings)
+    med = lambda key, rows: statistics.median(r[key] for r in rows)
+    res = {"train_seconds": train_s, "steps": steps,
+           "ms_per_step": med("ms", steps),
+           "buckets": sorted({tuple(s["shape"][1:]) for s in steps}),
+           "examples": len(timings), "pulls": {
+               s: pulls.count(s) for s in ("train", "val")},
+           "host_ms": med("host_ms", timings),
+           "assemble_ms": med("assemble_ms", timings),
+           "fetch_ms": med("fetch_ms", timings),
+           "history": history, "checkpoints": [p.name for p in ckpts]}
+    print(f"[phase 5] entry B train: {len(steps)} steps in {train_s:.1f} s, "
+          f"buckets {res['buckets']}, p50 {res['ms_per_step']:.2f} ms/step "
+          f"(synchronised); per example p50: worker host "
+          f"{res['host_ms']:.2f} ms, consumer wall from the upload to the "
+          f"last warp (CUDA events) {res['assemble_ms']:.3f} ms, fetch "
+          f"{res['fetch_ms']:.3f} ms "
+          f"({len(timings)} examples); losses "
+          f"{[round(s['loss'], 4) for s in steps]}; checkpoints "
+          f"{res['checkpoints']}", flush=True)
+
+    # 5c: run_kv_test on the val pages with the last checkpoint, at the
+    # widths of model_kwargs.json (flat_scales 0), then the same through
+    # KVModel.run_test at flat_scales 3; each page is served entry B's
+    # input (paint x5: the one-hot, the line mask, the char separators)
+    cfg = train_generic.configs(args, Charset.from_file(cs_path))[1]
+    mk = root / "model_kwargs.json"
+    mk.write_text(json.dumps(cfg.to_model_kwargs()))
+    val = sorted(glob.glob(str(root / "val" / "*.json")))
+    res["run_kv_test"] = {}
+    for fs in (0, 3):
+        want = {k: 0 for k in total}
+        for path in val:
+            _, _, _, hb, wb = prepare_host(load_label_json_page(path),
+                                           Charset.from_file(cs_path), 3.0)
+            per = dict(SERVE_PER_REQUEST[fs], paint=5)
+            per[_attention_kind(hb, wb) + "_fwd"] = per.pop(
+                "resident_attention_fwd")
+            for k, v in per.items():
+                want[k] += v
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if fs == 0:
+            kv_results, eval_results, summary = run_kv_test.main([
+                "--input_dir", str(root / "val"), "--charset", cs_path,
+                "--n_class", "17", "--model_weight", str(ckpts[-1]),
+                "--model_kwargs", str(mk), "--out_dir", str(root / "kv"),
+                "--label_dir", str(root / "val"), "--device", "cuda"])
+        else:
+            kv = KVModel(dataclasses.replace(cfg, flat_scales=fs),
+                         device=dev).load(model_weight=str(ckpts[-1]),
+                                          charset=cs_path, n_class=17)
+            kv_results, eval_results, summary = kv.run_test(
+                val, label_dir=str(root / "val"))
+        torch.cuda.synchronize()
+        kv_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != want:
+            raise AssertionError(f"run_kv_test fs {fs}: launches {counts}, "
+                                 f"want {want}")
+        if not (summary and all(0.0 <= v <= 1.0 for v in summary.values())):
+            raise AssertionError(f"run_kv_test fs {fs}: summary {summary}")
+        for k in total:
+            total[k] += counts[k]
+        res["run_kv_test"][f"fs{fs}"] = {
+            "pages": len(kv_results), "seconds": kv_s,
+            "ms_per_page": kv_s * 1e3 / len(kv_results),
+            "summary": summary, "counters": eval_results}
+        print(f"[phase 5] {'run_kv_test' if fs == 0 else 'KVModel.run_test'}"
+              f" on {len(kv_results)} val pages (flat_scales {fs}, f32, the "
+              f"last checkpoint {ckpts[-1].name}): {kv_s:.2f} s, "
+              f"{kv_s * 1e3 / len(kv_results):.1f} ms a page (model load "
+              f"included); summary {json.dumps(summary)}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    # the served input of one page is entry B's, plane for plane
+    from msau_tpu_torch.data.rasterize import (assemble_chargrid_input,
+                                               round_up, upload_programs)
+
+    x, _, _, _, progs = kv.rasterize(load_label_json_page(val[0]))
+    cap = round_up(len(progs.char.values), 512)
+    lcap = round_up(max(len(progs.line_id.values), 1), 512)
+    ref = assemble_chargrid_input(
+        *upload_programs([progs.char.padded(cap), progs.char_sep.padded(cap),
+                          progs.line_mask.padded(lcap)], dev),
+        x.shape[0], x.shape[1], cfg.img_channels - 2)
+    if not (torch.equal(x, ref) and x[..., -2:].amax() > 0):
+        raise AssertionError("the served input is not entry B's")
+    print(f"[phase 5] served input of {os.path.basename(val[0])} equals "
+          f"assemble_chargrid_input's, {list(x.shape)}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return total, res
+
+
 def main() -> int:
     import torch
 
@@ -2917,7 +3281,12 @@ def main() -> int:
     phase4 = {k: var_train_counts[k] + var_serve_counts[k] + entry_counts[k]
               for k in counts}
     print(f"[phase 4] launches: {phase4}", flush=True)
-    launches = {k: counts[k] + train_counts[k] + phase4[k] for k in counts}
+    checks["entry_b_parity"] = timed("phase 5a entry B parity",
+                                     entry_b_parity, dev)
+    phase5, entry_b_res = timed("phase 5b, 5c entry B", entry_b, dev)
+    print(f"[phase 5] launches: {phase5}", flush=True)
+    launches = {k: counts[k] + train_counts[k] + phase4[k] + phase5[k]
+                for k in counts}
 
     sources = {
         "paint": ("msau_tpu_torch/csrc/paint.cu",
@@ -2955,9 +3324,10 @@ def main() -> int:
               "ptxas": lib.build_log, "seconds": seconds, "timer": TIMER,
               "kernels": kernels, "partial_sums": sums,
               "launches": {"serve": counts, "train": train_counts,
-                           "variants": phase4},
+                           "variants": phase4, "entry_b": phase5},
               "predict_p50_ms": timings, "train": train,
               "variants": variants, "entry_a_seconds": entry_seconds,
+              "entry_b": entry_b_res,
               "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)

@@ -1,5 +1,5 @@
-"""Configuration dataclasses of the port: ``ModelConfig``, ``TrainConfig``
-and ``InferConfig`` with the JAX package's field names and defaults
+"""Configuration dataclasses of the port: ``ModelConfig``, ``DataConfig``,
+``TrainConfig`` and ``InferConfig`` with the JAX package's field names and defaults
 (``msau_tpu/config.py``), so one configuration drives both implementations.
 The port keeps its own copy: it imports nothing of ``msau_tpu``.
 ``tests/test_torch_host_copies.py`` pins the copy to the original.
@@ -13,7 +13,7 @@ deepest scale's attention op as in the JAX package
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
@@ -80,6 +80,41 @@ class ModelConfig:
 
 
 @dataclass
+class DataConfig:
+    """Chargrid generation / augmentation parameters.
+
+    Mirrors the reference `kwargs_dat` dict
+    (data_generator/data_generator_funsd.py:53-104) plus static-shape
+    bucketing.
+    """
+
+    n_classes: int = 5
+    charset_path: Optional[str] = None
+    batch_size: int = 1
+    # text height scaling (pixels of text height after rescale)
+    scale_min: float = 2.0
+    scale_max: float = 4.0
+    scale_val: float = 3.0
+    # augmentation
+    affine: bool = False
+    affine_value: float = 0.025
+    elastic: bool = False
+    elastic_value_x: float = 0.0002
+    elastic_value_y: float = 0.0002
+    rotate: bool = False               # U(-20, 20) degrees (data_generator_text.py:308)
+    rotate_mod90: bool = False         # exact k*90 rotation (rotateMod90 intent)
+    text_err: float = 0.0              # OCR-noise injection rate
+    shuffle: bool = True
+    # static-shape bucketing (the reference uses data-dependent image
+    # sizes, data_generator_funsd.py:330-334)
+    buckets: Tuple[int, ...] = (256, 512, 1024)
+    max_chars: int = 8192              # per-image char-box budget (padded)
+    max_lines: int = 1024              # per-image line budget (padded)
+    prefetch: int = 2
+    num_workers: int = 2
+
+
+@dataclass
 class TrainConfig:
     """Optimizer / loop parameters (reference model/training/*)."""
 
@@ -119,4 +154,4 @@ class InferConfig:
     max_ccl_iters: int = 64
 
 
-__all__ = ["InferConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["DataConfig", "InferConfig", "ModelConfig", "TrainConfig"]

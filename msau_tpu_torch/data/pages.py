@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # FUNSD entity label ids (data_generator_funsd.py:106-112)
 FUNSD_LABEL_TO_ID = {"other": 0, "question": 1, "answer": 2, "header": 3}
@@ -92,3 +92,16 @@ def load_label_json_page(path: str) -> Page:
         doc = json.load(f)
     return page_from_label_dict(doc, path=path)
 
+
+
+def save_label_json(path: str, img_shape: Sequence[int], lines: Sequence[Line]) -> None:
+    """Writer matching scripts/data_util.py:33-39."""
+    doc = {
+        "img_shape": list(img_shape),
+        "lines": [
+            {"box": list(l.box), "text": l.text, "type": l.label, "value": l.value}
+            for l in lines
+        ],
+    }
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f, ensure_ascii=False)

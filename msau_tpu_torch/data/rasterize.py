@@ -8,6 +8,8 @@ only the cheap O(#chars) geometry, producing *box programs* — padded arrays
 of (y1, y2, x1, x2, value) records — and ``paint_boxes`` paints one plane on
 the device of its tensors (``msau_tpu_torch.ops.paint``); ``paint_planes``
 paints several planes through the same kernel in one call.
+``assemble_chargrid_input`` and ``rasterize_train_example`` are the train
+pipeline's device half: paint, then the one-hot and the two id planes.
 
 Painting is sequential last-write-wins, exactly matching numpy slice
 assignment order; empty records (y1 >= y2 or x1 >= x2) are no-ops.
@@ -16,7 +18,7 @@ assignment order; empty records (y1 >= y2 or x1 >= x2) are no-ops.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,6 +147,7 @@ def build_chargrid_programs(
     pad_factor_fixed: float = 2.0,
     label_style: str = "underline",   # "underline" (train gen) | "box" (kv)
     rng: Optional[np.random.Generator] = None,
+    id_planes: bool = False,
 ) -> ChargridPrograms:
     """Compute all paint programs for one page.
 
@@ -158,6 +161,10 @@ def build_chargrid_programs(
         box-filled line_id plane and 1-based char-position plane
         (use label_style="box", char_w_cap_factor=1.2, pad_factor_fixed=3.0,
         normalize_digits=True).
+
+    ``id_planes`` (port only) also builds the line-mask and char-sep
+    programs in the "box" style, by the training generator's rule, so
+    that a model trained on those two planes is served them.
     """
     rng = rng or np.random.default_rng()
     lines = page.lines
@@ -234,11 +241,10 @@ def build_chargrid_programs(
         ).clipped(height, width)
 
     empty = BoxProgram.empty()
-    if label_style == "underline":
-        # 1-px label underline + line mask (data_generator_funsd.py:368-371)
-        lab = prog_arr(
-            np.stack([ly2 - 1, ly2, lx1, lx2], -1)[has_text], labels_arr[has_text]
-        )
+
+    def id_plane_programs():
+        # line mask 1 px under each line (data_generator_funsd.py:368-371)
+        # and each char's last column, valued by its token id
         lm = prog_arr(
             np.stack([ly2, ly2 + 1, lx1, lx2], -1)[has_text],
             np.ones(int(has_text.sum()), np.int32),
@@ -247,13 +253,21 @@ def build_chargrid_programs(
             np.stack([rec[:, 0], rec[:, 1], rec[:, 3] - 1, rec[:, 3]], -1),
             rec[:, 4].copy(),
         ).clipped(height, width)
+        return lm, sep
+
+    if label_style == "underline":
+        # 1-px label underline + line mask (data_generator_funsd.py:368-371)
+        lab = prog_arr(
+            np.stack([ly2 - 1, ly2, lx1, lx2], -1)[has_text], labels_arr[has_text]
+        )
+        lm, sep = id_plane_programs()
         lid = cid = empty
     else:
         # box-filled label + line-id planes (kv_model.py:136)
         lab = prog_arr(
             np.stack([ly1, ly2, lx1, lx2], -1)[has_text], labels_arr[has_text]
         )
-        lm = sep = empty
+        lm, sep = id_plane_programs() if id_planes else (empty, empty)
         # line_id plane interleaves each line's box fill with its char boxes
         # (paint order matters across overlapping lines) — stable sort on
         # (line, is_char, char_pos)
@@ -302,3 +316,102 @@ def pad_to_bucket(h: int, w: int, buckets: Sequence[int]) -> Tuple[int, int]:
 
 def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+# ---------------------------------------------------------------------------
+# Assembled device-side rasterization (the train pipeline's input)
+# ---------------------------------------------------------------------------
+def assemble_chargrid_input(
+    char_boxes: torch.Tensor,
+    char_values: torch.Tensor,
+    sep_boxes: torch.Tensor,
+    sep_values: torch.Tensor,
+    lm_boxes: torch.Tensor,
+    lm_values: torch.Tensor,
+    height: int,
+    width: int,
+    n_token: int,
+) -> torch.Tensor:
+    """Paint char/sep/line planes and assemble the [H, W, n_token+2] input,
+    on the device of the box programs.
+
+    Matches the training generator's channel layout
+    (data_generator_funsd.py:388-389): one-hot token grid, then the line
+    mask, then the char-separator plane (one-hot is NOT applied to the
+    extra planes; they carry raw values cast to float).
+    """
+    ids = paint_boxes(char_boxes, char_values, height, width)
+    sep = paint_boxes(sep_boxes, sep_values, height, width)
+    lm = paint_boxes(lm_boxes, lm_values, height, width)
+    tokens = torch.arange(n_token, dtype=torch.int32, device=ids.device)
+    onehot = (ids[..., None] == tokens).to(torch.float32)
+    return torch.cat(
+        [onehot, lm[..., None].to(torch.float32), sep[..., None].to(torch.float32)],
+        dim=-1,
+    )
+
+
+def upload_programs(programs: Sequence[BoxProgram], device) -> List[torch.Tensor]:
+    """Box programs -> [boxes, values, boxes, values, ...] tensors on
+    ``device`` from ONE host->device copy of a packed int32 buffer.  Each
+    program's capacity must be a multiple of 4, so that every boxes view
+    starts 16-byte aligned, as the paint kernel requires."""
+    parts, shapes = [], []
+    for p in programs:
+        if len(p.values) % 4:
+            raise ValueError(f"program capacity {len(p.values)} is not a "
+                             "multiple of 4")
+        parts += [np.asarray(p.boxes, np.int32).ravel(),
+                  np.asarray(p.values, np.int32)]
+        shapes += [(len(p.values), 4), (len(p.values),)]
+    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    out, o = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(buf[o:o + n].view(shape))
+        o += n
+    return out
+
+
+def rasterize_train_example(
+    page: Page,
+    charset: Charset,
+    n_classes: int,
+    *,
+    buckets: Sequence[int] = (256, 512, 1024),
+    max_chars: int = 8192,
+    scale_min: float = 3.0,
+    scale_max: float = 3.0,
+    text_err: float = 0.0,
+    rng: Optional[np.random.Generator] = None,
+    device,
+) -> Dict[str, torch.Tensor]:
+    """Full train-pipeline rasterization of one page to static bucket
+    shapes, painted on ``device`` (4 paint calls: char, sep, line mask,
+    label).
+
+    Returns dict with:
+      input  [H, W, n_token+2] float32
+      label  [H, W] int32 class ids (0 = background/ignore)
+      valid  [H, W] bool (True inside the un-padded page area)
+    """
+    del n_classes  # the label plane carries the class ids as painted
+    progs = build_chargrid_programs(
+        page, charset, scale_min=scale_min, scale_max=scale_max,
+        text_err=text_err, label_style="underline", rng=rng,
+    )
+    hb, wb = pad_to_bucket(progs.height, progs.width, buckets)
+    cap = round_up(max(len(progs.char.values), 1), 512)
+    cap = min(cap, max_chars)
+    lcap = round_up(max(len(progs.line_mask.values), 1), 128)
+    cb, cv, sb, sv, lb, lv, ab, av = upload_programs(
+        [progs.char.padded(cap), progs.char_sep.padded(cap),
+         progs.line_mask.padded(lcap), progs.label.padded(lcap)], device)
+    inp = assemble_chargrid_input(cb, cv, sb, sv, lb, lv, hb, wb,
+                                  charset.n_token)
+    label = paint_boxes(ab, av, hb, wb)
+    dev = inp.device
+    rows = torch.arange(hb, device=dev)[:, None]
+    cols = torch.arange(wb, device=dev)[None, :]
+    valid = (rows < progs.height) & (cols < progs.width)
+    return {"input": inp, "label": label, "valid": valid}

@@ -2,7 +2,11 @@
 
 ``predict`` builds the box programs on the host, uploads them as ONE int32
 buffer, and runs paint x3 -> one-hot -> MSAU forward -> device decode on
-the model's device (the hand-written CUDA kernels on a card); ONE packed
+the model's device (the hand-written CUDA kernels on a card); a model
+trained on entry B's input (``img_channels`` = the training charset's
+``n_token`` + 2) is served that input: the training charset's one-hot,
+then the line-mask and char-sep planes painted by the training rule
+(paint x5; the JAX package serves the one-hot alone); ONE packed
 int32 vector of decode tables comes back, and the host assembles the
 strings.  ``predict_batch`` groups pages by bucket and runs one forward and
 one batched decode (one labelling launch) per group, with one packed [B, L]
@@ -10,7 +14,7 @@ fetch; ``predict(label_path=, eval_results=)`` and ``run_test`` count
 field matches against labelled pages (``infer.evaluate``).
 
 Charset convention at inference: file contents prefixed with ' ' and '$',
-blank index 1.
+blank index 1 (the training pipeline's prefix is ``DEFAULT_SPECIALS``).
 """
 
 from __future__ import annotations
@@ -22,17 +26,19 @@ import os
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from msau_tpu_torch.config import InferConfig, ModelConfig
 from msau_tpu_torch.data.charset import Charset
 from msau_tpu_torch.data.pages import Line, Page, load_label_json_page
 from msau_tpu_torch.data.rasterize import (
+    BoxProgram,
+    assemble_chargrid_input,
     build_chargrid_programs,
     pad_to_bucket,
     paint_boxes,
     round_up,
+    upload_programs,
 )
 from msau_tpu_torch.infer.decode import (
     decode_fields_device,
@@ -54,9 +60,12 @@ def _is_state_dict(params: Mapping) -> bool:
 
 
 def prepare_host(page: Page, charset: Charset, scale: float,
-                 buckets: Sequence[int] = (256, 512, 1024)):
+                 buckets: Sequence[int] = (256, 512, 1024),
+                 id_planes: bool = False):
     """Host half of rasterization: box programs + padded paint inputs.
-    Returns (progs, scaled_lines, paint_arrays, hb, wb)."""
+    Returns (progs, scaled_lines, paint_arrays, hb, wb); paint_arrays are
+    the (boxes, values) pairs of the char, line-id and char-id programs,
+    then with ``id_planes`` those of the char-sep and line-mask ones."""
     progs = build_chargrid_programs(
         page,
         charset,
@@ -66,6 +75,7 @@ def prepare_host(page: Page, charset: Charset, scale: float,
         char_w_cap_factor=1.2,
         pad_factor_fixed=3.0,
         label_style="box",
+        id_planes=id_planes,
     )
     hb, wb = pad_to_bucket(progs.height, progs.width, buckets)
     cap = round_up(max(len(progs.char.values), 1), 512)
@@ -77,6 +87,10 @@ def prepare_host(page: Page, charset: Charset, scale: float,
         char.boxes, char.values, lid.boxes, lid.values,
         cid.boxes, cid.values,
     )
+    if id_planes:
+        # every line-mask record is a line's, so lcap holds them
+        sep, lm = progs.char_sep.padded(cap), progs.line_mask.padded(lcap)
+        arrays += (sep.boxes, sep.values, lm.boxes, lm.values)
     # re-index scaled lines 1-based for decode bookkeeping
     scaled = [
         dataclasses.replace(l, id=i + 1) for i, l in enumerate(progs.scaled_lines)
@@ -105,6 +119,7 @@ class KVModel:
         self.schema = schema or FieldSchema()
         self.device = torch.device(device)
         self.charset: Optional[Charset] = None
+        self.train_charset: Optional[Charset] = None
         self.model = None
         self.n_class = self.cfg.n_class
 
@@ -130,6 +145,7 @@ class KVModel:
         """
         if charset is not None:
             self.charset = Charset.from_file(charset, specials=INFER_SPECIALS)
+            self.train_charset = Charset.from_file(charset)
         if n_class is not None:
             self.n_class = n_class
         # keep the field schema aligned with n_class: truncate a longer
@@ -201,7 +217,29 @@ class KVModel:
         charset and scale."""
         if self.charset is None:
             raise ValueError("no charset loaded")
-        return prepare_host(page, self.charset, self.cfg.scale, buckets)
+        charset, id_planes = self._input_charset()
+        return prepare_host(page, charset, self.cfg.scale, buckets, id_planes)
+
+    def _input_charset(self) -> Tuple[Charset, bool]:
+        """(the charset whose ids are painted, whether the line-mask and
+        char-sep planes follow its one-hot), by the model's width: a model
+        as wide as the serving charset's one-hot is served that one-hot, as
+        the JAX package serves; one as wide as entry B's training input
+        (``train_generic``'s ``img_channels``: the training charset's
+        one-hot, then the line-mask and char-sep planes) is served that
+        input, with the training charset's ids.  Any other width raises."""
+        c = self.model_config.img_channels
+        if c == self.charset.n_token:
+            return self.charset, False
+        if (self.train_charset is not None
+                and c == self.train_charset.n_token + 2):
+            return self.train_charset, True
+        n = self.charset.n_token
+        raise ValueError(
+            f"the model takes {c} input channels; the serving charset's "
+            f"one-hot has {n}"
+            + (f", entry B's training input {self.train_charset.n_token + 2}"
+               if self.train_charset is not None else ""))
 
     def _multiline_classes(self) -> Tuple[int, ...]:
         return tuple(
@@ -211,30 +249,23 @@ class KVModel:
             )
         )
 
-    @staticmethod
-    def _pack_host(arrays) -> Tuple[np.ndarray, int, int]:
-        """The six box-program arrays as ONE int32 buffer, for one upload
-        -> (buffer, cap, lcap)."""
-        cap, lcap = arrays[1].shape[0], arrays[3].shape[0]
-        buf = np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays])
-        return buf, cap, lcap
-
-    def _paint(self, buf: torch.Tensor, hb: int, wb: int, cap: int, lcap: int):
-        """paint x3 from the packed buffer -> (one-hot [H, W, V] f32,
+    def _paint(self, arrays, hb: int, wb: int):
+        """ONE upload of ``prepare_host``'s paint arrays, then paint x3
+        (x5 with the id planes) -> (model input [H, W, img_channels] f32,
         line_id [H, W], char_id [H, W])."""
-        o = 0
-        cb = buf[o:o + cap * 4].view(cap, 4); o += cap * 4
-        cv = buf[o:o + cap]; o += cap
-        lb = buf[o:o + lcap * 4].view(lcap, 4); o += lcap * 4
-        lv = buf[o:o + lcap]; o += lcap
-        db = buf[o:o + lcap * 4].view(lcap, 4); o += lcap * 4
-        dv = buf[o:o + lcap]
-        ids = paint_boxes(cb, cv, hb, wb)
-        line_id = paint_boxes(lb, lv, hb, wb)
-        char_id = paint_boxes(db, dv, hb, wb)
-        tokens = torch.arange(self.charset.n_token, dtype=torch.int32,
-                              device=buf.device)
-        return (ids[..., None] == tokens).to(torch.float32), line_id, char_id
+        t = upload_programs([BoxProgram(b, v) for b, v in
+                             zip(arrays[0::2], arrays[1::2])], self.device)
+        line_id = paint_boxes(t[2], t[3], hb, wb)
+        char_id = paint_boxes(t[4], t[5], hb, wb)
+        n_token = self._input_charset()[0].n_token
+        if len(t) > 6:
+            x = assemble_chargrid_input(t[0], t[1], *t[6:], hb, wb, n_token)
+        else:
+            ids = paint_boxes(t[0], t[1], hb, wb)
+            tokens = torch.arange(n_token, dtype=torch.int32,
+                                  device=ids.device)
+            x = (ids[..., None] == tokens).to(torch.float32)
+        return x, line_id, char_id
 
     def _decode(self, probs, line_id, char_id, num_lines: int):
         return decode_fields_device(
@@ -244,11 +275,10 @@ class KVModel:
         )
 
     @torch.inference_mode()
-    def _serve(self, buf: torch.Tensor, *, hb: int, wb: int, num_lines: int,
-               cap: int, lcap: int):
-        """paint x3 -> one-hot -> forward -> decode on ``buf``'s device;
+    def _serve(self, arrays, *, hb: int, wb: int, num_lines: int):
+        """upload, paint -> forward -> decode on the model's device;
         returns (packed tables, probs [H, W, C], chosen_class [H, W])."""
-        x, line_id, char_id = self._paint(buf, hb, wb, cap, lcap)
+        x, line_id, char_id = self._paint(arrays, hb, wb)
         probs, _, _ = self.model(x[None])
         dev = self._decode(probs[0], line_id, char_id, num_lines)
         return pack_decode_out(dev), probs[0], dev["chosen_class"]
@@ -265,13 +295,11 @@ class KVModel:
 
     def rasterize(self, page: Page, buckets: Sequence[int] = (256, 512, 1024)):
         """KV-variant chargrid on the model's device: digits normalized,
-        box-filled line ids, char-position plane -> (one-hot [H, W, V] f32,
-        line_id, char_id, scaled lines, programs)."""
+        box-filled line ids, char-position plane -> (model input [H, W,
+        img_channels] f32, line_id, char_id, scaled lines, programs)."""
         progs, scaled, arrays, hb, wb = self._prepare_host(page, buckets)
-        buf, cap, lcap = self._pack_host(arrays)
-        onehot, line_id, char_id = self._paint(
-            torch.from_numpy(buf).to(self.device), hb, wb, cap, lcap)
-        return onehot, line_id, char_id, scaled, progs
+        x, line_id, char_id = self._paint(arrays, hb, wb)
+        return x, line_id, char_id, scaled, progs
 
     # ------------------------------------------------------------------
     def predict(
@@ -283,7 +311,7 @@ class KVModel:
         """data: a Page, or a path to a layout/OCR JSON, or (json_path, img).
 
         ``timings``: optional dict filled with per-stage host wall times
-        (ms): 'prep' (box programs + packing), 'device' (upload, device
+        (ms): 'prep' (box programs), 'device' (packing, upload, device
         program and the packed fetch, which waits for the device),
         'strings' (host value assembly).
 
@@ -305,12 +333,10 @@ class KVModel:
         t0 = time.perf_counter()
         progs, scaled_lines, arrays, hb, wb = self._prepare_host(page, buckets)
         num_lines = round_up(max(len(scaled_lines), 1), 128)
-        buf, cap, lcap = self._pack_host(arrays)
         t1 = time.perf_counter()
         # one host->device upload, one packed device->host fetch
-        buf_dev = torch.from_numpy(buf).to(self.device)
         packed, pred, chosen = self._serve(
-            buf_dev, hb=hb, wb=wb, num_lines=num_lines, cap=cap, lcap=lcap)
+            arrays, hb=hb, wb=wb, num_lines=num_lines)
         packed_host = packed.cpu().numpy()
         t2 = time.perf_counter()
         host = unpack_decode_out(packed_host, self.n_class, 8, num_lines)

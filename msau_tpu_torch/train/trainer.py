@@ -188,11 +188,9 @@ class Trainer:
         log_dir: Optional[str] = None,
     ) -> Dict[str, list]:
         """Queue-fed training with a per-epoch validation sweep and
-        best-val-loss checkpoints (reference Trainer.train contract)."""
-        if log_dir:
-            raise NotImplementedError(
-                "fit(log_dir=...): the metrics logger (utils/profiling.py) "
-                "is ROADMAP Queue 1 item 12")
+        best-val-loss checkpoints (reference Trainer.train contract).
+        ``log_dir``: per-epoch train and val scalars go to
+        ``log_dir/metrics.jsonl`` (``utils.profiling.MetricsLogger``)."""
         epochs = epochs if epochs is not None else self.cfg.epochs
         steps = batch_steps_per_epoch or self.cfg.batch_steps_per_epoch
         if steps != self.cfg.batch_steps_per_epoch and self.cfg.lr_decay_staircase:
@@ -204,6 +202,12 @@ class Trainer:
             self.restore(restore_path)
         if self.state is None:
             raise RuntimeError("call init_state() first")
+
+        metrics_logger = None
+        if log_dir:
+            from msau_tpu_torch.utils.profiling import MetricsLogger
+
+            metrics_logger = MetricsLogger(log_dir)
 
         history = {"train_loss": [], "val_loss": [], "train_acc": [], "val_acc": []}
         best_val = float("inf")
@@ -235,6 +239,12 @@ class Trainer:
             history["train_acc"].append(train_acc)
             log_fn(f"TRAIN epoch {epoch + 1}: loss={train_loss:.6f} "
                    f"acc={train_acc:.6f} time={time.time() - t0:.2f}s")
+            if metrics_logger:
+                metrics_logger.log(
+                    self.state.step,
+                    {"train/loss": train_loss, "train/accuracy": train_acc,
+                     "epoch": epoch + 1},
+                )
 
             val_size = getattr(data_provider, "size_val", 0)
             if val_size:
@@ -256,6 +266,11 @@ class Trainer:
                     history["val_acc"].append(val_acc)
                     log_fn(f"VAL   epoch {epoch + 1}: loss={val_loss:.6f} "
                            f"acc={val_acc:.6f}")
+                    if metrics_logger:
+                        metrics_logger.log(
+                            self.state.step,
+                            {"val/loss": val_loss, "val/accuracy": val_acc},
+                        )
                     if output_path and (
                         val_loss < best_val
                         or (epoch + 1) % self.cfg.checkpoint_every_epochs == 0
@@ -264,6 +279,8 @@ class Trainer:
                         self.save(os.path.join(output_path, f"model{epoch + 1}"))
             elif output_path and (epoch + 1) % self.cfg.checkpoint_every_epochs == 0:
                 self.save(os.path.join(output_path, f"model{epoch + 1}"))
+        if metrics_logger:
+            metrics_logger.close()
         self.wait_for_checkpoints()
         return history
 

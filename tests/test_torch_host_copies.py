@@ -206,7 +206,8 @@ def test_train_path_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "TrainConfig", "InferConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "TrainConfig", "InferConfig",
+                                  "DataConfig"])
 def test_config_copies_match(name):
     """The port's config dataclasses: the original's field names, order and
     defaults, and the model_kwargs round trip."""
@@ -254,13 +255,21 @@ def test_char_records_copy_matches(seed):
 
 
 # modules the walk below must reach (the box model, the extras, the word-
-# and feature-grid data side, metrics and io, and the FUNSD tools among them)
+# and feature-grid data side, metrics and io, the FUNSD tools, and entry
+# B: augmentation, the pipeline, profiling, viz, the host helpers and the
+# four CLIs, among them)
 NEW_PORT_MODULES = (
     "msau_tpu_torch.ops.boxconv", "msau_tpu_torch.models.msau_box",
     "msau_tpu_torch.models.extras", "msau_tpu_torch.data.wordgrid",
     "msau_tpu_torch.data.featgrid", "msau_tpu_torch.utils.metrics",
     "msau_tpu_torch.utils.io", "msau_tpu_torch.tools.preprocess_funsd",
-    "msau_tpu_torch.tools.train_funsd")
+    "msau_tpu_torch.tools.train_funsd", "msau_tpu_torch.data.augment",
+    "msau_tpu_torch.data.pipeline", "msau_tpu_torch.data.bbox",
+    "msau_tpu_torch.data.cellgraph", "msau_tpu_torch.data.corners",
+    "msau_tpu_torch.utils.profiling", "msau_tpu_torch.utils.viz",
+    "msau_tpu_torch.tools.train_generic", "msau_tpu_torch.tools.run_kv_test",
+    "msau_tpu_torch.tools.random_split",
+    "msau_tpu_torch.tools.extract_training_data")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -343,3 +352,96 @@ def test_new_host_copies_keep_signatures(module, names):
         assert _params(getattr(ours, name)) == _params(getattr(orig, name)), name
     ex = [f.name for f in dataclasses.fields(wordgrid.WordGridExample)]
     assert ex == [f.name for f in dataclasses.fields(o_wordgrid.WordGridExample)]
+
+
+def test_save_label_json_matches(tmp_path):
+    lines = [pages.Line(box=(3, 4, 50, 19), text="Total 1.20 €", label=2,
+                        value=2),
+             pages.Line(box=(3.5, 30, 60, 41.25), text="", label=0, value=0)]
+    pages.save_label_json(str(tmp_path / "a.json"), (300, 200), lines)
+    o_pages.save_label_json(str(tmp_path / "b.json"), (300, 200),
+                            [o_pages.Line(**dataclasses.asdict(l))
+                             for l in lines])
+    assert (tmp_path / "a.json").read_bytes() == \
+        (tmp_path / "b.json").read_bytes()
+    back = pages.load_label_json_page(str(tmp_path / "a.json"))
+    assert [l.box for l in back.lines] == [l.box for l in lines]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bbox_cellgraph_corners_copies_match(seed):
+    """Seeded boxes through the port's bbox predicates and overlap filters,
+    cell graph and corner targets, and the originals."""
+    from msau_tpu.data import bbox as o_bbox
+    from msau_tpu.data import cellgraph as o_cellgraph
+    from msau_tpu.data import corners as o_corners
+    from msau_tpu_torch.data import bbox, cellgraph, corners
+
+    rng = np.random.default_rng(seed)
+    xywh = np.concatenate([rng.integers(0, 200, (14, 2)),
+                           rng.integers(2, 60, (14, 2))], 1).tolist()
+    xywh.append(list(xywh[0]))                  # a duplicate
+    xywh.append([xywh[1][0] + 1, xywh[1][1] + 1, 2, 2])   # contained
+    for a in xywh:
+        for b in xywh:
+            for name in ("check_intersect_bbox", "get_intersect_range_horizontal_proj",
+                         "get_intersect_range_vertical_proj",
+                         "check_bbox_contains_each_other",
+                         "check_bbox_almost_contains_each_other"):
+                assert getattr(bbox, name)(a, b) == getattr(o_bbox, name)(a, b)
+    assert bbox.get_min_bbox_contains_all(xywh) == \
+        o_bbox.get_min_bbox_contains_all(xywh)
+    corners_xyxy = [[x, y, x + w, y + h] for x, y, w, h in xywh]
+    for idx in (False, True):
+        assert bbox.filter_overlap_boxes(corners_xyxy, idx) == \
+            o_bbox.filter_overlap_boxes(corners_xyxy, idx)
+        assert bbox.filter_overlap_boxes_bigger(corners_xyxy, 0.5, 4, idx) == \
+            o_bbox.filter_overlap_boxes_bigger(corners_xyxy, 0.5, 4, idx)
+    arr = np.asarray(xywh, np.float64)
+    adj = cellgraph.build_adjacency(arr, chunk=5)
+    np.testing.assert_array_equal(adj, o_cellgraph.build_adjacency(arr, chunk=5))
+    assert adj.any()
+    assert cellgraph.neighbor_lists(adj) == o_cellgraph.neighbor_lists(adj)
+    texts = [f"c{i}" for i in range(len(xywh))]
+    assert [dataclasses.asdict(c) for c in cellgraph.get_list_cells(xywh, texts)] \
+        == [dataclasses.asdict(c) for c in o_cellgraph.get_list_cells(xywh, texts)]
+    boxes = {i: (b, int(rng.integers(0, 3)), "t", None, [])
+             for i, b in enumerate(corners_xyxy)}
+    got = corners.corner_targets(boxes, (260, 260), (64, 64))
+    want = o_corners.corner_targets(boxes, (260, 260), (64, 64))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for det in ((10.0, 20.0), (3.0, 90.0)):
+        assert corners.gaussian_radius(det) == o_corners.gaussian_radius(det)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_augment_host_functions_match(seed):
+    """The host halves of augmentation draw the same numbers from the same
+    Generator: affine matrices, elastic fields, rotations and canvases."""
+    from msau_tpu.data import augment as o_aug
+    from msau_tpu_torch.data import augment as aug
+
+    shape = ((64, 80), (512, 512), (130, 97))[seed]
+    got = [aug.random_affine_matrix(shape, 0.025, np.random.default_rng(seed)),
+           *aug.elastic_fields(shape, 2e-4, 3e-4, np.random.default_rng(seed))]
+    want = [o_aug.random_affine_matrix(shape, 0.025,
+                                       np.random.default_rng(seed)),
+            *o_aug.elastic_fields(shape, 2e-4, 3e-4,
+                                  np.random.default_rng(seed))]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for flags in (dict(rotate=True, rotate_mod90=False),
+                  dict(rotate=False, rotate_mod90=True),
+                  dict(rotate=False, rotate_mod90=False)):
+        r1, r2 = np.random.default_rng(seed), np.random.default_rng(seed)
+        for _ in range(4):
+            assert aug.sample_rotation(r1, **flags) == \
+                o_aug.sample_rotation(r2, **flags)
+    for angle in (0.0, 90.0, -13.5, 20.0, 180.0):
+        rot = aug.rotated_canvas(*shape, angle)
+        assert rot == o_aug.rotated_canvas(*shape, angle)
+        np.testing.assert_array_equal(aug.rotation_matrix(shape, rot, angle),
+                                      o_aug.rotation_matrix(shape, rot, angle))
