@@ -112,7 +112,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      results to those tables'; in f32 the batched probabilities within
      5e-3 (mean 1e-6) of each page's predict, on the bench page within
      twice predict's distance of the float64 forward, and the results
-     equal where the argmax maps agree; host ms and device busy ms
+     equal where the argmax maps agree (these checks on cuDNN's
+     deterministic algorithms: at flat_scales 0 the default ones give
+     other bits on every call); host ms and device busy ms
      (torch.profiler) per page beside predict's, one request a page;
   2d. field evaluation (field_eval): write_corpus of 8 labelled pages (rng
      11) under build/, run_test with the flagship at flat_scales 3, bf16:
@@ -185,11 +187,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
      --flat_scales 3 on the val pages with the last checkpoint: a
      request's launches per page (paint 3, CCL 1, the flat forward
      kernels, the attention of the page's bucket) and the summary in [0,
-     1].
+     1];
+  6. parallel/: (a) the flagship's step (bs 16, 512^2, flat_scales 3,
+     phase 3's weights and batch) at spatial_shards 4 in one process,
+     f32 then bf16: the forward logits (max error over the largest
+     |value|), one step's loss and the gradients leaf by leaf, held to sp
+     1 on the sharded code path (one shard: the same ops, only the halo
+     rows' sources differ; SP_SAME_PATH) and to the f32 sp 1 step (f32:
+     logits 1e-4, loss rel 1e-5, each gradient within twice phase 3's
+     F32_VS_EXACT of its bound; bf16 sp 4 and sp 1 alike: SP_BF16_VS_F32,
+     the median leaf), each reading beside its bound and beside the
+     reading of a planted fault (every halo row zeroed), which must fail
+     every bound; then 2 warm-up and 10 timed steps (launches per step
+     PER_STEP_SP4 at sp 4: each residual block as two flat convs, the
+     fused block 0 times; PER_STEP[3] at sp 1), ms per step, device busy
+     ms and kernels per step; (b) on a one-rank NCCL group, the flagship
+     in a Trainer on make_mesh((1,), ("data",)) and in one with no mesh,
+     f32 and bf16: 1 + 3 steps each, then 6 alternating timed rounds of 5
+     steps, losses and parameters equal bit for bit throughout (cuDNN's
+     deterministic algorithms for both), ms per step by round, and a
+     profile of each (busy ms, kernels, the collectives' host ms, the
+     host ops whose time grew the most with the mesh);
+     (c) sharded_conv2d on the one-rank group against
+     F.conv2d, and a ConvBnLrnDrop with BatchNorm and dropout at 8 channels,
+     512^2, against its CPU result in train mode (output and running
+     statistics) and in eval mode (1e-5 of the largest |value|).  The
+     process group is destroyed whatever happens.
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
-included), 3, 4 and 5 (5b and 5c), its
+included), 3, 4, 5 (5b and 5c) and 6 (6a and 6b), its
 largest error against the plain version, its time, the plain version's,
 the library call's (or null) and its bound; then the card's name and power
 limit; the last line is the device record.  A fuller report, with nvcc's register and
@@ -2061,7 +2088,8 @@ def serve_batch(dev):
     pages' strings come from); in f32 the
     batched probabilities within BATCH_PROBS_TOL (mean BATCH_PROBS_MEAN_TOL)
     of each page's ``predict``, on the first page as near the float64
-    forward as ``predict``'s, and, where the argmax maps agree, the same
+    forward as ``predict``'s (both on cuDNN's deterministic algorithms),
+    and, where the argmax maps agree, the same
     results; host ms per page (p50 over SERVE_BATCH_CALLS calls) and
     device busy ms per page beside ``predict``'s (one request per page,
     host ms their mean)."""
@@ -2124,57 +2152,72 @@ def serve_batch(dev):
                   f"{ {k: v // SERVE_BATCH_CALLS for k, v in counts.items() if v} }"
                   f"; per page {json.dumps(timings[key])}", flush=True)
 
-            # each page's tables against the unbatched decoder on its slice
-            check = {"tables_equal_unbatched": True}
-            order = {}
-            for i, (x, *_rest) in enumerate(rast):
-                order.setdefault(tuple(x.shape), []).append(i)
-            probs_of = {}
-            for shape, idx in order.items():
-                nl = round_up(max(max(len(rast[i][3]) for i in idx), 1), 128)
-                packed, probs = kv.serve_group(
-                    torch.stack([rast[i][0] for i in idx]),
-                    torch.stack([rast[i][1] for i in idx]),
-                    torch.stack([rast[i][2] for i in idx]), nl)
-                for j, i in enumerate(idx):
-                    with torch.inference_mode():
-                        one = pack_decode_out(kv._decode(
-                            probs[j], rast[i][1], rast[i][2], nl))
-                    if not torch.equal(one, packed[j]):
-                        raise AssertionError(f"{key}: page {i}'s batched "
-                                             "tables differ from the "
-                                             "unbatched decoder's")
-                    probs_of[i] = probs[j].float()
-                    if not torch.isfinite(probs[j]).all():
-                        raise AssertionError(f"{key}: non-finite probs")
-            if dtype == "float32":
-                errs, means, same_results, argmax_equal = [], [], 0, 0
-                for i, p in enumerate(pages):
-                    res, ex = kv.predict(p, return_maps=True)
-                    errs.append(_max_abs(probs_of[i], ex["pred"]))
-                    means.append(float((probs_of[i] - ex["pred"]).abs().mean()))
-                    if i == 0:
-                        exact = _exact_probs(kv, rast[0][0])
-                        near = {"batched": _max_abs(probs_of[0].cpu(), exact),
+            # the checks run on cuDNN's deterministic algorithms: at fs 0
+            # the default ones give other bits on every call, batched or
+            # not, and page 0's distance from the float64 forward would
+            # compare two random draws with predict's
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                # each page's tables against the unbatched decoder on its slice
+                check = {"tables_equal_unbatched": True}
+                order = {}
+                for i, (x, *_rest) in enumerate(rast):
+                    order.setdefault(tuple(x.shape), []).append(i)
+                probs_of = {}
+                for shape, idx in order.items():
+                    nl = round_up(max(max(len(rast[i][3]) for i in idx), 1),
+                                  128)
+                    packed, probs = kv.serve_group(
+                        torch.stack([rast[i][0] for i in idx]),
+                        torch.stack([rast[i][1] for i in idx]),
+                        torch.stack([rast[i][2] for i in idx]), nl)
+                    for j, i in enumerate(idx):
+                        with torch.inference_mode():
+                            one = pack_decode_out(kv._decode(
+                                probs[j], rast[i][1], rast[i][2], nl))
+                        if not torch.equal(one, packed[j]):
+                            raise AssertionError(f"{key}: page {i}'s batched "
+                                                 "tables differ from the "
+                                                 "unbatched decoder's")
+                        probs_of[i] = probs[j].float()
+                        if not torch.isfinite(probs[j]).all():
+                            raise AssertionError(f"{key}: non-finite probs")
+                if dtype == "float32":
+                    errs, means, same_results, argmax_equal = [], [], 0, 0
+                    for i, p in enumerate(pages):
+                        res, ex = kv.predict(p, return_maps=True)
+                        errs.append(_max_abs(probs_of[i], ex["pred"]))
+                        means.append(float((probs_of[i] - ex["pred"])
+                                           .abs().mean()))
+                        if i == 0:
+                            exact = _exact_probs(kv, rast[0][0])
+                            near = {
+                                "batched": _max_abs(probs_of[0].cpu(), exact),
                                 "predict": _max_abs(ex["pred"].cpu(), exact)}
-                    if torch.equal(probs_of[i].argmax(-1),
-                                   ex["pred"].argmax(-1)):
-                        argmax_equal += 1
-                        if res != results[i][0]:
-                            raise AssertionError(f"{key}: page {i}: results "
-                                                 "differ from predict's")
-                        same_results += 1
-                check.update(probs_max_abs_err=max(errs), tol=BATCH_PROBS_TOL,
-                             probs_mean_abs_err=max(means),
-                             mean_tol=BATCH_PROBS_MEAN_TOL,
-                             page0_max_abs_err_vs_float64=near,
-                             argmax_equal_pages=argmax_equal,
-                             results_equal_pages=same_results)
-                if not (max(errs) <= BATCH_PROBS_TOL
-                        and max(means) <= BATCH_PROBS_MEAN_TOL
-                        and near["batched"] <= 2 * max(near["predict"], 1e-5)):
-                    raise AssertionError(f"{key}: batched probs from "
-                                         f"predict's: {json.dumps(check)}")
+                        if torch.equal(probs_of[i].argmax(-1),
+                                       ex["pred"].argmax(-1)):
+                            argmax_equal += 1
+                            if res != results[i][0]:
+                                raise AssertionError(
+                                    f"{key}: page {i}: results differ from "
+                                    "predict's")
+                            same_results += 1
+                    check.update(probs_max_abs_err=max(errs),
+                                 tol=BATCH_PROBS_TOL,
+                                 probs_mean_abs_err=max(means),
+                                 mean_tol=BATCH_PROBS_MEAN_TOL,
+                                 page0_max_abs_err_vs_float64=near,
+                                 argmax_equal_pages=argmax_equal,
+                                 results_equal_pages=same_results)
+                    if not (max(errs) <= BATCH_PROBS_TOL
+                            and max(means) <= BATCH_PROBS_MEAN_TOL
+                            and near["batched"]
+                            <= 2 * max(near["predict"], 1e-5)):
+                        raise AssertionError(f"{key}: batched probs from "
+                                             f"predict's: {json.dumps(check)}")
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
             checks[key] = check
             print(f"[phase 2c] {key}: {json.dumps(check)}", flush=True)
             del kv, rast, probs_of
@@ -2263,6 +2306,14 @@ PER_STEP = {
         "flat_deconv2_dx": 9, "flat_deconv2_dw": 9, "flat_maxpool2_bwd": 9},
     0: dict(_ATTN_CE),
 }
+# the flagship step at flat_scales 3 on spatial_shards 4 H-shards in one
+# process (phase 6a): each residual block runs as two flat convs, since
+# the fused kernel would give act(b1) in the zero rows at the image's
+# edge of an extended shard (36 more convs, stage-1 and dx backward each,
+# and no fused block); the rest as at sp 1
+PER_STEP_SP4 = {**PER_STEP[3], "flat_conv2d": 21 + 36, "flat_res_block": 0,
+                "flat_conv_bwd": 21 + 36, "flat_conv_dx": 20 + 36,
+                "flat_res_block_bwd": 0}
 TRAIN_BATCH = (16, 512)  # images per step, side
 TIMED_STEPS = {3: 10, 0: 5}
 # config 5's step (CONFIG5 at batch 2, 1024^2), as read off models/msau.py
@@ -2319,12 +2370,20 @@ KERNEL_FAMILIES = (
 )
 
 
-def _profile_steps(step, steps):
+# host ops of torch.distributed's collectives, by a part of their name
+COLLECTIVE_KEYS = ("nccl", "gloo", "c10d", "all_reduce", "allreduce",
+                   "record_param_comms")
+
+
+def _profile_steps(step, steps, host_ops=False):
     """torch.profiler over ``steps`` calls of ``step`` -> per step: wall ms
     (host clock, ending in a synchronize), device busy ms (the sum of kernel
     times; kernels on one stream do not overlap), busy share, kernel count,
     busy ms by KERNEL_FAMILIES (the rest: "other torch ops"), the top
-    kernels, and the top host ops by their own host time."""
+    kernels, the top host ops by their own host time, the host ms of all
+    profiled ops but the synchronizes, and of the collectives
+    (COLLECTIVE_KEYS); with ``host_ops``, every host op's own ms and
+    calls a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2336,10 +2395,11 @@ def _profile_steps(step, steps):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    fams, names, host, busy, count = {}, {}, {}, 0.0, 0
+    fams, names, host, calls, busy, count = {}, {}, {}, {}, 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host[evt.key] = evt.self_cpu_time_total
+            calls[evt.key] = evt.count
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
@@ -2352,13 +2412,20 @@ def _profile_steps(step, steps):
     per = lambda us: us / 1e3 / steps
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall, "busy_ms": per(busy),
+    extra = ({"host_ops": {k: (per(v), calls[k] / steps)
+                           for k, v in host.items()}} if host_ops else {})
+    return {**extra, "wall_ms": wall, "busy_ms": per(busy),
             "busy_share": per(busy) / wall if wall else 0.0,
             "kernels": count / steps,
             "families_ms": {k: per(v) for k, v in
                             sorted(fams.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": {k[:120]: per(v) for k, v in top},
-            "top_host_ops_ms": {k[:120]: per(v) for k, v in top_host}}
+            "top_host_ops_ms": {k[:120]: per(v) for k, v in top_host},
+            "host_ms": per(sum(v for k, v in host.items()
+                               if "Synchronize" not in k)),
+            "collectives_host_ms": per(sum(
+                v for k, v in host.items()
+                if any(c in k.lower() for c in COLLECTIVE_KEYS)))}
 
 
 def _attention_bwd_memory(step, dev, kernel):
@@ -3197,6 +3264,457 @@ def entry_b(dev):
     return total, res
 
 
+# ---- phase 6: spatial shards, a world of one, the parallel helpers --------
+# 6a: the flagship step at flat_scales 3 on SP_SHARDS H-shards in one
+# process against sp 1, phase 3's weights (seed 0) and batch, f32 and bf16.
+# Three measures: the forward logits' max abs error over their largest
+# |value| ("scaled"), one step's loss (rel) and the gradients leaf by leaf
+# (each leaf's max abs error over its largest |value|; leaves whose
+# reference gradient is below SP_LEAF_FLOOR of the model's largest are
+# zero to rounding and left out).  Two references:
+#   * "same path": sp 1 on the sharded code path (one shard: every op's
+#     extension is the image's zero padding, residual blocks as two flat
+#     convs), the same op sequence as sp SP_SHARDS with only the halo rows'
+#     sources differing: held to SP_SAME_PATH[dtype];
+#   * "f32 sp 1", the plain sp 1 step in f32 (fused residual blocks): f32 sp
+#     SP_SHARDS at SP_F32_FWD_TOL, rel 1e-5 and each gradient within
+#     2 * F32_VS_EXACT of its _grad_ratios bound (two f32 steps of the card,
+#     as phase 3 holds fs 3 to fs 0); bf16 sp SP_SHARDS and bf16 sp 1 both
+#     at SP_BF16_VS_F32 (the median leaf: this random model amplifies bf16
+#     rounding, so some leaves of bf16 sp 1 lie several times their size
+#     from f32).
+# A planted fault, every halo row zeroed (each shard padded as if it were
+# the image's edge), runs through the same checks in both dtypes and must
+# fail every measure of both references.
+SP_SHARDS = 4
+SP_TIMED = 10
+SP_PROFILED = 3
+SP_F32_FWD_TOL = 1e-4
+SP_LEAF_FLOOR = 1e-3
+SP_SAME_PATH = {"float32": {"logits": 1e-3, "loss": 1e-5, "leaf": 1e-3},
+                "bfloat16": {"logits": 1e-3, "loss": 1e-5, "leaf": 5e-2}}
+SP_BF16_VS_F32 = {"logits": 0.75, "loss": 1e-2, "median_leaf": 0.11}
+WORLD_ONE_STEPS = 3       # compared step by step, after one warm-up step
+WORLD_ONE_ROUNDS = 6      # then alternating timed rounds of each trainer
+WORLD_ONE_ROUND_STEPS = 5
+WORLD_ONE_HOST_OPS = 6    # the host ops printed whose time grew the most
+BN_CASE = (2, 8, 512)    # the BN + dropout layer: N, channels, side
+BN_TOL = 1e-5            # of the largest |value|, card against CPU
+
+
+def _one_shard_path():
+    """A context in which a model at spatial_shards 1 takes the sharded
+    code path (its SpatialShards of one shard reads as active)."""
+    from unittest import mock
+
+    from msau_tpu_torch.parallel.spatial import SpatialShards
+
+    return mock.patch.object(SpatialShards, "active",
+                             new_callable=mock.PropertyMock,
+                             return_value=True)
+
+
+def _zeroed_halos():
+    """A context with a planted fault: every shard extended by zero rows,
+    as if each shard's edges were the image's."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from msau_tpu_torch.parallel.spatial import SpatialShards
+
+    return mock.patch.object(SpatialShards, "extend",
+                             lambda self, x, top, bottom: F.pad(
+                                 x, (0, 0, top, bottom)))
+
+
+def _sp_outputs(dev, dtype, sp, x, y, context=None):
+    """The flagship at flat_scales 3 on ``sp`` shards (seed 0 weights):
+    a Trainer, its device batch, and (inside ``context``, when given) its
+    forward logits, one step's loss and gradients (make_loss_and_grad)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.config import ModelConfig, TrainConfig
+    from msau_tpu_torch.train.trainer import Trainer, make_loss_and_grad
+
+    cfg = ModelConfig(**FLAGSHIP, flat_scales=3, spatial_shards=sp,
+                      dtype=dtype)
+    tr = Trainer(cfg, TrainConfig(learning_rate=1e-4,
+                                  lr_decay_staircase=False), device=dev)
+    tr.init_state(x, seed=0)
+    batch = tr.put_batch({"input": x, "label": y,
+                          "valid": np.ones(y.shape, bool)})
+    batch["input"] = batch["input"].to(tr.model.compute_dtype)
+    with context or contextlib.nullcontext():
+        with torch.no_grad():
+            logits = tr.model(batch["input"], logits_layout="NCHW")[1].cpu()
+        loss, _, grads = make_loss_and_grad(tr.model)(batch)
+    res = {"logits": logits, "loss": float(loss),
+           "grads": {k: v.cpu().double() for k, v in grads.items()}}
+    return tr, batch, res
+
+
+def _sp_reference(dev, dtype, sp, x, y, context):
+    """_sp_outputs' results alone, the device freed."""
+    import torch
+
+    tr, batch, res = _sp_outputs(dev, dtype, sp, x, y, context)
+    del tr, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sp_run(dev, dtype, sp, x, y, total):
+    """_sp_outputs' results, then 2 warm-up and SP_TIMED timed Trainer
+    steps with the launch counters reset just before (held to PER_STEP_SP4
+    or PER_STEP[3] and added into ``total``), then a device profile of
+    SP_PROFILED more -> results."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+
+    tr, batch, res = _sp_outputs(dev, dtype, sp, x, y)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+    float(metrics["loss"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SP_TIMED):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+    last = float(metrics["loss"])  # closes the timed window
+    res["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / SP_TIMED
+    counts = ops.launch_counts()
+    table = PER_STEP_SP4 if sp > 1 else PER_STEP[3]
+    for name, n in counts.items():
+        if n != table.get(name, 0) * SP_TIMED:
+            raise AssertionError(
+                f"sp {sp} {dtype}: {name} launched {n} times in {SP_TIMED} "
+                f"steps, want {table.get(name, 0) * SP_TIMED}")
+        total[name] += n
+    if not np.isfinite(last):
+        raise AssertionError(f"sp {sp} {dtype}: loss {last}")
+
+    def step():
+        tr.state, _ = tr.train_step(tr.state, batch)
+
+    prof = _profile_steps(step, SP_PROFILED)
+    res.update(peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               busy_ms=prof["busy_ms"], kernels_per_step=prof["kernels"],
+               busy_share=prof["busy_share"],
+               families_ms=prof["families_ms"],
+               launches_per_step={k: v / SP_TIMED for k, v in counts.items()
+                                  if v})
+    del tr, batch, metrics
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sp_measures(got, want):
+    """got against want: logits scaled, loss rel, and the leaves' errors
+    over their largest |value| (leaves below SP_LEAF_FLOOR of the largest
+    left out): the worst, its name, the median, the count kept."""
+    import numpy as np
+
+    d = (got["logits"].double() - want["logits"].double()).abs()
+    top = {k: float(v.abs().max()) for k, v in want["grads"].items()}
+    floor = SP_LEAF_FLOOR * max(top.values())
+    leaf = {k: _max_abs(got["grads"][k], w) / top[k]
+            for k, w in want["grads"].items() if top[k] >= floor}
+    worst = max(leaf, key=leaf.get)
+    return {"logits": float(d.max() / want["logits"].double().abs().max()),
+            "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "leaf": leaf[worst], "worst_leaf": worst,
+            "median_leaf": float(np.median(list(leaf.values()))),
+            "leaves_kept": f"{len(leaf)} of {len(top)}"}
+
+
+def spatial_shards_check(dev):
+    """Phase 6a: the flagship's step at bs 16, 512^2, flat_scales 3 at sp
+    SP_SHARDS and 1, f32 then bf16, held to sp 1 on the same code path and
+    to f32 sp 1, with a planted fault that must fail each check (see
+    SP_SHARDS's note) -> (launch counts of the timed steps, results and
+    checks)."""
+    import numpy as np
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.data.synth import make_structured_batch
+
+    x, y = make_structured_batch(np.random.default_rng(0), *TRAIN_BATCH, 17,
+                                 64)
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    runs, same, fault = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for sp in (1, SP_SHARDS):
+            runs[(dtype, sp)] = _sp_run(dev, dtype, sp, x, y, total)
+        same[dtype] = _sp_reference(dev, dtype, 1, x, y, _one_shard_path())
+        fault[dtype] = _sp_reference(dev, dtype, SP_SHARDS, x, y,
+                                     _zeroed_halos())
+    f32_1 = runs[("float32", 1)]
+
+    def f32_check(got):
+        ratios = _grad_ratios(got["grads"], f32_1["grads"])
+        m = _sp_measures(got, f32_1)
+        return {"logits": m["logits"], "loss": m["loss"],
+                "grad_of_bound": max(ratios.values()),
+                "worst_grad": max(ratios, key=ratios.get)}
+
+    # (name, measure, bounds, run, planted fault's run): each reading of
+    # the run must lie under its bound, each of the planted fault over it
+    checks = []
+    for dtype in ("float32", "bfloat16"):
+        checks.append((f"{dtype} sp {SP_SHARDS} vs sp 1 on the same path",
+                       lambda got, d=dtype: _sp_measures(got, same[d]),
+                       SP_SAME_PATH[dtype], runs[(dtype, SP_SHARDS)],
+                       fault[dtype]))
+    checks.append((f"float32 sp {SP_SHARDS} vs f32 sp 1", f32_check,
+                   {"logits": SP_F32_FWD_TOL, "loss": 1e-5,
+                    "grad_of_bound": 2 * F32_VS_EXACT},
+                   runs[("float32", SP_SHARDS)], fault["float32"]))
+    for sp in (SP_SHARDS, 1):
+        checks.append((f"bfloat16 sp {sp} vs f32 sp 1",
+                       lambda got: _sp_measures(got, f32_1), SP_BF16_VS_F32,
+                       runs[("bfloat16", sp)], fault["bfloat16"]))
+    report, bad = [], []
+    for name, measure, bounds, got, planted in checks:
+        m, mf = measure(got), measure(planted)
+        row = {"check": name, "reading": m, "planted_fault": mf,
+               "bounds": bounds}
+        report.append(row)
+        print(f"[phase 6a] {name}: " + "; ".join(
+            f"{k} {m[k]:.3e} (bound {b:.3e}; planted fault {mf[k]:.3e})"
+            for k, b in bounds.items())
+            + "".join(f"; {k} {m[k]}" for k in ("worst_leaf", "worst_grad",
+                                                "leaves_kept") if k in m),
+            flush=True)
+        for k, b in bounds.items():
+            if not m[k] <= b:
+                bad.append(f"{name}: {k} {m[k]:.3e} over {b:.3e}")
+            if not mf[k] > b:
+                bad.append(f"{name}: the planted fault's {k} {mf[k]:.3e} "
+                           f"passes {b:.3e}")
+    if bad:
+        raise AssertionError("phase 6a: " + "; ".join(bad))
+    results = {}
+    for (dtype, sp), r in runs.items():
+        keep = {k: v for k, v in r.items() if k not in ("logits", "grads")}
+        results[f"sp{sp}_{dtype}"] = keep
+        print(f"[phase 6a] {dtype} sp {sp} bs {TRAIN_BATCH[0]} "
+              f"{TRAIN_BATCH[1]}^2: {r['ms_per_step']:.2f} ms/step (host "
+              f"clock, {SP_TIMED} steps), device busy {r['busy_ms']:.2f} ms "
+              f"({100 * r['busy_share']:.1f} %), {r['kernels_per_step']:.0f} "
+              f"kernels/step, peak {r['peak_mem_gib']:.2f} GiB; launches/step "
+              f"{r['launches_per_step']}", flush=True)
+    return total, {"runs": results, "checks": report}
+
+
+def world_of_one(dev):
+    """Phase 6b and 6c on a one-rank NCCL group: the flagship (fs 3, bs 16,
+    512^2; f32, then bf16) in two Trainers, on make_mesh((1,), ("data",))
+    and with no mesh (cuDNN's deterministic algorithms for both): 1 +
+    WORLD_ONE_STEPS steps each, losses compared step by step, then
+    WORLD_ONE_ROUNDS timed rounds of WORLD_ONE_ROUND_STEPS steps each,
+    alternating which goes first, then a device profile of each (busy ms,
+    kernels, the host ms of the collectives, the WORLD_ONE_HOST_OPS host
+    ops whose own time grew the most with the mesh); losses and parameters
+    equal bit for bit after every step.  Then sharded_conv2d on the one-rank
+    group equals F.conv2d, and a ConvBnLrnDrop with BatchNorm and dropout
+    (keep 0.9) at BN_CASE matches its CPU result in train mode (output and
+    running statistics) and in eval mode -> (launch counts of the steps,
+    results)."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import ModelConfig, TrainConfig
+    from msau_tpu_torch.data.synth import make_structured_batch
+    from msau_tpu_torch.models.layers import ConvBnLrnDrop
+    from msau_tpu_torch.ops import cuda_lib
+    from msau_tpu_torch.parallel.sharding import (
+        make_mesh, maybe_initialize_distributed)
+    from msau_tpu_torch.parallel.spatial import sharded_conv2d
+    from msau_tpu_torch.train.trainer import Trainer
+
+    store = cuda_lib.BUILD_DIR.parent / "phase6_store"
+    if store.exists():
+        os.remove(store)
+    torch.cuda.set_device(dev)
+    maybe_initialize_distributed(f"file://{store}", 1, 0, backend="nccl")
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    res = {}
+
+    def counted(what, steps):
+        for k, n in ops.launch_counts().items():
+            if n != PER_STEP[3].get(k, 0) * steps:
+                raise AssertionError(f"phase 6b {what}: {k} launched {n} "
+                                     f"times in {steps} steps")
+            total[k] += n
+
+    try:
+        mesh = make_mesh((1,), ("data",))
+        x, y = make_structured_batch(np.random.default_rng(0), *TRAIN_BATCH,
+                                     17, 64)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for dtype in ("float32", "bfloat16"):
+                runs = {}
+                for name, m in (("no mesh", None), ("mesh", mesh)):
+                    tr = Trainer(ModelConfig(**FLAGSHIP, flat_scales=3,
+                                             dtype=dtype),
+                                 TrainConfig(learning_rate=1e-4,
+                                             lr_decay_staircase=False),
+                                 mesh=m, device=dev)
+                    tr.init_state(x, seed=0)
+                    batch = tr.put_batch({"input": x, "label": y,
+                                          "valid": np.ones(y.shape, bool)})
+                    batch["input"] = batch["input"].to(tr.model.compute_dtype)
+                    tr.state, metrics = tr.train_step(tr.state, batch)
+                    losses = [float(metrics["loss"])]
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    for _ in range(WORLD_ONE_STEPS):
+                        tr.state, metrics = tr.train_step(tr.state, batch)
+                        losses.append(float(metrics["loss"]))
+                    ms = (time.perf_counter() - t0) * 1e3 / WORLD_ONE_STEPS
+                    counted(f"{name} {dtype}", WORLD_ONE_STEPS)
+                    runs[name] = {"tr": tr, "batch": batch, "losses": losses,
+                                  "ms": ms, "rounds_ms": []}
+                ops.reset_launch_counts()
+                for r in range(WORLD_ONE_ROUNDS):
+                    order = ("no mesh", "mesh")[::1 if r % 2 == 0 else -1]
+                    for name in order:
+                        run, tr = runs[name], runs[name]["tr"]
+                        t0 = time.perf_counter()
+                        for _ in range(WORLD_ONE_ROUND_STEPS):
+                            tr.state, metrics = tr.train_step(tr.state,
+                                                              run["batch"])
+                        run["losses"].append(float(metrics["loss"]))
+                        run["rounds_ms"].append(
+                            (time.perf_counter() - t0) * 1e3
+                            / WORLD_ONE_ROUND_STEPS)
+                counted(f"rounds {dtype}",
+                        2 * WORLD_ONE_ROUNDS * WORLD_ONE_ROUND_STEPS)
+                for run in runs.values():
+                    def step(run=run):
+                        tr = run["tr"]
+                        tr.state, _ = tr.train_step(tr.state, run["batch"])
+                    run["prof"] = _profile_steps(step, SP_PROFILED,
+                                                 host_ops=True)
+                a, b = runs["no mesh"], runs["mesh"]
+                ha, hb = a["prof"]["host_ops"], b["prof"]["host_ops"]
+                # the mesh's host ms by op, minus the mesh-less step's
+                grown = sorted(((hb.get(k, (0, 0))[0] - ha.get(k, (0, 0))[0],
+                                 k) for k in set(ha) | set(hb)),
+                               reverse=True)[:WORLD_ONE_HOST_OPS]
+                grown = {k[:60]: {"ms": d, "calls": (ha.get(k, (0, 0))[1],
+                                                     hb.get(k, (0, 0))[1])}
+                         for d, k in grown}
+                params = dict(a["tr"].model.named_parameters())
+                same = a["losses"] == b["losses"] and all(
+                    torch.equal(params[k], v)
+                    for k, v in b["tr"].model.named_parameters())
+                diffs = [q - p for p, q in zip(a["rounds_ms"],
+                                               b["rounds_ms"])]
+                out = {"losses": a["losses"], "mesh_losses": b["losses"],
+                       "equal_bits": same}
+                for key, run in (("", a), ("mesh_", b)):
+                    p = run["prof"]
+                    out.update({
+                        f"{key}ms_per_step": run["ms"],
+                        f"{key}rounds_ms": run["rounds_ms"],
+                        f"{key}rounds_median_ms": float(np.median(
+                            run["rounds_ms"])),
+                        f"{key}busy_ms": p["busy_ms"],
+                        f"{key}kernels_per_step": p["kernels"],
+                        f"{key}collectives_host_ms": p["collectives_host_ms"],
+                        f"{key}host_ms": p["host_ms"]})
+                out["rounds_diff_median_ms"] = float(np.median(diffs))
+                out["host_ops_grown"] = grown
+                res[f"mesh_vs_none_{dtype}"] = out
+                print(f"[phase 6b] {dtype} world of one: losses {a['losses']} "
+                      f"without a mesh, {b['losses']} on make_mesh((1,)) (1 "
+                      f"+ {WORLD_ONE_STEPS} steps one by one, then the last "
+                      f"of each of {WORLD_ONE_ROUNDS} rounds of "
+                      f"{WORLD_ONE_ROUND_STEPS}); parameters equal bit for "
+                      f"bit: {same}; ms/step without / with the mesh (host "
+                      f"clock): the {WORLD_ONE_STEPS} steps {a['ms']:.2f} / "
+                      f"{b['ms']:.2f}, the rounds "
+                      f"{[round(v, 2) for v in a['rounds_ms']]} / "
+                      f"{[round(v, 2) for v in b['rounds_ms']]} (median "
+                      f"{out['rounds_median_ms']:.2f} / "
+                      f"{out['mesh_rounds_median_ms']:.2f}; mesh minus none "
+                      f"by round, median {out['rounds_diff_median_ms']:.2f}, "
+                      f"{min(diffs):.2f} to {max(diffs):.2f}); profiled "
+                      f"{SP_PROFILED} steps: busy {out['busy_ms']:.2f} / "
+                      f"{out['mesh_busy_ms']:.2f} ms, kernels "
+                      f"{out['kernels_per_step']:.1f} / "
+                      f"{out['mesh_kernels_per_step']:.1f}, host ms in "
+                      f"profiled ops (no synchronize) {out['host_ms']:.2f} / "
+                      f"{out['mesh_host_ms']:.2f}, of which collectives "
+                      f"{out['collectives_host_ms']:.3f} / "
+                      f"{out['mesh_collectives_host_ms']:.3f}; host ms by "
+                      f"op grown most with the mesh (calls a step without / "
+                      f"with): " + "; ".join(
+                          f"{k} {v['ms']:+.3f} ({v['calls'][0]:g} / "
+                          f"{v['calls'][1]:g})" for k, v in grown.items()),
+                      flush=True)
+                if not same:
+                    raise AssertionError(f"phase 6b {dtype}: the mesh's "
+                                         "steps differ from the mesh-less")
+                del runs, a, b, params
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+        # 6c: the spatial helpers on the one-rank group, the BN layer
+        gen = torch.Generator().manual_seed(6)
+        n, c, side = BN_CASE
+        xc = torch.randn(n, c, side, side, generator=gen).to(dev)
+        kern = (torch.randn(c, c, 3, 3, generator=gen) * 0.1).to(dev)
+        got = sharded_conv2d(xc, kern, dist.group.WORLD)
+        want = F.conv2d(xc, kern, padding=1)
+        conv_err = _max_abs(got, want) / float(want.abs().max())
+        layers, outs = {}, {}
+        for where in ("cpu", dev):
+            layer = ConvBnLrnDrop(c, c, use_bn=True, use_lrn=True,
+                                  keep_prob=0.9,
+                                  gen=torch.Generator().manual_seed(7),
+                                  dropout_gen=torch.Generator().manual_seed(8))
+            layers[str(where)] = layer.to(where).train()
+            xin = xc.to(where)
+            with torch.no_grad():
+                train_out = layer(xin)
+                layer.eval()
+                outs[str(where)] = (train_out.cpu(), layer(xin).cpu(),
+                                    layer.BatchNorm_0.mean.cpu(),
+                                    layer.BatchNorm_0.var.cpu())
+        errs = {k: _max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+                for k, a, b in zip(("train", "eval", "mean", "var"),
+                                   outs[str(dev)], outs["cpu"])}
+        res["sharded_conv2d_scaled_err"] = conv_err
+        res["bn_dropout_scaled_err"] = errs
+        print(f"[phase 6c] sharded_conv2d on a one-rank group vs F.conv2d "
+              f"({list(xc.shape)}, 3x3): scaled err {conv_err:.3e} (bound "
+              f"{BN_TOL}); BN + dropout layer {list(xc.shape)}, card vs CPU, "
+              f"scaled errs {json.dumps(errs)} (bound {BN_TOL})", flush=True)
+        if conv_err > BN_TOL or max(errs.values()) > BN_TOL:
+            raise AssertionError("phase 6c: the card is off the reference")
+    finally:
+        dist.destroy_process_group()
+        if store.exists():
+            os.remove(store)
+    return total, res
+
+
 def main() -> int:
     import torch
 
@@ -3285,8 +3803,14 @@ def main() -> int:
                                      entry_b_parity, dev)
     phase5, entry_b_res = timed("phase 5b, 5c entry B", entry_b, dev)
     print(f"[phase 5] launches: {phase5}", flush=True)
+    sp_counts, sp_res = timed("phase 6a spatial shards", spatial_shards_check,
+                              dev)
+    one_counts, one_res = timed("phase 6b, 6c world of one", world_of_one,
+                                dev)
+    phase6 = {k: sp_counts[k] + one_counts[k] for k in counts}
+    print(f"[phase 6] launches: {phase6}", flush=True)
     launches = {k: counts[k] + train_counts[k] + phase4[k] + phase5[k]
-                for k in counts}
+                + phase6[k] for k in counts}
 
     sources = {
         "paint": ("msau_tpu_torch/csrc/paint.cu",
@@ -3324,10 +3848,12 @@ def main() -> int:
               "ptxas": lib.build_log, "seconds": seconds, "timer": TIMER,
               "kernels": kernels, "partial_sums": sums,
               "launches": {"serve": counts, "train": train_counts,
-                           "variants": phase4, "entry_b": phase5},
+                           "variants": phase4, "entry_b": phase5,
+                           "parallel": phase6},
               "predict_p50_ms": timings, "train": train,
               "variants": variants, "entry_a_seconds": entry_seconds,
-              "entry_b": entry_b_res,
+              "entry_b": entry_b_res, "spatial_shards": sp_res,
+              "world_of_one": one_res,
               "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)

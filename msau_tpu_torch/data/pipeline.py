@@ -91,7 +91,10 @@ class _StreamClock:
 
 class ChargridProvider:
     """Threaded provider of rasterized chargrid batches painted and
-    augmented on ``device``."""
+    augmented on ``device``.  ``seed`` seeds the workers' draws (by
+    default each worker seeds from a hash of its name, which Python
+    randomises per process); with one worker a split, providers of the
+    same seed then yield the same sequence in every process."""
 
     def __init__(
         self,
@@ -103,12 +106,14 @@ class ChargridProvider:
         label_to_class: Optional[Callable[[Page], Page]] = None,
         *,
         device,
+        seed: Optional[int] = None,
     ):
         self.cfg = config or DataConfig()
         self.charset = charset
         self.page_loader = page_loader
         self.label_to_class = label_to_class
         self.device = torch.device(device)
+        self.seed = seed
         self.train_paths = list(train_paths or [])
         self.val_paths = list(val_paths or [])
         self.size_train = len(self.train_paths)
@@ -142,7 +147,10 @@ class ChargridProvider:
         return q
 
     def _worker(self, q, paths, split, wid, train):
-        rng = np.random.default_rng(hash((split, wid)) % (2**31))
+        if self.seed is None:
+            rng = np.random.default_rng(hash((split, wid)) % (2**31))
+        else:   # the same draws in every process
+            rng = np.random.default_rng([self.seed, wid, int(split == "val")])
         order = list(range(len(paths)))
         while not self._stop.is_set():
             if self.cfg.shuffle and train:

@@ -316,8 +316,8 @@ class KVModel:
         'strings' (host value assembly).
 
         ``return_maps=False`` is the serving protocol: extras omit the
-        probability map 'pred' and the selected-class map 'chosen_class'
-        (both [H, W] tensors left on the device).
+        probability map 'pred' ([H, W, C]) and the selected-class map
+        'chosen_class' ([H, W]), both tensors left on the device.
 
         With ``label_path`` (a labelled page JSON) and ``eval_results``
         (per-class counter dicts), the page's field boxes are matched

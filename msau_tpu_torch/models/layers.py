@@ -13,6 +13,14 @@ by name alone.
   ``torch.Generator``.
 * LRN is torch.nn.LocalResponseNorm with size == n_features: window
   [c - size//2, c + (size-1)//2], scaled by alpha/size.
+* ``use_bn`` and ``keep_prob`` (the conv layers, not the deconv, as in
+  JAX): conv -> BatchNorm -> act -> LRN -> dropout.  The BatchNorm is
+  flax's (``BatchNorm``), the dropout draws its mask from an explicit
+  ``torch.Generator`` and is the identity in eval mode.
+* A flat layer of a model at ``spatial_shards > 1`` runs on H-shards
+  (``shards``, a ``parallel.spatial.SpatialShards`` that ``MSAUNet`` sets):
+  every op with a vertical reach runs its kernel on the shards extended
+  by that many rows of their neighbours, then drops them.
 """
 
 from __future__ import annotations
@@ -25,12 +33,14 @@ import torch.nn.functional as F
 
 from msau_tpu_torch.ops.flatconv import (
     concat_conv1x1,
+    conv_pads,
     flat_conv2d,
     flat_deconv2,
     local_response_norm,
     same_padding,
 )
 from msau_tpu_torch.ops.flatres import FUSED_CHANNELS, flat_res_block
+from msau_tpu_torch.ops.precision import wide
 
 
 def tf_conv_std(kh: int, kw: int, cin: int, cout: int) -> float:
@@ -102,49 +112,131 @@ def same_padding_strided(n: int, k: int, dilation: int, stride: int):
     return total // 2, total - total // 2
 
 
-class ConvBnLrnDrop(nn.Module):
-    """TF-SAME conv (``strides``, default 1) + optional act / LRN
-    (reference ``Conv2dBnLrnDrop``; serving has no BatchNorm or dropout).
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the channels (dim 1) of NCHW: in train
+    mode the batch's statistics over N, H and W in f32, the variance
+    E[x^2] - E[x]^2 clipped at 0 (biased), and the running averages
+    ``ra = 0.99 ra + 0.01 batch`` (the same variance); in eval mode the
+    running averages.  y = (x - mean) * rsqrt(var + eps) * scale + bias in
+    f32, returned in x's dtype.  Parameters ``scale`` and ``bias``,
+    buffers ``mean`` and ``var`` (flax's ``batch_stats``)."""
 
-    ``flat`` (a scale below ``flat_scales``) runs the whole layer as one
-    flat-layout op with the act and LRN fused (``ops.flatconv``): a pair of
+    def __init__(self, channels: int, momentum: float = 0.99,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = wide(x)
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, keep_prob: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate=1 - keep_prob)`` in train mode: each element
+    kept with probability ``keep_prob`` and scaled by 1 / keep_prob, else
+    0; the mask drawn from ``gen`` on its own device, so a generator gives
+    the same mask whatever device ``x`` is on."""
+    if gen is None:
+        raise ValueError("dropout in train mode needs a generator "
+                         "(dropout_gen=)")
+    keep = torch.rand(x.shape, generator=gen, device=gen.device) < keep_prob
+    return torch.where(keep.to(x.device), x / keep_prob,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _sharded(shards) -> bool:
+    return shards is not None and shards.active
+
+
+class ConvBnLrnDrop(nn.Module):
+    """TF-SAME conv (``strides``, default 1) -> optional BatchNorm
+    (``use_bn``) -> act -> LRN -> dropout (``keep_prob`` < 1, train mode,
+    mask from ``dropout_gen``) (reference ``Conv2dBnLrnDrop``).
+
+    ``flat`` (a scale below ``flat_scales``) runs the conv, act and LRN as
+    one flat-layout op (``ops.flatconv``), then the dropout: a pair of
     inputs (a, b), taken as their channel concat, then never materializes
-    it, and a 1x1 conv of a pair is the concat 1x1 coupling op."""
+    it, and a 1x1 conv of a pair is the concat 1x1 coupling op.  A flat
+    layer has no BatchNorm (ValueError; the JAX package asserts)."""
+
+    shards = None   # a SpatialShards, set by MSAUNet at spatial_shards > 1
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  activation: Optional[str] = "relu", use_lrn: bool = False,
                  *, gen: torch.Generator, rate: int = 1, flat: bool = False,
-                 strides: Tuple[int, int] = (1, 1)):
+                 strides: Tuple[int, int] = (1, 1), use_bn: bool = False,
+                 keep_prob: float = 1.0,
+                 dropout_gen: Optional[torch.Generator] = None):
         super().__init__()
         if flat and tuple(strides) != (1, 1):
             raise ValueError(f"the flat conv has stride 1, not {strides}")
+        if flat and use_bn:
+            raise ValueError("a flat layer has no BatchNorm (use_bn)")
         self.Conv_0 = Conv(cin, features, tuple(kernel_size), gen)
+        if use_bn:
+            self.BatchNorm_0 = BatchNorm(features)
         self.strides = tuple(strides)
         self.activation = activation
         self.use_lrn = use_lrn
+        self.use_bn = use_bn
+        self.keep_prob = keep_prob
+        self.dropout_gen = dropout_gen
         self.rate = rate
         self.features = features
         self.flat = flat
 
+    def _drop(self, y: torch.Tensor) -> torch.Tensor:
+        if self.keep_prob < 1.0 and self.training:
+            return dropout(y, self.keep_prob, self.dropout_gen)
+        return y
+
+    def _flat(self, x) -> torch.Tensor:
+        w, b = self.Conv_0.weight, self.Conv_0.bias
+        if (isinstance(x, tuple) and tuple(w.shape[-2:]) == (1, 1)
+                and not self.use_lrn):
+            return concat_conv1x1(*x, w, b, act=self.activation)
+        opts = dict(dilation=self.rate, act=self.activation,
+                    lrn_size=self.features if self.use_lrn else 0)
+        (top, bottom), _ = conv_pads(w, self.rate)
+        if _sharded(self.shards) and top + bottom:
+            xs = x if isinstance(x, tuple) else (x,)
+            return self.shards.halo(
+                lambda *t: flat_conv2d(t if len(t) > 1 else t[0], w, b,
+                                       **opts), xs, top, bottom)
+        return flat_conv2d(x, w, b, **opts)
+
     def forward(self, x) -> torch.Tensor:
         """``x``: [N, C, H, W] or a pair of them concatenated on channels."""
         if self.flat:
-            w, b = self.Conv_0.weight, self.Conv_0.bias
-            if (isinstance(x, tuple) and tuple(w.shape[-2:]) == (1, 1)
-                    and not self.use_lrn):
-                return concat_conv1x1(*x, w, b, act=self.activation)
-            return flat_conv2d(x, w, b, dilation=self.rate,
-                               act=self.activation,
-                               lrn_size=self.features if self.use_lrn else 0)
+            return self._drop(self._flat(x))
         if isinstance(x, tuple):
             x = torch.cat(x, dim=1)
         y = self.Conv_0(x, dilation=self.rate, stride=self.strides)
+        if self.use_bn:
+            y = self.BatchNorm_0(y)
         act = get_activation(self.activation)
         if act is not None:
             y = act(y)
         if self.use_lrn:
             y = local_response_norm(y, size=self.features)
-        return y
+        return self._drop(y)
 
 
 class DilConvBnLrnDrop(ConvBnLrnDrop):
@@ -154,9 +246,12 @@ class DilConvBnLrnDrop(ConvBnLrnDrop):
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  rate: int = 1, activation: Optional[str] = "relu",
                  use_lrn: bool = True, *, gen: torch.Generator,
-                 flat: bool = False):
+                 flat: bool = False, use_bn: bool = False,
+                 keep_prob: float = 1.0,
+                 dropout_gen: Optional[torch.Generator] = None):
         super().__init__(cin, features, kernel_size, activation, use_lrn,
-                         gen=gen, rate=rate, flat=flat)
+                         gen=gen, rate=rate, flat=flat, use_bn=use_bn,
+                         keep_prob=keep_prob, dropout_gen=dropout_gen)
 
 
 class DeconvBnLrnDrop(nn.Module):
@@ -166,7 +261,11 @@ class DeconvBnLrnDrop(nn.Module):
     ``Deconv2DBnLrnDrop``).  ``weight`` is torch's [in, out, kh, kw]; the
     flax kernel is its spatial flip in HWIO (``utils.transplant``).
     ``flat`` runs the transposed conv as the flat-layout op
-    (``ops.flatconv.flat_deconv2``, stride 2)."""
+    (``ops.flatconv.flat_deconv2``, stride 2); on H-shards its input gains
+    one row of each neighbour (the 3x3 kernel's reach at stride 2), and
+    the output drops their two rows each side."""
+
+    shards = None
 
     def __init__(self, cin: int, features: int, kernel_size=(3, 3),
                  stride: int = 2, activation: Optional[str] = None,
@@ -187,7 +286,17 @@ class DeconvBnLrnDrop(nn.Module):
         self.flat = flat
 
     def forward(self, x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
-        if self.flat:
+        if self.flat and _sharded(self.shards):
+            hs, th = x.shape[-2], target_hw[0]
+            if th != 2 * hs:
+                raise ValueError(f"a sharded deconv doubles its rows: "
+                                 f"{hs} -> {th}")
+            r = (self.weight.shape[-2] // 2 + 1) // 2
+            y = self.shards.halo(
+                lambda t: flat_deconv2(t, self.weight, self.bias,
+                                       (2 * t.shape[-2], target_hw[1])),
+                (x,), r, r, scale=2)
+        elif self.flat:
             y = flat_deconv2(x, self.weight, self.bias, target_hw)
         else:
             kh, kw = self.weight.shape[-2:]
@@ -215,7 +324,11 @@ class MultiConvResidualBlock(nn.Module):
     """relu(x) -> res_depth convs (last without activation) -> +x -> act
     (reference ``MultiConvResidualBlock``).  ``flat`` runs the flagship
     shape (depth 2, 3x3, relu or elu, a channel count the kernel takes) as
-    one fused op (``ops.flatres``) and any other as flat convs."""
+    one fused op (``ops.flatres``) and any other, or any on H-shards (the
+    fused kernel would zero conv1 only outside the extended rows), as flat
+    convs."""
+
+    shards = None
 
     def __init__(self, channels: int, res_depth: int, filter_size: int,
                  activation: str = "relu", *, gen: torch.Generator,
@@ -233,7 +346,7 @@ class MultiConvResidualBlock(nn.Module):
                 channels, channels, k, activation=act, gen=gen, flat=flat))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
+        if self.fused and not _sharded(self.shards):
             c1, c2 = self.ConvBnLrnDrop_0.Conv_0, self.ConvBnLrnDrop_1.Conv_0
             return flat_res_block(x, c1.weight, c1.bias, c2.weight, c2.bias,
                                   self.activation)

@@ -25,6 +25,17 @@ Modules work in NCHW; the public forward takes NHWC input and returns
 (``logits_layout``).  Module names follow the flax tree
 (``net.block_{b}.down.dil_conv_{l}.Conv_0``, ...).
 
+``spatial_shards`` = sp > 1 (at fs > 0) cuts each image's rows into sp
+blocks on the flat scales, as the JAX package's ``FlatGeom.sp``: the
+batch axis carries sp*N shard-major entries there, each flat op with a
+vertical reach takes halo rows from the neighbouring blocks
+(``parallel.spatial.SpatialShards``), the residual blocks run as two flat
+convs, the deep scales (attention) see the merged image, and the logits
+merge back.  Under a spatial process group (``set_spatial_group``, as the
+Trainer sets it on a mesh with a ``spatial`` axis) a rank holds one block
+instead, its halos come from the ranks above and below, and the deep
+scales run on the image gathered from the group (every scale, at fs 0).
+
 ``flat_scales`` = fs > 0 runs the scales below fs, and the end convs,
 through the flat-layout ops (``ops.flatconv``, ``ops.flatres``: hand-written
 CUDA kernels on a card, forward and backward) as the JAX package runs them
@@ -65,13 +76,13 @@ from msau_tpu_torch.models.layers import (
     maxpool_same,
 )
 from msau_tpu_torch.models.msau_box import BMSAUNet, MultiBoxConvBlock
-from msau_tpu_torch.ops.flatconv import flat_maxpool2, to_nchw
+from msau_tpu_torch.ops.flatconv import flat_maxpool2, same_padding, to_nchw
 from msau_tpu_torch.ops.precision import wide
+from msau_tpu_torch.parallel.spatial import SpatialShards
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configurations the port lacks yet,
-    ValueError for ones the model does not define."""
+    """Raise ValueError for configurations the model does not define."""
     if not 0 <= cfg.flat_scales <= cfg.scale_space_num - 1:
         raise ValueError(
             f"flat_scales {cfg.flat_scales} out of [0, scale_space_num - 1]: "
@@ -82,9 +93,24 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.flat_scales > 0 and (cfg.model == "msau_box" or cfg.use_spn):
         raise ValueError("flat_scales > 0 needs the conv residual blocks and "
                          "no use_spn: the box and CSPN paths are NHWC only")
-    if cfg.spatial_shards > 1:
-        raise NotImplementedError(
-            "spatial_shards > 1: spatial sharding is ROADMAP Queue 1 item 13")
+
+
+def check_shard_rows(cfg: ModelConfig, h: int, sp: int) -> None:
+    """ValueError where an image of ``h`` rows does not cut into ``sp``
+    blocks at every flat scale (h divisible by sp * 2**flat_scales), or a
+    block at a flat scale has fewer rows than the largest vertical reach
+    there (the dilated conv's 2**s, the end conv's 2 below, ...)."""
+    fs, k = cfg.flat_scales, cfg.filter_size
+    if h % (sp * 2 ** fs):
+        raise ValueError(f"H={h} is not divisible by spatial_shards * "
+                         f"2**flat_scales = {sp * 2 ** fs}")
+    for s in range(fs):
+        rows = h // (sp * 2 ** s)
+        reach = max(same_padding(k, cfg.pool_size ** s) + same_padding(k)
+                    + ((1, 2) if s == 0 else (1,)))
+        if rows < reach:
+            raise ValueError(f"a shard at flat scale {s} has {rows} rows, "
+                             f"fewer than the reach {reach} of its convs")
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -129,10 +155,14 @@ class DownSamplingUNetBlock(nn.Module):
             c_in = feats
             feats *= pool
 
+    shards = None   # the MSAUNet's SpatialShards
+
     def forward(self, x: torch.Tensor, prev: Optional[List[torch.Tensor]]):
         S = self.cfg.scale_space_num
         dw_h_convs: List[torch.Tensor] = []
         for layer in range(S):
+            if layer == self.cfg.flat_scales and layer and self.shards.active:
+                x = self.shards.merge(x)   # the deep scales see the image
             y = getattr(self, f"dil_conv_{layer}")(x)
             y = getattr(self, f"res_block_{layer}")(y)
             if self.coupled:
@@ -169,10 +199,14 @@ class UpSamplingUNetBlock(nn.Module):
                     2 * feats, feats, (1, 1), activation=cfg.activation_name,
                     gen=gen, flat=flat))
 
+    shards = None   # the MSAUNet's SpatialShards
+
     def forward(self, dw_h_convs, x, prev: Optional[List[torch.Tensor]]):
         up_h_convs: List[Optional[torch.Tensor]] = [None] * (
             self.cfg.scale_space_num - 1)
         for layer in range(self.cfg.scale_space_num - 2, -1, -1):
+            if layer == self.cfg.flat_scales - 1 and self.shards.active:
+                x = self.shards.split(x)   # back onto the flat scales' shards
             skip = dw_h_convs[layer]
             y = getattr(self, f"deconv_{layer}")(x, tuple(skip.shape[-2:]))
             y = getattr(self, f"merge_conv_{layer}")((skip, y))
@@ -227,6 +261,10 @@ class MSAUNet(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        # sp applies to the flat scales (as FlatGeom.sp); set_group may
+        # put every scale of an fs=0 model on a spatial group
+        self.shards = SpatialShards(cfg.spatial_shards if cfg.flat_scales
+                                    else 1)
         for b in range(cfg.num_blocks):
             cin = cfg.img_channels if b == 0 else cfg.n_class
             # SPN only on the last stage (reference model/model.py:365-368)
@@ -236,9 +274,19 @@ class MSAUNet(nn.Module):
             self.add_module(f"end_conv_{b}", ConvBnLrnDrop(
                 cfg.feat_root, cfg.n_class, (4, 4), activation=None, gen=gen,
                 flat=cfg.flat_scales > 0))
+        for m in self.modules():
+            if hasattr(type(m), "shards") and m is not self:
+                m.shards = self.shards
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
+        sh = self.shards
+        if sh.active:
+            ranks = sh.shards if sh.group is not None else 1
+            check_shard_rows(cfg, x.shape[-2] * ranks, sh.shards)
+            x = sh.enter(x)
+            if not cfg.flat_scales:
+                x = sh.merge(x)
         prev_dw = prev_up = None
         logits_aux = None
         out = x
@@ -253,6 +301,11 @@ class MSAUNet(nn.Module):
             out = getattr(self, f"end_conv_{b}")(out)
             if b == cfg.num_blocks - 2:
                 logits_aux = out
+        if sh.active:
+            out = sh.leave(out if cfg.flat_scales else sh.split(out))
+            if logits_aux is not None:
+                logits_aux = sh.leave(logits_aux if cfg.flat_scales
+                                      else sh.split(logits_aux))
         logits = wide(out)
         return logits, (logits if logits_aux is None else wide(logits_aux))
 
@@ -268,6 +321,14 @@ class MSAUWrapper(nn.Module):
         self.config = config
         self.net = (BMSAUNet(config, generator) if config.model == "msau_box"
                     else MSAUNet(config, generator))
+
+    def set_spatial_group(self, group) -> None:
+        """Run on one block of rows per rank of the process group ``group``
+        (the rank's input is its block: ``parallel.shard_batch``; every
+        scale of a model with no flat scale runs on the image gathered from
+        the group), or on whole images again (None)."""
+        net = self.net.bmsau if isinstance(self.net, BMSAUNet) else self.net
+        net.shards.set_group(group)
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -1,4 +1,5 @@
-"""CLI: FUNSD word-grid training on one device.
+"""CLI: FUNSD word-grid training on one device, or data-parallel on
+``--devices`` ranks.
 
 Loads the preprocessed pickles, splits 80/20 (seed 777), builds the model
 from ``model_kwargs.json`` (any variant: ``"model": "msau_box"`` too) or
@@ -7,6 +8,13 @@ per-epoch train / val / test micro metrics and the test classification
 report, and checkpoints every ``--checkpoint_every`` epochs under the
 ``gen_prefix`` directory.  The grids are painted, and the model trained and
 evaluated (forward and argmax), on ``--device`` (default ``cuda``).
+
+``--devices N`` > 1 trains on a data mesh of N ranks
+(``parallel.run_on_devices``: N local workers, rank r on ``cuda:r`` with
+NCCL or on the CPU with gloo, or the group torchrun set up); every rank
+builds the same batches from ``--seed`` and trains on its slice of each
+``--batch_size`` batch, which must be a multiple of N (groups short of
+it are dropped); rank 0 prints, evaluates and writes the checkpoints.
 
 Usage:
   python -m msau_tpu_torch.tools.train_funsd --data_dir ./preprocessed \
@@ -43,17 +51,22 @@ def main(argv=None):
     p.add_argument("--flat_scales", type=int, default=0,
                    help="shallow scales through the flat-layout kernels")
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel device count (one device only here)")
+                   help="data-parallel ranks (local workers, or torchrun's)")
     p.add_argument("--batch_size", type=int, default=1,
                    help="global batch (reference entry A is 1); same-shape "
                         "grids are grouped, leftovers train at batch 1")
     p.add_argument("--device", default="cuda",
                    help="torch device that paints, trains and evaluates")
     args = p.parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1: multi-device training is ROADMAP Queue 1 item 13")
+    if args.batch_size % args.devices:
+        raise ValueError(f"--batch_size {args.batch_size} must be a multiple "
+                         f"of --devices {args.devices}")
+    from msau_tpu_torch.parallel.sharding import run_on_devices
 
+    run_on_devices(_run, args.devices, args.device, args)
+
+
+def _run(args):
     import torch
 
     from msau_tpu_torch.config import ModelConfig, TrainConfig
@@ -62,9 +75,14 @@ def main(argv=None):
     from msau_tpu_torch.data.pages import FUNSD_LABEL_TO_ID
     from msau_tpu_torch.train.trainer import Trainer
     from msau_tpu_torch.utils import metrics as M
+    from msau_tpu_torch.parallel.sharding import make_mesh, rank_device
     from msau_tpu_torch.utils.io import create_filename, gen_prefix
 
-    device = torch.device(args.device)
+    device = rank_device(args.device)
+    mesh = (make_mesh((args.devices,), ("data",), device.type)
+            if args.devices > 1 else None)
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
+    log = print if main_rank else (lambda *a, **k: None)
     random.seed(args.seed)
     train_ex, charset = wg.load_preprocessed(
         os.path.join(args.data_dir, "funsd_preprocess_train_word.pkl")
@@ -82,15 +100,17 @@ def main(argv=None):
             res_depth=2, n_class=n_class, img_channels=charset.n_token,
             flat_scales=args.flat_scales,
         )
-        os.makedirs(args.ckptdir, exist_ok=True)
-        with open(os.path.join(args.ckptdir, "model_kwargs.json"), "w") as f:
-            json.dump(mc.to_model_kwargs(), f)
+        if main_rank:
+            os.makedirs(args.ckptdir, exist_ok=True)
+            with open(os.path.join(args.ckptdir, "model_kwargs.json"),
+                      "w") as f:
+                json.dump(mc.to_model_kwargs(), f)
 
     idx = list(range(len(train_ex)))
     random.shuffle(idx)
     cut = int(len(idx) * args.train_ratio)
     tr_idx, val_idx = idx[:cut], idx[cut:]
-    print(f"train {len(tr_idx)} / val {len(val_idx)} / test {len(test_ex)}")
+    log(f"train {len(tr_idx)} / val {len(val_idx)} / test {len(test_ex)}")
 
     # rasterize once (grids are deterministic in the word-grid path)
     def featurize(ex):
@@ -127,16 +147,16 @@ def main(argv=None):
                     grouped.append(
                         {k: np.concatenate([c[k] for c in chunk]) for k in chunk[0]}
                     )
-                else:
+                elif args.devices == 1:
                     grouped.extend(chunk)  # leftover singles still train
-        print(f"grouped into {len(grouped)} batches of <= {args.batch_size}")
+        log(f"grouped into {len(grouped)} batches of <= {args.batch_size}")
         train_batches = grouped
 
     tc = TrainConfig(
         optimizer="adam", learning_rate=args.lr, lr_decay_staircase=False,
         grad_clip_norm=1.0, masked_loss=True, seed=args.seed,
     )
-    trainer = Trainer(mc, tc, device=device)
+    trainer = Trainer(mc, tc, mesh=mesh, device=device)
     trainer.init_state(train_batches[0]["input"])
     prefix = gen_prefix("funsd", "msau", mc.feat_root, n_class)
 
@@ -159,12 +179,12 @@ def main(argv=None):
         labels = np.concatenate(labels) if labels else np.zeros(0, int)
         preds = np.concatenate(preds) if preds else np.zeros(0, int)
         m = M.micro_metrics(labels, preds, drop_background=False)
-        print(f"{name} acc: {m['acc']:.4f}")
+        log(f"{name} acc: {m['acc']:.4f}")
         if testing and labels.size:
             names = ["bg"] + [
                 k for k, _ in sorted(FUNSD_LABEL_TO_ID.items(), key=lambda kv: kv[1])
             ]
-            print(M.classification_report(labels, preds, target_names=names,
+            log(M.classification_report(labels, preds, target_names=names,
                                           n_class=n_class))
         return m
 
@@ -175,19 +195,20 @@ def main(argv=None):
             trainer.state, mets = trainer.train_step(trainer.state, trainer.put_batch(b))
             total += float(mets["loss"])
             if bi % 10 == 0:
-                print(f"batch {bi} loss {float(mets['loss']):.4f}")
-        print(f"epoch {epoch}: avg loss {total / max(len(train_batches), 1):.4f} "
+                log(f"batch {bi} loss {float(mets['loss']):.4f}")
+        log(f"epoch {epoch}: avg loss {total / max(len(train_batches), 1):.4f} "
               f"({time.time() - t0:.1f}s)")
-        if (epoch + 1) % args.eval_every == 0:
+        if main_rank and (epoch + 1) % args.eval_every == 0:
             evaluate(train_batches, "Train", max_n=args.max_eval_examples)
             if val_batches:
                 evaluate(val_batches, "Validation")
             if test_batches:
                 evaluate(test_batches, "Test", testing=True)
-        if epoch % args.checkpoint_every == 0:
+        if main_rank and epoch % args.checkpoint_every == 0:
             trainer.save(create_filename(args.ckptdir, prefix, epoch))
-    trainer.save(create_filename(args.ckptdir, prefix, args.epochs))
-    print("Finished")
+    if main_rank:
+        trainer.save(create_filename(args.ckptdir, prefix, args.epochs))
+    log("Finished")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""CLI: entry-B generic-document training from label JSONs, on one device.
+"""CLI: entry-B generic-document training from label JSONs, on one device
+or data-parallel on ``--devices`` ranks.
 
 Equivalent of the Trainer/DataGenerator pipeline
 (model/training/trainer.py:57-207 + data_generator/data_generator_text.py):
@@ -8,10 +9,23 @@ augmentation on ``--device``), staircase LR (0.001 * 0.95^(epoch//10)),
 checkpointing under ``--output_path``.  The same flags as
 ``msau_tpu.tools.train_generic`` plus ``--device`` (default ``cuda``).
 
+``--devices N`` > 1 trains on a data mesh of N ranks
+(``parallel.run_on_devices``): outside torchrun the CLI starts N local
+workers itself (rank r on ``cuda:r`` with NCCL, or on the CPU with gloo
+under ``--device cpu``), under torchrun it joins the group torchrun set
+up.  Every rank builds the same provider from the same seed (one worker
+thread a split, so every rank draws the same sequence), pulls the same
+global batch of ``devices * per_device_batch`` examples and trains on its
+slice; rank 0 logs and writes the checkpoints.  So each rank paints and
+augments the whole global batch: its data work a step grows N times, on
+one worker thread a split where a single device has ``num_workers``.
+
 Usage:
   python -m msau_tpu_torch.tools.train_generic --train_dir data/train \
       --val_dir data/val --charset charset.txt --n_classes 17 \
-      --output_path ./out
+      --output_path ./out [--devices 4]
+  torchrun --nproc_per_node 4 -m msau_tpu_torch.tools.train_generic ... \
+      --devices 4
 """
 
 import argparse
@@ -49,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shallow scales through the flat-layout kernels "
                         "(3 for the flagship)")
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel device count (one device only here)")
+                   help="data-parallel ranks (local workers, or torchrun's)")
     p.add_argument("--per_device_batch", type=int, default=1,
                    help="examples per step; same-bucket pages are grouped "
                         "by the BatchingProvider")
@@ -101,17 +115,23 @@ def train(args, log_dir=None, setup=None):
     ``setup(trainer, chargrid, provider)``, when given, is called before
     the first batch is pulled: ``chargrid`` is the ChargridProvider,
     ``provider`` what ``fit`` pulls from (the BatchingProvider around it,
-    or itself at batch 1)."""
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1: multi-device training is ROADMAP Queue 1 item 13")
+    or itself at batch 1).  ``--devices`` > 1 needs the process group of
+    ``args.devices`` ranks (``main`` sets it up)."""
+    import dataclasses
 
     from msau_tpu_torch.data.charset import Charset
     from msau_tpu_torch.data.pipeline import BatchingProvider, ChargridProvider
+    from msau_tpu_torch.parallel.sharding import make_mesh, rank_device
     from msau_tpu_torch.train.trainer import Trainer
 
     charset = Charset.from_file(args.charset)
     dcfg, mc, tc = configs(args, charset)
+    mesh, seed, device = None, None, args.device
+    if args.devices > 1:
+        device = rank_device(args.device)
+        mesh = make_mesh((args.devices,), ("data",), device.type)
+        dcfg = dataclasses.replace(dcfg, num_workers=1)
+        seed = tc.seed
     train_paths = sorted(glob.glob(os.path.join(args.train_dir, "*.json")))
     val_paths = (
         sorted(glob.glob(os.path.join(args.val_dir, "*.json")))
@@ -119,9 +139,9 @@ def train(args, log_dir=None, setup=None):
         else None
     )
     global_batch = args.devices * args.per_device_batch
-    trainer = Trainer(mc, tc, device=args.device)
+    trainer = Trainer(mc, tc, mesh=mesh, device=device)
     with ChargridProvider(train_paths, val_paths, charset, dcfg,
-                          device=args.device) as inner:
+                          device=device, seed=seed) as inner:
         provider = (
             BatchingProvider(inner, global_batch) if global_batch > 1 else inner
         )
@@ -142,8 +162,15 @@ def train(args, log_dir=None, setup=None):
     return trainer, history
 
 
+def _train(args):
+    train(args)
+
+
 def main(argv=None):
-    train(build_parser().parse_args(argv))
+    from msau_tpu_torch.parallel.sharding import run_on_devices
+
+    args = build_parser().parse_args(argv)
+    run_on_devices(_train, args.devices, args.device, args)
 
 
 if __name__ == "__main__":

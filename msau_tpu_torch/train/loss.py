@@ -7,6 +7,13 @@
   optional class weights, (1 - w) * final + w * aux, plus non-background
   pixel accuracy.
 
+``sum_ranks`` (data- and spatial-parallel training): a function that sums
+a count over every rank that shares the global batch.  Each rank then
+divides its own sums by the global counts, so its loss and metrics are its
+share of the global ones and their sums over the ranks are the global
+loss and metrics (JAX normalises over the global batch; dividing by each
+rank's own count and averaging is wrong wherever the counts differ).
+
 All math is f32 whatever the model's compute dtype.  Channel-major logits
 [N, C, L] (``channel_axis=1``, rank 3) take the fused masked-CE op
 (``ops.ce_loss``: a CUDA kernel pair on the card); any other layout takes
@@ -15,7 +22,7 @@ torch ops along ``channel_axis``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +44,7 @@ def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
 def nonzero_pixel_accuracy(
     logits: torch.Tensor, labels: torch.Tensor,
     valid: Optional[torch.Tensor] = None, channel_axis: int = -1,
+    sum_ranks: Optional[Callable] = None,
 ) -> torch.Tensor:
     """sum(pred == label over label != 0) / sum(label != 0), pred the first
     argmax (model/training/cost.py:43-51)."""
@@ -45,8 +53,11 @@ def nonzero_pixel_accuracy(
     if valid is not None:
         mask = mask & valid
     correct = (mask & (pred == labels)).sum()
-    total = mask.sum().clamp(min=1)
-    return correct / total
+    return correct / _global(mask.sum(), sum_ranks).clamp(min=1)
+
+
+def _global(count: torch.Tensor, sum_ranks: Optional[Callable]) -> torch.Tensor:
+    return count if sum_ranks is None else sum_ranks(count)
 
 
 def masked_cross_entropy(
@@ -55,6 +66,7 @@ def masked_cross_entropy(
     labels: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     channel_axis: int = -1,
+    sum_ranks: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Entry-A loss: CE over label != 0 pixels, final + aux.
 
@@ -65,7 +77,7 @@ def masked_cross_entropy(
     mask = labels != 0
     if valid is not None:
         mask = mask & valid
-    denom = mask.sum().clamp(min=1).float()
+    denom = _global(mask.sum(), sum_ranks).clamp(min=1).float()
     if channel_axis == 1 and logits.ndim == 3:
         maskf = mask.float()
         lab32 = labels.to(torch.int32)
@@ -83,7 +95,8 @@ def masked_cross_entropy(
     loss = ce + ce_aux
     return loss, {
         "loss": loss, "loss_final": ce, "loss_aux": ce_aux,
-        "accuracy": nonzero_pixel_accuracy(logits, labels, valid, channel_axis),
+        "accuracy": nonzero_pixel_accuracy(logits, labels, valid, channel_axis,
+                                           sum_ranks),
     }
 
 
@@ -96,6 +109,7 @@ def unet_loss(
     aux_weight: float = 0.5,
     class_weights: Optional[torch.Tensor] = None,
     channel_axis: int = -1,
+    sum_ranks: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Entry-B loss: mean CE over all (valid) pixels, optional per-class
     weights, aux mixed in by ``aux_weight`` (model/training/cost.py:52-61)."""
@@ -104,11 +118,13 @@ def unet_loss(
     if class_weights is not None:
         w = class_weights[labels.long()]
         ce = ce * w
-        denom = w.sum() if valid is None else torch.where(valid, w, zero).sum()
+        denom = _global(w.sum() if valid is None
+                        else torch.where(valid, w, zero).sum(), sum_ranks)
     elif valid is None:
-        denom = torch.tensor(float(ce.numel()), device=logits.device)
+        denom = _global(torch.tensor(float(ce.numel()), device=logits.device),
+                        sum_ranks)
     else:
-        denom = valid.sum().clamp(min=1).float()
+        denom = _global(valid.sum(), sum_ranks).clamp(min=1).float()
     if valid is not None:
         ce = torch.where(valid, ce, zero)
     final_loss = ce.sum() / denom
@@ -128,5 +144,6 @@ def unet_loss(
         loss = final_loss
     return loss, {
         "loss": loss, "loss_final": final_loss, "loss_aux": aux_loss,
-        "accuracy": nonzero_pixel_accuracy(logits, labels, valid, channel_axis),
+        "accuracy": nonzero_pixel_accuracy(logits, labels, valid, channel_axis,
+                                           sum_ranks),
     }

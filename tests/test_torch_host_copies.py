@@ -255,9 +255,9 @@ def test_char_records_copy_matches(seed):
 
 
 # modules the walk below must reach (the box model, the extras, the word-
-# and feature-grid data side, metrics and io, the FUNSD tools, and entry
-# B: augmentation, the pipeline, profiling, viz, the host helpers and the
-# four CLIs, among them)
+# and feature-grid data side, metrics and io, the FUNSD tools, entry B:
+# augmentation, the pipeline, profiling, viz, the host helpers and the
+# four CLIs, and parallel/, among them)
 NEW_PORT_MODULES = (
     "msau_tpu_torch.ops.boxconv", "msau_tpu_torch.models.msau_box",
     "msau_tpu_torch.models.extras", "msau_tpu_torch.data.wordgrid",
@@ -269,7 +269,9 @@ NEW_PORT_MODULES = (
     "msau_tpu_torch.utils.profiling", "msau_tpu_torch.utils.viz",
     "msau_tpu_torch.tools.train_generic", "msau_tpu_torch.tools.run_kv_test",
     "msau_tpu_torch.tools.random_split",
-    "msau_tpu_torch.tools.extract_training_data")
+    "msau_tpu_torch.tools.extract_training_data",
+    "msau_tpu_torch.parallel", "msau_tpu_torch.parallel.sharding",
+    "msau_tpu_torch.parallel.spatial")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():

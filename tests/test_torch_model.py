@@ -151,19 +151,16 @@ def test_lrn_matches_flax():
                                          ("use_lstm", True),
                                          ("use_spn", True)])
 def test_unported_options_raise(field, value):
-    """spatial_shards > 1 is still unported and raises NotImplementedError
-    naming its ROADMAP item.  The box model, use_lstm and use_spn are
-    ported: they build at flat_scales 0 and raise no NotImplementedError;
-    at flat_scales > 0 the box model and use_spn are undefined (the JAX
-    package asserts) and raise ValueError."""
+    """No option is left unported: spatial_shards, the box model, use_lstm
+    and use_spn build at flat_scales 0 and raise no NotImplementedError
+    (spatial_shards applies to the flat scales and is a no-op there, as in
+    the JAX package); at flat_scales > 0 spatial_shards and use_lstm build,
+    while the box model and use_spn are undefined (the JAX package
+    asserts) and raise ValueError."""
     cfg = ModelConfig(**{**CFG, field: value})
-    if field == "spatial_shards":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, torch.Generator().manual_seed(0))
-        return
     build_model(cfg, torch.Generator().manual_seed(0))
     flat = ModelConfig(**{**CFG, field: value, "flat_scales": 1})
-    if field == "use_lstm":
+    if field in ("use_lstm", "spatial_shards"):
         build_model(flat, torch.Generator().manual_seed(0))
     else:
         with pytest.raises(ValueError, match="flat_scales"):

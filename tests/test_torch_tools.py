@@ -148,7 +148,14 @@ def test_preprocess_then_train(preprocessed, tmp_path, capsys, case):
 
 
 def test_train_funsd_refuses_devices(preprocessed):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    """--devices beyond the CUDA devices there are, or a --batch_size that
+    does not split over them, is refused (ValueError; the JAX CLI
+    asserts)."""
+    with pytest.raises(ValueError, match="CUDA devices"):
+        train_funsd.main(["--data_dir", str(preprocessed), "--devices",
+                          str(torch.cuda.device_count() + 1), "--batch_size",
+                          str(torch.cuda.device_count() + 1)])
+    with pytest.raises(ValueError, match="multiple of --devices"):
         train_funsd.main(["--data_dir", str(preprocessed), "--devices", "2",
                           "--device", "cpu"])
 
@@ -218,8 +225,9 @@ def test_train_generic_main_and_devices(corpus_b, tmp_path):
     root, _, cs_path = corpus_b
     base = ["--train_dir", str(root / "pages"), "--charset", cs_path,
             "--n_classes", "17", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        train_generic.main(base + ["--devices", "2"])
+    with pytest.raises(ValueError, match="CUDA devices"):
+        train_generic.main(base[:-1] + [
+            "cuda", "--devices", str(torch.cuda.device_count() + 1)])
     train_generic.main(base + [
         "--output_path", str(tmp_path), "--feat_root", "2",
         "--scale_space_num", "3", "--res_depth", "1", "--epochs", "1",

@@ -311,8 +311,21 @@ def test_fit_checkpoint_resume_is_exact(tmp_path):
 
 
 def test_trainer_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(ModelConfig(**CFG), mesh=object(), device="cpu")
+    """A flat model on a mesh whose spatial axis differs from its
+    spatial_shards is refused with the JAX trainer's message, as
+    tests/test_parallel.py refuses it on the (2, 4) mesh; the mesh is only
+    read for its axes here (the multi-rank steps: test_torch_parallel)."""
+
+    class Mesh24:
+        mesh_dim_names = ("data", "spatial")
+
+        def size(self, i):
+            return (2, 4)[i]
+
+    flat = ModelConfig(**{**CFG, "flat_scales": 2})
+    with pytest.raises(ValueError, match="spatial_shards == mesh spatial "
+                                         r"size \(4\); got 1"):
+        Trainer(flat, mesh=Mesh24(), device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["make_loss_and_grad", "make_train_step",
