@@ -212,12 +212,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      F.conv2d, and a ConvBnLrnDrop with BatchNorm and dropout at 8 channels,
      512^2, against its CPU result in train mode (output and running
      statistics) and in eval mode (1e-5 of the largest |value|).  The
-     process group is destroyed whatever happens.
+     process group is destroyed whatever happens;
+  7. the trained end-to-end path: (a) examples/end_to_end_kv_torch.py's
+     main on the card (the fixture page, 120 steps, f32): F1 > 0.9, paint,
+     the attention forward and backward and the CCL launched, ms a step
+     over the 120 and over 10 steady steps of a fresh demo model, kernels
+     and busy ms of one profiled step; (b) tools/corpus_eval.run in this
+     process at the protocol's model (2 stages, 4 scales, flat_scales 3,
+     bf16) on 8 train and 4 held-out pages, 10 epochs (CORPUS_EVAL_ARGS):
+     the epochs' losses finite and falling, the summary in [0, 1], every
+     kernel of CORPUS_EVAL_KERNELS launched, F1 and pixel P / R printed (a
+     smoke reading, not the protocol's); (c) its trained weights (f32,
+     flat_scales 0) serving the held-out pages with predict(return_maps=
+     False): p50 of each stage, busy ms and kernels a request; (d) the
+     resident attention on PHASE7_ATTN_CASES, the flat kernels and their
+     backward at (b)'s instances (256^2, batch 4), f32 and bf16, and the
+     CCL on (c)'s class maps against their plain versions, phase 1's
+     tolerances and the same bits on a rerun.
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
-included), 3, 4, 5 (5b and 5c) and 6 (6a and 6b), its
-largest error against the plain version, its time, the plain version's,
+included), 3, 4, 5 (5b and 5c), 6 (6a and 6b) and 7 (7a-7c), its
+largest error against the plain version (f32, 7d's cases included), its time, the plain version's,
 the library call's (or null) and its bound; then the card's name and power
 limit; the last line is the device record.  A fuller report, with nvcc's register and
 shared-memory lines for each kernel, goes to build/chip_smoke.json.
@@ -225,6 +241,8 @@ shared-memory lines for each kernel, goes to build/chip_smoke.json.
 
 import glob
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -594,13 +612,15 @@ def _attention_tensors(dev, n, t, cb, c, dtype, scale=1.0):
     return f, g, h, dout
 
 
-def check_attention_kernels(dev):
+def check_attention_kernels(dev, cases=None, phase="phase 1"):
     """Phase 1, the resident attention's kernels (forward: stats and
     accumulate; backward: rows and combine) on every ATTN_CASES entry in f32
     and bf16 against their plain versions, each run twice for equal bits;
     the forward timed at N 16 and N 1, the backward at N 16 -> {kernel:
-    {max_abs_err, ms, plain_ms, bound, cases, times}}.  A probe quicker than
-    the whole script: ``python3 -c "import chip_smoke as cs, torch;
+    {max_abs_err, ms, plain_ms, bound, cases, times}}.  ``cases``: other
+    (N, T, Cb, C) in place of ATTN_CASES and the large logits, untimed
+    (phase 7d).  A probe quicker than the whole script: ``python3 -c
+    "import chip_smoke as cs, torch;
     cs.check_attention_kernels(torch.device('cuda', 0))"``."""
     import torch
 
@@ -613,9 +633,11 @@ def check_attention_kernels(dev):
 
     fwd = {"cases": {}, "times": {}, "library_ms": None, "max_abs_err": 0.0}
     bwd = {"cases": {}, "times": {}, "library_ms": None, "max_abs_err": 0.0}
-    cases = [(*case, 1.0, ("float32", "bfloat16")) for case in ATTN_CASES]
-    cases.append((*ATTN_LARGE_LOGITS, ("bfloat16",)))
-    for n, t, cb, c, scale, keys in cases:
+    runs = [(*case, 1.0, ("float32", "bfloat16"))
+            for case in (cases or ATTN_CASES)]
+    if cases is None:
+        runs.append((*ATTN_LARGE_LOGITS, ("bfloat16",)))
+    for n, t, cb, c, scale, keys in runs:
         for key in keys:
             dtype = getattr(torch, key)
             f, g, h, dout = _attention_tensors(dev, n, t, cb, c, dtype, scale)
@@ -676,7 +698,7 @@ def check_attention_kernels(dev):
                     berr[k]["max_abs_err"] for k in ("df", "dg", "dh")))
             del got, again, want, grads, wgrads
             isz = f.element_size()
-            if t == 4096 and cb == 8:
+            if cases is None and t == 4096 and cb == 8:
                 fwd["times"][name] = {
                     "ms": _cuda_ms(lambda: resident_attention_cuda(f, g, h),
                                    20),
@@ -684,7 +706,7 @@ def check_attention_kernels(dev):
                         lambda: resident_attention_plain_stats(f, g, h), 5),
                     "bound": _attention_bound("resident_attention_fwd", n, t,
                                               cb, c, isz)}
-            if t == 4096 and n == 16:
+            if cases is None and t == 4096 and n == 16:
                 bwd["times"][name] = {
                     "ms": _cuda_ms(lambda: resident_attention_bwd_cuda(
                         f, g, h, wm, wl, dout), 10),
@@ -693,7 +715,7 @@ def check_attention_kernels(dev):
                     "bound": _attention_bound("resident_attention_bwd", n, t,
                                               cb, c, isz),
                     "scratch_mib": scratch / 2**20}
-            print(f"[phase 1] attention {name}: fwd scaled err "
+            print(f"[{phase}] attention {name}: fwd scaled err "
                   f"{err['scaled_err']:.3e} (tol {tol}), m {err['m_max_abs_err']:.2e}"
                   f", l rel {err['l_max_rel_err']:.2e}; bwd " + ", ".join(
                       f"{k} {berr[k]['scaled_err']:.3e}"
@@ -702,6 +724,8 @@ def check_attention_kernels(dev):
                   f"{berr['scratch_mib']:.1f} MiB", flush=True)
             del f, g, h, dout, wm, wl
             torch.cuda.empty_cache()
+    if cases is not None:
+        return {"resident_attention_fwd": fwd, "resident_attention_bwd": bwd}
     # the kernels line: the forward as a page runs it, the backward as the
     # flagship train step does, f32
     main_f, main_b = "N1_T4096_Cb8_C64_float32", "N16_T4096_Cb8_C64_float32"
@@ -3715,6 +3739,304 @@ def world_of_one(dev):
     return total, res
 
 
+# Phase 7, the trained end-to-end path.  7b runs the held-out protocol's
+# own model (2 stages, feat_root 8, res_depth 2, 4 scales, bf16,
+# flat_scales 3) on 8 train and 4 held-out pages of its corpus for 10
+# epochs: a smoke reading of its F1, not the protocol's (40 / 50 pages, 60
+# epochs: tools/accuracy_matrix.py).  --quick would build one stage, whose
+# attention output and couplings feed nothing: no attention backward and
+# no coupling kernel would launch.
+CORPUS_EVAL_ARGS = ["--train_pages", "8", "--test_pages", "4", "--epochs",
+                    "10", "--dtype", "bf16", "--flat", "3", "--scales", "4",
+                    "--device", "cuda"]
+# the kernels 7b's training and serving must launch (rows 1-4, 6-8, 11-19
+# of the kernels table; 9 and 10 run inside 11 and 12's kernels)
+CORPUS_EVAL_KERNELS = (
+    "paint", "resident_attention_fwd", "ccl_multiclass",
+    "resident_attention_bwd", "to_nchw", "flat_maxpool2", "flat_conv2d",
+    "concat_conv1x1", "flat_deconv2", "flat_res_block", "flat_maxpool2_bwd",
+    "flat_conv_bwd", "flat_conv_dx", "concat_conv1x1_bwd", "flat_deconv2_dx",
+    "flat_deconv2_dw", "flat_res_block_bwd")
+E2E_KERNELS = ("paint", "resident_attention_fwd", "resident_attention_bwd",
+               "ccl_multiclass")
+E2E_TIMED = 10   # 7a's steady steps of a fresh demo model, after 2
+TRAINED_SERVE_ROUNDS = 3  # timed passes over 7b's held-out pages
+# 7d: the resident attention at the deepest scales this phase runs: 7b's
+# step (256^2 at 4 scales: N 4, T 1024, C 64) and the 3-scale models of
+# the matrix (T 4096, C 32) at batch 4 and the demo's N 1
+PHASE7_ATTN_CASES = ((4, 1024, 8, 64), (4, 4096, 4, 32), (1, 4096, 4, 32))
+PHASE7_FLAT = (256, 4)    # 7b's bucket side and batch
+
+
+def _load_example():
+    """examples/end_to_end_kv_torch.py as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "end_to_end_kv_torch.py")
+    spec = importlib.util.spec_from_file_location("end_to_end_kv_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _missing(counts, names):
+    return [k for k in names if not counts[k]]
+
+
+def end_to_end(dev):
+    """7a: the end-to-end demo on the card, 120 steps -> (launches, record):
+    F1 > 0.9 asserted; ms a step (host clock) over the demo's 120 (its
+    first steps included) and, off the counted run, over E2E_TIMED steps
+    of a fresh demo model after 2 warm-up steps, then kernels and busy ms
+    of one profiled step."""
+    import tempfile
+
+    import torch
+
+    from msau_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    ex = _load_example()
+    timings = {}
+    reset_launch_counts()
+    f1 = ex.main(dev, timings=timings)
+    counts = launch_counts()
+    with tempfile.TemporaryDirectory(prefix="msau_demo_") as tmp:
+        kv, x, label = ex.setup(dev, tmp)
+        _, _, step = ex.build(kv)
+        xb, yb = x[None], label[None]
+        for _ in range(2):
+            step(xb, yb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(E2E_TIMED):
+            loss, _ = step(xb, yb)
+        float(loss)
+        steady = (time.perf_counter() - t0) * 1e3 / E2E_TIMED
+        prof = _profile_steps(lambda: step(xb, yb), 1)
+        shape = list(x.shape)
+    rec = {"f1": f1, "ms_per_step": timings["train_ms_per_step"],
+           "steady_ms_per_step": steady,
+           "kernels_per_step": prof["kernels"], "busy_ms": prof["busy_ms"],
+           "input": shape, "launches": counts}
+    print(f"[phase 7a] end-to-end demo on {shape}, {ex.N_CLASS} classes, 120 "
+          f"steps: F1 {f1:.3f}; ms a step (host clock) {rec['ms_per_step']:.2f}"
+          f" over the 120, {steady:.2f} over {E2E_TIMED} after 2 warm-up "
+          f"steps; one profiled step: {prof['kernels']:.0f} kernels, busy "
+          f"{prof['busy_ms']:.2f} ms; launches {json.dumps(counts)}",
+          flush=True)
+    if not f1 > 0.9:
+        raise AssertionError(f"phase 7a: the demo's F1 {f1} is not > 0.9")
+    missing = _missing(counts, E2E_KERNELS)
+    if missing:
+        raise AssertionError(f"phase 7a: {missing} did not launch")
+    del kv, x, label, xb, yb, step
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def corpus_eval_run(dev):
+    """7b: tools/corpus_eval.run(CORPUS_EVAL_ARGS) in this process ->
+    (launches, the run, record): the epochs' losses finite and the last
+    below the first, the summary in [0, 1], and every kernel of
+    CORPUS_EVAL_KERNELS launched."""
+    import math
+
+    import numpy as np
+
+    from msau_tpu_torch.ops import launch_counts, reset_launch_counts
+    from msau_tpu_torch.tools import corpus_eval
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = corpus_eval.run(CORPUS_EVAL_ARGS)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = run.epoch_losses
+    per_epoch = run.steps / len(losses)
+    rec = {"result": run.result, "epoch_losses": losses,
+           "steps": run.steps, "wall_s": wall,
+           "ms_per_step": sum(run.epoch_seconds) * 1e3 / run.steps,
+           "steady_ms_per_step": float(np.median(run.epoch_seconds[1:]))
+           * 1e3 / per_epoch, "launches": counts}
+    print(f"[phase 7b] corpus_eval {' '.join(CORPUS_EVAL_ARGS)}: F1 "
+          f"{run.summary['f1']:.4f} (P {run.summary['precision']:.4f}, R "
+          f"{run.summary['recall']:.4f}), pixel P "
+          f"{run.result['pixel_precision']} R {run.result['pixel_recall']} "
+          f"(a smoke reading, not the protocol's); epoch losses "
+          f"{[round(v, 4) for v in losses]}; {run.steps} steps, ms a step "
+          f"(host clock, with its loss fetch an epoch) "
+          f"{rec['ms_per_step']:.2f} over all, "
+          f"{rec['steady_ms_per_step']:.2f} the median epoch after the "
+          f"first; {wall:.1f} s in all; launches {json.dumps(counts)}",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 7b: the loss did not fall: {losses}")
+    if not all(0.0 <= run.summary[k] <= 1.0 for k in run.summary):
+        raise AssertionError(f"phase 7b: summary {run.summary}")
+    missing = _missing(counts, CORPUS_EVAL_KERNELS)
+    if missing:
+        raise AssertionError(f"phase 7b: {missing} did not launch")
+    return counts, run, rec
+
+
+def trained_serve(dev, run):
+    """7c: 7b's trained weights (f32, flat_scales 0) serving its held-out
+    pages with ``predict(return_maps=False)`` -> (launches, record, the
+    class maps the decoder labelled in one ``predict_batch`` of the pages):
+    p50 of each predict stage over TRAINED_SERVE_ROUNDS passes after a
+    warm-up pass, and device busy ms and kernels a request (torch.profiler
+    over one pass)."""
+    import numpy as np
+
+    from msau_tpu_torch.data.pages import load_label_json_page
+    from msau_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    kv = run.kv
+    pages = [load_label_json_page(p) for p in run.test_paths]
+    reset_launch_counts()
+    for pg in pages:
+        kv.predict(pg, return_maps=False)
+    rows = []
+    for _ in range(TRAINED_SERVE_ROUNDS):
+        for pg in pages:
+            rows.append({})
+            kv.predict(pg, return_maps=False, timings=rows[-1])
+    counts = launch_counts()
+    prof = _profile_steps(lambda: [kv.predict(pg, return_maps=False)
+                                   for pg in pages], 1)
+    rec = {k: float(np.median([r[k] for r in rows]))
+           for k in ("prep", "device", "strings")}
+    rec.update(busy_ms=prof["busy_ms"] / len(pages),
+               kernels=prof["kernels"] / len(pages), requests=len(rows),
+               lines=[len(pg.lines) for pg in pages])
+    print(f"[phase 7c] trained serving (7b's weights, f32, flat_scales 0) "
+          f"of {len(pages)} held-out pages, {len(rows)} requests: p50 ms "
+          f"prep {rec['prep']:.2f}, device {rec['device']:.2f}, strings "
+          f"{rec['strings']:.2f}; device busy {rec['busy_ms']:.2f} ms and "
+          f"{rec['kernels']:.0f} kernels a request", flush=True)
+    maps = _record_decoder_maps(kv, pages)
+    return counts, rec, maps
+
+
+def phase7_kernels(dev, n_token, maps):
+    """7d: the kernels at this phase's shapes against their plain versions,
+    the same bits on a rerun: the resident attention on PHASE7_ATTN_CASES
+    (f32 and bf16, phase 1's tolerances); the flat kernels, forward and
+    backward, at 7b's instances (``flat_cases.scaled_cases``: 256^2,
+    batch 4, ``n_token`` input planes; FLAT_TOL, layout and pool exact,
+    FLAT_BWD_TOL); the CCL on the class maps 7c's trained model gave the
+    decoder, each page alone and the stack -> {kernel: {max_abs_err (f32),
+    cases}}."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.ops.ccl import (
+        connected_components_multiclass_cuda as ccl,
+        connected_components_multiclass_plain,
+    )
+    from msau_tpu_torch.utils.flat_cases import (
+        flat_bwd_case_fns,
+        flat_bwd_case_tensors,
+        flat_bwd_errors,
+        flat_case_fns,
+        flat_case_tensors,
+        scaled_cases,
+    )
+
+    out = check_attention_kernels(dev, PHASE7_ATTN_CASES, phase="phase 7d")
+    side, n = PHASE7_FLAT
+    fwd_cases, bwd_cases = scaled_cases(side, n, n_token)
+    for case in fwd_cases + bwd_cases:
+        bwd = "fwd_op" in case
+        rec = out.setdefault(case["op"], {"max_abs_err": 0.0, "cases": {}})
+        for key, tol in FLAT_TOL.items():
+            dtype = getattr(torch, key)
+            name = f"phase 7d {case['op']} {case['name']} {key}"
+            if bwd:
+                tensors = flat_bwd_case_tensors(
+                    case, np.random.default_rng(13), dev, dtype)
+                kernel, plain = flat_bwd_case_fns(case, tensors)
+            else:
+                tensors = flat_case_tensors(case, np.random.default_rng(11),
+                                            dev, dtype)
+                kernel, plain = flat_case_fns(case, tensors, dtype)
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            if not bwd:
+                got, again, want = (got,), (again,), (want,)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: a rerun gives other bits")
+            err = max(_max_abs(a, b) for a, b in zip(got, want))
+            if bwd:
+                bad = [e for e in flat_bwd_errors(case, got, want, key)
+                       if e[1] > e[2]]
+            elif case["op"] in ("to_nchw", "flat_maxpool2"):
+                bad = err > 0
+            else:
+                bad = _scaled_err(got[0], want[0]) > tol
+            if bad or (not bwd and (got[0].dtype != dtype
+                                    or got[0].shape != want[0].shape)):
+                raise AssertionError(f"{name}: max abs err {err}, {bad}")
+            rec["cases"][f"{case['name']} {key}"] = err
+            if key == "float32":
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del tensors, got, again, want
+        torch.cuda.empty_cache()
+    for op in sorted({c["op"] for c in fwd_cases + bwd_cases}):
+        print(f"[phase 7d] {op}: {len(out[op]['cases'])} cases at "
+              f"{side}^2 batch {n} within phase 1's tolerances, the same "
+              f"bits on a rerun; f32 max abs err "
+              f"{out[op]['max_abs_err']:.3e}", flush=True)
+    # the CCL on the trained model's class maps: each page, and each
+    # group's stack in one call
+    pages = 0
+    for stack in maps:
+        _same_bits_as_plain("phase 7d ccl stack", lambda: ccl(stack),
+                            lambda: torch.stack([
+                                connected_components_multiclass_plain(m)
+                                for m in stack]))
+        for m in stack:
+            m = m.contiguous()
+            _same_bits_as_plain("phase 7d ccl page", lambda: ccl(m),
+                                lambda: connected_components_multiclass_plain(
+                                    m))
+            pages += 1
+    classes = sorted({int(c) for s in maps for c in s.unique().tolist()})
+    out["ccl_multiclass"] = {"max_abs_err": 0.0, "pages": pages,
+                             "stacks": [list(s.shape) for s in maps],
+                             "classes": classes}
+    print(f"[phase 7d] ccl on the trained model's class maps ({pages} "
+          f"pages, stacks {out['ccl_multiclass']['stacks']}, classes "
+          f"{classes}): exact, the same bits on a rerun", flush=True)
+    return out
+
+
+def phase7(dev):
+    """Phase 7, the trained end-to-end path -> (launches of 7a-7c, 7d's
+    errors by kernel, record with the seconds of each sub-phase)."""
+    from msau_tpu_torch.ops import launch_counts
+
+    seconds, res = {}, {}
+
+    def sub(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase {name}] {seconds[name]:.1f} s", flush=True)
+        return got
+
+    c_a, res["end_to_end"] = sub("7a", end_to_end, dev)
+    c_b, run, res["corpus_eval"] = sub("7b", corpus_eval_run, dev)
+    c_c, res["trained_serve"], maps = sub("7c", trained_serve, dev, run)
+    errs = sub("7d", phase7_kernels, dev, run.kv.charset.n_token, maps)
+    shutil.rmtree(run.out_dir, ignore_errors=True)
+    res["seconds"] = seconds
+    counts = {k: c_a[k] + c_b[k] + c_c[k] for k in launch_counts()}
+    return counts, errs, res
+
+
 def main() -> int:
     import torch
 
@@ -3809,8 +4131,16 @@ def main() -> int:
                                 dev)
     phase6 = {k: sp_counts[k] + one_counts[k] for k in counts}
     print(f"[phase 6] launches: {phase6}", flush=True)
+    phase7_counts, phase7_errs, phase7_res = timed(
+        "phase 7 trained end-to-end", phase7, dev)
+    print(f"[phase 7] launches: {phase7_counts}", flush=True)
+    # 7d held kernels at this phase's shapes: their f32 errors join the
+    # line's (7d's own launches compare and are not counted)
+    for name, rec in phase7_errs.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           rec["max_abs_err"])
     launches = {k: counts[k] + train_counts[k] + phase4[k] + phase5[k]
-                + phase6[k] for k in counts}
+                + phase6[k] + phase7_counts[k] for k in counts}
 
     sources = {
         "paint": ("msau_tpu_torch/csrc/paint.cu",
@@ -3849,11 +4179,13 @@ def main() -> int:
               "kernels": kernels, "partial_sums": sums,
               "launches": {"serve": counts, "train": train_counts,
                            "variants": phase4, "entry_b": phase5,
-                           "parallel": phase6},
+                           "parallel": phase6,
+                           "trained_end_to_end": phase7_counts},
               "predict_p50_ms": timings, "train": train,
               "variants": variants, "entry_a_seconds": entry_seconds,
               "entry_b": entry_b_res, "spatial_shards": sp_res,
               "world_of_one": one_res,
+              "trained_end_to_end": {**phase7_res, "kernels": phase7_errs},
               "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)

@@ -11,7 +11,10 @@ concat 1x1, residual block, deconv, pool, entry layout) with their
 backward.  ``msau_tpu`` stays the reference; this package imports neither
 JAX nor anything of ``msau_tpu``.
 
-f32 precision policy, set once here: cuDNN convolutions and matmuls run in
+The configuration dataclasses (``Config``, ``DataConfig``, ``InferConfig``,
+``ModelConfig``, ``TrainConfig``) are re-exported here, as the JAX package
+exports its own.  f32 precision policy, set once here (the port has no
+``configure_tpu_precision``): cuDNN convolutions and matmuls run in
 full f32 (PyTorch lets cuDNN use TF32 by default, which keeps about three
 decimal digits).
 """
@@ -22,3 +25,20 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from msau_tpu_torch.config import (  # noqa: E402
+    Config,
+    DataConfig,
+    InferConfig,
+    ModelConfig,
+    TrainConfig,
+)
+
+__all__ = [
+    "Config",
+    "DataConfig",
+    "InferConfig",
+    "ModelConfig",
+    "TrainConfig",
+    "__version__",
+]

@@ -1,5 +1,6 @@
 """Configuration dataclasses of the port: ``ModelConfig``, ``DataConfig``,
-``TrainConfig`` and ``InferConfig`` with the JAX package's field names and defaults
+``TrainConfig`` and ``InferConfig`` with the JAX package's field names and defaults,
+and ``Config``, the four together with their JSON round trip
 (``msau_tpu/config.py``), so one configuration drives both implementations.
 The port keeps its own copy: it imports nothing of ``msau_tpu``.
 ``tests/test_torch_host_copies.py`` pins the copy to the original.
@@ -12,7 +13,9 @@ deepest scale's attention op as in the JAX package
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 
@@ -154,4 +157,47 @@ class InferConfig:
     max_ccl_iters: int = 64
 
 
-__all__ = ["DataConfig", "InferConfig", "ModelConfig", "TrainConfig"]
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    infer: InferConfig = field(default_factory=InferConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), **kw)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        """Unknown keys are dropped; JSON lists become tuples."""
+        def build(dc_cls, sub: Dict[str, Any]):
+            names = {f.name for f in dataclasses.fields(dc_cls)}
+            return dc_cls(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in sub.items() if k in names})
+
+        return cls(
+            model=build(ModelConfig, d.get("model", {})),
+            data=build(DataConfig, d.get("data", {})),
+            train=build(TrainConfig, d.get("train", {})),
+            infer=build(InferConfig, d.get("infer", {})),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls.from_dict(json.loads(s))
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=2))
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+
+__all__ = ["Config", "DataConfig", "InferConfig", "ModelConfig",
+           "TrainConfig"]

@@ -51,6 +51,18 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def clip_by_global_norm_(tensors, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm`` in place over every tensor of
+    ``tensors`` (scaled by max_norm / norm when norm >= max_norm; no clip
+    when ``max_norm`` <= 0); returns their global norm before the clip."""
+    norm = global_norm(tensors)
+    if max_norm and max_norm > 0:
+        coef = torch.where(norm < max_norm, torch.ones_like(norm),
+                           max_norm / norm)
+        torch._foreach_mul_(tensors, coef)
+    return norm
+
+
 class Optimizer:
     """clip_by_global_norm -> add_decayed_weights -> adam | rmsprop |
     momentum, over a dict of f32 parameters."""
@@ -83,11 +95,7 @@ class Optimizer:
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
-        norm = global_norm(g)
-        if self.clip_norm and self.clip_norm > 0:
-            coef = torch.where(norm < self.clip_norm, torch.ones_like(norm),
-                               self.clip_norm / norm)
-            torch._foreach_mul_(g, coef)
+        norm = clip_by_global_norm_(g, self.clip_norm)
         if self.weight_decay and self.weight_decay > 0:
             torch._foreach_add_(g, p, alpha=self.weight_decay)
         count = state["count"]

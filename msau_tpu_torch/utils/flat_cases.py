@@ -4,6 +4,7 @@ shared by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -259,6 +260,30 @@ FLAT_BWD_CASES = [
          else case["per_request"])
     for case in FLAT_CASES if case["op"] in _BWD_OF
     for op in _BWD_OF[case["op"]]]
+
+
+def scaled_cases(side: int, n: int, in_channels: int):
+    """The flat ops' instances of a flagship-shaped model (feat_root 8,
+    n_class 17, 4 scales, flat_scales 3) on ``side``^2 pages at batch
+    ``n`` with ``in_channels`` input planes: the serve cases of FLAT_CASES
+    scaled from 512^2 -> (forward cases, backward cases), the backward
+    cases one per kernel of each forward case's backward."""
+    fwd = []
+    for case in FLAT_CASES:
+        if not case["per_request"]:
+            continue
+        c = dict(case, n=n)
+        for k in ("h", "w", "ho", "wo"):
+            if k in c:
+                c[k] = c[k] * side // 512
+        if case["op"] == "to_nchw" or case["name"] == "dil_conv_0 stage 0":
+            c["c"] = in_channels
+        layer = re.sub(r"\d+ ch|\d+\^2|to", "", case["name"]).strip()
+        c["name"] = f"{layer} {c['c']} ch {c['h']}x{c['w']} batch {n}".strip()
+        fwd.append(c)
+    bwd = [dict(c, op=op, fwd_op=c["op"]) for c in fwd
+           if c["op"] in _BWD_OF for op in _BWD_OF[c["op"]]]
+    return fwd, bwd
 
 
 def flat_bwd_case_tensors(case: dict, rng: np.random.Generator,

@@ -257,7 +257,8 @@ def test_char_records_copy_matches(seed):
 # modules the walk below must reach (the box model, the extras, the word-
 # and feature-grid data side, metrics and io, the FUNSD tools, entry B:
 # augmentation, the pipeline, profiling, viz, the host helpers and the
-# four CLIs, and parallel/, among them)
+# four CLIs, parallel/, the held-out accuracy tools, and the end-to-end
+# demo, loaded from examples/, among them)
 NEW_PORT_MODULES = (
     "msau_tpu_torch.ops.boxconv", "msau_tpu_torch.models.msau_box",
     "msau_tpu_torch.models.extras", "msau_tpu_torch.data.wordgrid",
@@ -271,26 +272,32 @@ NEW_PORT_MODULES = (
     "msau_tpu_torch.tools.random_split",
     "msau_tpu_torch.tools.extract_training_data",
     "msau_tpu_torch.parallel", "msau_tpu_torch.parallel.sharding",
-    "msau_tpu_torch.parallel.spatial")
+    "msau_tpu_torch.parallel.spatial", "msau_tpu_torch.tools.corpus_eval",
+    "msau_tpu_torch.tools.accuracy_matrix", "end_to_end_kv_torch")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """Every module of msau_tpu_torch (the tools too), and chip_smoke,
-    imported in a fresh interpreter: neither jax nor any msau_tpu module
-    gets loaded."""
+    """Every module of msau_tpu_torch (the tools too), chip_smoke and
+    examples/end_to_end_kv_torch.py, imported in a fresh interpreter:
+    neither jax nor any msau_tpu module gets loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import msau_tpu_torch\n"
         "for m in pkgutil.walk_packages(msau_tpu_torch.__path__, "
         "'msau_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "s = importlib.util.spec_from_file_location('end_to_end_kv_torch', "
+        "'examples/end_to_end_kv_torch.py')\n"
+        "sys.modules[s.name] = importlib.util.module_from_spec(s)\n"
+        "s.loader.exec_module(sys.modules[s.name])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'msau_tpu' or "
         "m.startswith('msau_tpu.'))\n"
         "assert not bad, bad\n"
         "print(' '.join(m for m in sys.modules "
-        "if m.startswith('msau_tpu_torch')))\n")
+        "if m.startswith('msau_tpu_torch') or m == 'end_to_end_kv_torch'))"
+        "\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
