@@ -228,11 +228,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      resident attention on PHASE7_ATTN_CASES, the flat kernels and their
      backward at (b)'s instances (256^2, batch 4), f32 and bf16, and the
      CCL on (c)'s class maps against their plain versions, phase 1's
-     tolerances and the same bits on a rerun.
+     tolerances and the same bits on a rerun;
+  8. the port's last modules: (a) a seeded state dict in the layout of the
+     original PyTorch MSAU (utils/reference_weights.py) at the reference's
+     FUNSD entry-A widths (featRoot 8, scale_space_num 4, res_depth 2, 3
+     blocks, 17 classes, the serving charset's 64 tokens), migrated with
+     utils/transplant.torch_state_dict_to_flax and served through
+     KVModel.load(params=) / predict on the 512^2 bench page, f32, at
+     flat_scales 0 and 3 (the launches of phase 2, the decode tables equal
+     to the plain pipeline's, at 64x64 the card against the CPU and fs 3
+     against fs 0 within 1e-4), and one request at the reference defaults
+     (scale_space_num 6, res_depth 3); (b) the flagship train state (bs
+     16, 512^2, fs 3, bf16, phase 3's batch) after 3 steps through
+     utils/io.save_checkpoint with its config and a cg_dict, loaded by
+     load_checkpoint into a fresh Trainer's state: the states, then the
+     losses and every tensor after 2 more steps from each, equal bit for
+     bit (cuDNN's deterministic algorithms), the meta and npz as written,
+     and KVModel.load(model_weight=) serving the checkpoint; (c) the C
+     rasterizer core (msau_tpu_torch/native) in use, its records equal to
+     the numpy version's on the bench page, the 2814-line 1024^2 page and
+     the 24 entry-B pages, and the host times (this machine's CPU, median
+     of 20) of char_records and of the bench page's prepare_host, C and
+     numpy.
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
-included), 3, 4, 5 (5b and 5c), 6 (6a and 6b) and 7 (7a-7c), its
+included), 3, 4, 5 (5b and 5c), 6 (6a and 6b), 7 (7a-7c) and 8 (8a, 8b), its
 largest error against the plain version (f32, 7d's cases included), its time, the plain version's,
 the library call's (or null) and its bound; then the card's name and power
 limit; the last line is the device record.  A fuller report, with nvcc's register and
@@ -541,9 +562,12 @@ def _scaled_err(got, want):
 # (N, T, Cb, C) of the resident attention's card cases, each in f32 and
 # bf16: the flagship train step's instance (N 16) and a page's (N 1) at T =
 # 4096, ragged T, and the other widths of ops/attention.py:KERNEL_WIDTHS
+# (Cb 32, C 256: the reference defaults' deepest scale, 6 scales at
+# feat_root 8, on a 512^2 page and ragged)
 ATTN_CASES = ((16, 4096, 8, 64), (1, 4096, 8, 64), (2, 1000, 8, 64),
               (3, 66, 8, 64), (2, 300, 1, 8), (2, 300, 2, 16),
-              (1, 520, 4, 32), (1, 300, 16, 128))
+              (1, 520, 4, 32), (1, 300, 16, 128), (1, 256, 32, 256),
+              (2, 300, 32, 256))
 # f and g scaled by 100 and rounded to integers put the logits near 2e5,
 # the size the flagship's bf16 model at flat_scales 0 gives its first
 # attention, each an integer below 2^24 and so exact in any sum order (the
@@ -4037,6 +4061,452 @@ def phase7(dev):
     return counts, errs, res
 
 
+# phase 8: the port's last modules.  (a) checkpoints of the original
+# PyTorch MSAU migrated and served: the reference's FUNSD entry-A
+# hyperparameters at full width (featRoot 8, scale_space_num 4, res_depth
+# 2, 3 blocks, 17 classes, the serving charset's 64 tokens), and its
+# defaults (scale_space_num 6, res_depth 3)
+MIGRATED = dict(img_channels=64, n_class=17, scale_space_num=4, res_depth=2,
+                feat_root=8, num_blocks=3, final_act="softmax",
+                activation_name="relu")
+MIGRATED_DEFAULTS = dict(MIGRATED, scale_space_num=6, res_depth=3)
+MIGRATED_REQUESTS = 3       # timed requests a model, after a warm-up
+# the resident attention at the defaults' deepest scale on the bench page
+# (512^2 / 2^5 = 16 x 16 tokens; feat_root 8 x 2^5 = 256 channels)
+MIGRATED_ATTN = (1, 256, 32, 256)
+RICH_STEPS = (3, 2)         # steps before the checkpoint, then from each state
+NATIVE_REPEATS = 20         # host timings: the median of this many calls
+PHASE8_BUDGET_S = 40.0
+
+
+def _migrated_kv(model_kwargs, params, dev, page):
+    """A KVModel of ``model_kwargs`` (f32) with the bench charset, its
+    weights a migrated flax tree through ``load(params=)``, warmed up at
+    512 and on ``page``."""
+    from msau_tpu_torch.config import InferConfig, ModelConfig
+    from msau_tpu_torch.data.charset import Charset
+    from msau_tpu_torch.data.synth import BENCH_CHARSET
+    from msau_tpu_torch.infer.kv_model import KVModel
+
+    kv = KVModel(model_config=ModelConfig(**model_kwargs, dtype="float32"),
+                 infer_config=InferConfig(n_class=17), device=dev)
+    kv.charset = Charset(chars=" $" + BENCH_CHARSET)
+    kv.load(n_class=17, params=params)
+    kv.warmup_bucket(512)
+    kv.predict(page, return_maps=False)
+    return kv
+
+
+def _bench_page():
+    import numpy as np
+
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.synth import make_page
+
+    return page_from_label_dict(
+        make_page(np.random.default_rng(3), n_cols=5, rows_per_col=10))
+
+
+def migrated_serve(dev):
+    """8a: a seeded reference-layout state dict (utils/reference_weights.py)
+    at MIGRATED's widths, migrated with the port's torch_state_dict_to_flax
+    and served through KVModel.load(params=) / predict on the 512^2 bench
+    page, f32, at flat_scales 0 and 3: the launches per request held to
+    SERVE_PER_REQUEST, the decode tables equal to the plain pipeline's, at
+    64x64 the card's forwards against the CPU's and fs 3 against fs 0
+    within phase 2's 1e-4; then one request at the reference defaults
+    (MIGRATED_DEFAULTS, fs 0) -> (launches, record)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import ModelConfig
+    from msau_tpu_torch.utils.reference_weights import reference_state_dict
+    from msau_tpu_torch.utils.transplant import torch_state_dict_to_flax
+
+    page = _bench_page()
+    sd = reference_state_dict(ModelConfig(**MIGRATED), seed=18)
+    params = torch_state_dict_to_flax(sd, MIGRATED["scale_space_num"])
+    rec = {"reference_keys": len(sd)}
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    models, probs = {}, {}
+    for fs in (0, 3):
+        kv = models[fs] = _migrated_kv(dict(MIGRATED, flat_scales=fs), params,
+                                       dev, page)
+        label = f"migrated fs={fs} float32"
+        rec[f"fs{fs}_p50_ms"] = _serve_requests(
+            kv, page, MIGRATED_REQUESTS, SERVE_PER_REQUEST[fs], label, total,
+            phase="phase 8a")
+        rec[f"fs{fs}_check"], probs[fs] = _decode_check(
+            kv, page, 512, dev, label, phase="phase 8a")
+        print(f"[phase 8a] {label} predict p50 ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rec[f"fs{fs}_p50_ms"].items()),
+            flush=True)
+    rec["probs_fs3_vs_fs0_512_max_abs_err"] = _max_abs(probs[3], probs[0])
+    ids = np.random.default_rng(1).integers(0, 64, (1, 64, 64))
+    x = torch.from_numpy(np.eye(64, dtype=np.float32)[ids])
+    small = {}
+    for fs, kv in models.items():
+        with torch.inference_mode():
+            small[(fs, "card")] = kv.model(x.to(dev))[0].cpu()
+            small[(fs, "cpu")] = _cpu_twin(kv)(x)[0]
+    for name, a, b in (("fs0_card_vs_cpu", (0, "card"), (0, "cpu")),
+                       ("fs3_card_vs_cpu", (3, "card"), (3, "cpu")),
+                       ("fs3_vs_fs0_card", (3, "card"), (0, "card"))):
+        err = rec[f"forward_f32_64x64_{name}_max_abs_err"] = _max_abs(
+            small[a], small[b])
+        print(f"[phase 8a] migrated f32 forward at 64x64, {name}: max abs "
+              f"err {err:.3e}", flush=True)
+        if err > 1e-4:
+            raise AssertionError(f"phase 8a: migrated f32 forward at 64x64, "
+                                 f"{name}: max abs err {err}")
+    del models, small
+
+    sd = reference_state_dict(ModelConfig(**MIGRATED_DEFAULTS), seed=19)
+    rec["defaults_reference_keys"] = len(sd)
+    kv = _migrated_kv(MIGRATED_DEFAULTS, torch_state_dict_to_flax(
+        sd, MIGRATED_DEFAULTS["scale_space_num"]), dev, page)
+    label = "migrated reference defaults (6 scales, res_depth 3) fs=0 float32"
+    rec["defaults_p50_ms"] = _serve_requests(kv, page, 1, SERVE_PER_REQUEST[0],
+                                             label, total, phase="phase 8a")
+    rec["defaults_check"], _ = _decode_check(kv, page, 512, dev, label,
+                                             phase="phase 8a")
+    rec["wide_attention"] = _wide_attention_times(dev)
+    print(f"[phase 8a] migrated: {rec['reference_keys']} and "
+          f"{rec['defaults_reference_keys']} reference keys; f32 probs at "
+          f"512^2, fs=3 vs fs=0: max abs err "
+          f"{rec['probs_fs3_vs_fs0_512_max_abs_err']:.3e}", flush=True)
+    del kv
+    torch.cuda.empty_cache()
+    return total, rec
+
+
+def _wide_attention_times(dev):
+    """The resident attention's kernels at MIGRATED_ATTN (the width the
+    reference defaults need), f32 and bf16: device ms of the forward and
+    the backward beside their plain versions' and bounds -> record."""
+    import torch
+
+    from msau_tpu_torch.ops.attention import (
+        resident_attention_bwd_cuda,
+        resident_attention_bwd_plain,
+        resident_attention_cuda,
+        resident_attention_plain_stats,
+    )
+
+    n, t, cb, c = MIGRATED_ATTN
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f, g, h, dout = _attention_tensors(dev, n, t, cb, c, dtype)
+        _, m, l = resident_attention_cuda(f, g, h)
+        size = f.element_size()
+        rec = out[str(dtype).split(".")[-1]] = {
+            "fwd_ms": _device_time(lambda: resident_attention_cuda(f, g, h),
+                                   10)[0],
+            "fwd_plain_ms": _device_time(
+                lambda: resident_attention_plain_stats(f, g, h), 10)[0],
+            "fwd_bound": _attention_bound("resident_attention_fwd", n, t, cb,
+                                          c, size),
+            "bwd_ms": _device_time(lambda: resident_attention_bwd_cuda(
+                f, g, h, m, l, dout), 10)[0],
+            "bwd_plain_ms": _device_time(lambda: resident_attention_bwd_plain(
+                f, g, h, m, l, dout), 10)[0],
+            "bwd_bound": _attention_bound("resident_attention_bwd", n, t, cb,
+                                          c, size)}
+        print(f"[phase 8a] resident attention at (N, T, Cb, C) = "
+              f"{MIGRATED_ATTN}, {dtype}: forward {rec['fwd_ms']:.4f} ms "
+              f"(plain {rec['fwd_plain_ms']:.4f}, bound "
+              f"{rec['fwd_bound'][0]:.4f}), backward {rec['bwd_ms']:.4f} ms "
+              f"(plain {rec['bwd_plain_ms']:.4f}, bound "
+              f"{rec['bwd_bound'][0]:.4f})", flush=True)
+    return out
+
+
+def _state_tensors(state):
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    for k, v in state.opt_state.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{n}": t for n, t in v.items()})
+    return out
+
+
+def _same_state(a, b, label):
+    """Raise unless train states ``a`` and ``b`` are equal in bits (every
+    tensor, its dtype and device; the step and the update count)."""
+    import torch
+
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{label}: the states hold other tensors")
+    for k in ta:
+        if not (ta[k].dtype == tb[k].dtype and ta[k].device == tb[k].device
+                and torch.equal(ta[k], tb[k])):
+            raise AssertionError(f"{label}: {k} differs")
+    if (a.step, a.opt_state["count"]) != (b.step, b.opt_state["count"]):
+        raise AssertionError(f"{label}: step or update count differs")
+
+
+def rich_checkpoint(dev):
+    """8b: the flagship train state (batch 16, 512^2, flat_scales 3, bf16,
+    phase 3's batch and optimizer) after RICH_STEPS[0] steps through
+    save_checkpoint with its config and a small cg_dict, then
+    load_checkpoint into a fresh Trainer's state (another seed) on the card:
+    the states equal in bits, the meta and the npz equal what was written,
+    RICH_STEPS[1] more steps from each equal in losses and every tensor;
+    then KVModel.load(model_weight=) serves the checkpoint on the bench
+    page (the launches of a request, the decode tables equal to the plain
+    pipeline's).  The steps run on cuDNN's deterministic algorithms (the
+    default ones give other bits on each call) -> (launches, record)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import InferConfig, ModelConfig, TrainConfig
+    from msau_tpu_torch.data.charset import Charset
+    from msau_tpu_torch.data.synth import BENCH_CHARSET, make_structured_batch
+    from msau_tpu_torch.infer.kv_model import KVModel
+    from msau_tpu_torch.ops import cuda_lib
+    from msau_tpu_torch.train.trainer import Trainer
+    from msau_tpu_torch.utils.io import load_checkpoint, save_checkpoint
+
+    bs, hw = TRAIN_BATCH
+    x, y = make_structured_batch(np.random.default_rng(0), bs, hw, 17, 64)
+    mc = ModelConfig(**FLAGSHIP, flat_scales=3, dtype="bfloat16")
+    tcfg = TrainConfig(learning_rate=1e-4, lr_decay_staircase=False)
+    root = cuda_lib.BUILD_DIR.parent / "phase8_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    path = str(root / "flagship")
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    rec = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainers, batches = [], []
+        for seed in (0, 1):
+            tr = Trainer(mc, tcfg, device=dev)
+            tr.init_state(x, seed=seed)
+            batch = tr.put_batch({"input": x, "label": y,
+                                  "valid": np.ones(y.shape, bool)})
+            batch["input"] = batch["input"].to(tr.model.compute_dtype)
+            trainers.append(tr)
+            batches.append(batch)
+        tr, fresh = trainers
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(RICH_STEPS[0]):
+            tr.state, m = tr.train_step(tr.state, batches[0])
+            losses.append(m["loss"])
+        cg = {"losses": torch.stack(losses).float().cpu().numpy(),
+              "label_counts": np.bincount(y.ravel(), minlength=17),
+              "absent": None}
+        config = dataclasses.asdict(mc)
+        t0 = time.perf_counter()
+        save_checkpoint(path, tr.state, config=config, cg_dict=cg,
+                        epoch=RICH_STEPS[0])
+        rec["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, meta = load_checkpoint(path, fresh.state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        rec["load_s"] = time.perf_counter() - t0
+        if state is not fresh.state:
+            raise AssertionError("phase 8b: load_checkpoint returned another "
+                                 "state than its template")
+        _same_state(fresh.state, tr.state, "phase 8b after the load")
+        if meta != {"epoch": RICH_STEPS[0],
+                    "config": json.loads(json.dumps(config))}:
+            raise AssertionError(f"phase 8b: meta {meta} differs")
+        with np.load(path + ".cg.npz") as z:
+            if sorted(z.files) != ["label_counts", "losses"] or not all(
+                    np.array_equal(z[k], cg[k]) for k in z.files):
+                raise AssertionError("phase 8b: the cg npz differs")
+        runs = []
+        for t, batch in ((tr, batches[0]), (fresh, batches[1])):
+            run = []
+            for _ in range(RICH_STEPS[1]):
+                t.state, m = t.train_step(t.state, batch)
+                run.append(m["loss"].float().cpu().numpy().tobytes())
+            runs.append(run)
+        counts = ops.launch_counts()
+        if runs[0] != runs[1]:
+            raise AssertionError("phase 8b: the losses after the load differ")
+        _same_state(fresh.state, tr.state,
+                    f"phase 8b after {RICH_STEPS[1]} more steps")
+        n_steps = RICH_STEPS[0] + 2 * RICH_STEPS[1]
+        for name, n in counts.items():
+            if n != PER_STEP[3].get(name, 0) * n_steps:
+                raise AssertionError(f"phase 8b: {name} launched {n} times in "
+                                     f"{n_steps} steps")
+            total[name] += n
+        rec.update(steps=n_steps, losses=[float(v) for v in cg["losses"]],
+                   file_mib=os.path.getsize(os.path.join(
+                       path, "train_state.pt")) / 2**20)
+        del trainers, batches, tr, fresh, state
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    page = _bench_page()
+    kv = KVModel(model_config=mc, infer_config=InferConfig(n_class=17),
+                 device=dev)
+    kv.charset = Charset(chars=" $" + BENCH_CHARSET)
+    kv.load(n_class=17, model_weight=path)
+    kv.predict(page, return_maps=False)
+    label = "rich checkpoint fs=3 bfloat16"
+    rec["serve_p50_ms"] = _serve_requests(kv, page, 1, SERVE_PER_REQUEST[3],
+                                          label, total, phase="phase 8b")
+    rec["serve_check"], _ = _decode_check(kv, page, 512, dev, label,
+                                          phase="phase 8b")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[phase 8b] {n_steps} steps: states, losses and parameters equal "
+          f"bit for bit across save / load ({rec['file_mib']:.2f} MiB, save "
+          f"{rec['save_s']:.3f} s, load {rec['load_s']:.3f} s); losses "
+          f"{rec['losses']}", flush=True)
+    del kv
+    torch.cuda.empty_cache()
+    return total, rec
+
+
+def _captured_records(fn, *args, **kwargs):
+    """Run ``fn`` with ``data.native.char_records`` recording its inputs ->
+    [(line_boxes, text_offsets, char_ids, cap_factor), ...]."""
+    from msau_tpu_torch.data import native as dn
+
+    seen, orig = [], dn.char_records
+
+    def spy(*a):
+        seen.append(a)
+        return orig(*a)
+
+    dn.char_records = spy
+    try:
+        fn(*args, **kwargs)
+    finally:
+        dn.char_records = orig
+    return seen
+
+
+def _median_ms(fns, n=NATIVE_REPEATS):
+    """Host ms of each of ``fns`` (name -> callable), the median of ``n``
+    calls, the functions called in turn so that a drift of the host's
+    clock falls on each alike -> {name: ms}."""
+    import statistics
+
+    times = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def native_core():
+    """8c: the C rasterizer core (msau_tpu_torch.native) must be in use
+    (native_available() True); its records equal the numpy version's on
+    the inputs the rasterizer gives it for the 512^2 bench page, the
+    2814-line 1024^2 page and the 24 entry-B pages; host times (this
+    machine's CPU, the median of NATIVE_REPEATS calls) of char_records and
+    of the bench page's host prep (prepare_host), with the C core and with
+    the numpy version in its place -> record."""
+    import numpy as np
+
+    from msau_tpu_torch import native
+    from msau_tpu_torch.config import InferConfig
+    from msau_tpu_torch.data import native as dn
+    from msau_tpu_torch.data.charset import Charset
+    from msau_tpu_torch.data.pages import page_from_label_dict
+    from msau_tpu_torch.data.rasterize import build_chargrid_programs
+    from msau_tpu_torch.data.synth import BENCH_CHARSET, make_page
+    from msau_tpu_torch.infer.kv_model import prepare_host
+
+    if not native.native_available():
+        raise AssertionError("phase 8c: the C rasterizer core is not in use")
+    serve_cs = Charset(chars=" $" + BENCH_CHARSET)
+    scale = InferConfig().scale
+    bench = _bench_page()
+    big = page_from_label_dict(
+        make_page(np.random.default_rng(3), n_cols=10, rows_per_col=20))
+    rng = np.random.default_rng(5)      # entry B's corpus: write_corpus's draws
+    entry_b = [page_from_label_dict(make_page(rng, n_cols=5, rows_per_col=10))
+               for _ in range(ENTRY_B_PAGES)]
+    train_cs = Charset.from_corpus([t for p in entry_b for t in p.texts])
+    inputs = {"bench 512^2": _captured_records(prepare_host, bench, serve_cs,
+                                               scale),
+              "1024^2 (2814 lines)": _captured_records(prepare_host, big,
+                                                        serve_cs, scale)}
+    inputs["entry B (24 pages)"] = [
+        a for p in entry_b for a in _captured_records(
+            build_chargrid_programs, p, train_cs, scale_min=3.0,
+            scale_max=3.0, label_style="underline")]
+    rec = {"library": dict(native.BUILD_INFO), "records": {}}
+    for name, calls in inputs.items():
+        n = 0
+        for a in calls:
+            got, want = native.char_records(*a), dn.char_records_plain(*a)
+            if not all(g.dtype == w.dtype and np.array_equal(g, w)
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"phase 8c: {name}: the C core's "
+                                     "records differ from numpy's")
+            n += len(got[0])
+        rec["records"][name] = {"calls": len(calls), "records": n}
+    host = {}
+    for name in ("bench 512^2", "1024^2 (2814 lines)"):
+        a = inputs[name][0]
+        host[f"char_records {name}"] = _median_ms({
+            "c_ms": lambda: native.char_records(*a),
+            "numpy_ms": lambda: dn.char_records_plain(*a)})
+    # the bench page's host prep with the dispatch (the C core) and with
+    # the numpy version in its place
+    dispatch = dn.char_records
+
+    def prep(records):
+        dn.char_records = records
+        try:
+            prepare_host(bench, serve_cs, scale)
+        finally:
+            dn.char_records = dispatch
+
+    host["prepare_host bench 512^2"] = _median_ms({
+        "c_ms": lambda: prep(dispatch),
+        "numpy_ms": lambda: prep(dn.char_records_plain)})
+    rec["host_ms"] = host
+    print(f"[phase 8c] the C core ({rec['library'].get('path')}): records "
+          f"equal numpy's on " + ", ".join(
+              f"{k} ({v['records']} records)"
+              for k, v in rec["records"].items()), flush=True)
+    for k, v in host.items():
+        print(f"[phase 8c] host CPU of this machine, median of "
+              f"{NATIVE_REPEATS}: {k}: C {v['c_ms']:.4f} ms, numpy "
+              f"{v['numpy_ms']:.4f} ms", flush=True)
+    return rec
+
+
+def phase8(dev):
+    """Phase 8, the port's last modules -> (launches of 8a and 8b, record
+    with the seconds of each sub-phase)."""
+    seconds, res = {}, {}
+
+    def sub(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase {name}] {seconds[name]:.1f} s", flush=True)
+        return got
+
+    c_a, res["migrated_serve"] = sub("8a", migrated_serve, dev)
+    c_b, res["rich_checkpoint"] = sub("8b", rich_checkpoint, dev)
+    res["native_core"] = sub("8c", native_core)
+    res["seconds"] = seconds
+    total = sum(seconds.values())
+    print(f"[phase 8] {total:.1f} s (budget {PHASE8_BUDGET_S:.0f} s)",
+          flush=True)
+    return {k: c_a[k] + c_b[k] for k in c_a}, res
+
+
 def main() -> int:
     import torch
 
@@ -4061,6 +4531,9 @@ def main() -> int:
     print(f"[phase 0] kernels built in {lib.build_seconds:.1f} s "
           f"({time.perf_counter() - t0:.1f} s with loading): {lib.path.name}",
           flush=True)
+    from msau_tpu_torch import native
+    print(f"[phase 0] rasterizer core: native_available() "
+          f"{native.native_available()}, {native.BUILD_INFO}", flush=True)
 
     seconds = {}
 
@@ -4139,8 +4612,11 @@ def main() -> int:
     for name, rec in phase7_errs.items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
                                            rec["max_abs_err"])
+    phase8_counts, phase8_res = timed("phase 8 last modules", phase8, dev)
+    print(f"[phase 8] launches: {phase8_counts}", flush=True)
     launches = {k: counts[k] + train_counts[k] + phase4[k] + phase5[k]
-                + phase6[k] + phase7_counts[k] for k in counts}
+                + phase6[k] + phase7_counts[k] + phase8_counts[k]
+                for k in counts}
 
     sources = {
         "paint": ("msau_tpu_torch/csrc/paint.cu",
@@ -4180,12 +4656,14 @@ def main() -> int:
               "launches": {"serve": counts, "train": train_counts,
                            "variants": phase4, "entry_b": phase5,
                            "parallel": phase6,
-                           "trained_end_to_end": phase7_counts},
+                           "trained_end_to_end": phase7_counts,
+                           "last_modules": phase8_counts},
               "predict_p50_ms": timings, "train": train,
               "variants": variants, "entry_a_seconds": entry_seconds,
               "entry_b": entry_b_res, "spatial_shards": sp_res,
               "world_of_one": one_res,
               "trained_end_to_end": {**phase7_res, "kernels": phase7_errs},
+              "last_modules": phase8_res,
               "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)

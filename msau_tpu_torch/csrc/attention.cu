@@ -57,7 +57,7 @@
 //      warp computes its 32 x 16 score tiles (mma m16n8k8, or FFMA in f32),
 //      keeps an online (max, sum-exp) per row, merges its quad's lanes and
 //      then the block's warps in a fixed order, and writes m, l.
-//  (b) accum_kernel: a block owns 32 wj output rows j (16 when C = 128; a
+//  (b) accum_kernel: a block owns 32 wj output rows j (16 when C >= 128; a
 //      warp 32 or 16); the other 8 / wj warps of the block split the summed
 //      rows i.  Per staged chunk of 128 rows i (g, h, m, l; each row's
 //      softmax constants made once per chunk), a warp forms the transposed
@@ -542,6 +542,7 @@ int dispatch(const void* f, const void* g, const void* h, void* out, void* m, vo
   MSAU_ATTN_CASE(4, 32)
   MSAU_ATTN_CASE(8, 64)
   MSAU_ATTN_CASE(16, 128)
+  MSAU_ATTN_CASE(32, 256)
 #undef MSAU_ATTN_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -34,11 +34,11 @@
 // (sized from the slots the occupancy API reports, msau_attention_bwd_slots),
 // and one combine launch; no float atomics, so a rerun gives the same bits.
 //  (a) rows_kernel: block (p, n) takes the row tiles p, p + per_image, ...
-//      of image n, 128 rows i (64 when C = 128; a warp 32 or 16).  Its
+//      of image n, 128 rows i (64 when C >= 128; a warp 32 or 16).  Its
 //      warps hold their rows' softmax constants and score fragments in
-//      registers and sweep the keys j twice, 64 at a time staged in shared
-//      memory (bf16: cp.async, double-buffered; f32: one chunk at a time,
-//      split into parts on the way in):
+//      registers and sweep the keys j twice, 64 at a time (32 at C = 256)
+//      staged in shared memory (bf16: cp.async, double-buffered; f32: one
+//      chunk at a time, split into parts on the way in):
 //        sweep 1: the score tile, a = exp(s - m) / l, and with a as the A
 //                 operand (mma_a_from_c) dh += a dout; then rho = h . dh in
 //                 the fragments (a quad's lanes, fixed order), dh written;
@@ -73,7 +73,6 @@ using namespace msau::attn;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKeys = 64;   // keys j staged per step
 
 template <typename T, typename TD, int CB, int C>
 struct Shape {
@@ -83,6 +82,10 @@ struct Shape {
   static constexpr int P = F32 ? 3 : 1;
   static constexpr int MT = C >= 128 ? 1 : 2;        // m16 tiles of rows i per warp
   static constexpr int BI = kWarps * 16 * MT;        // rows i per tile
+  // keys j staged per step: 32 at C = 256, whose f32 chunk of 64 keys
+  // (dout's three parts) with h's parts would pass the 227 KB of shared
+  // memory a block may hold
+  static constexpr int KEYS = C >= 256 ? 32 : 64;
   static constexpr int NB = K::KB / 8;               // n8 tiles of Cb
   static constexpr int KT = W::KC / 16;              // k16 steps of C
   // shared memory, bytes.  Per staged chunk of keys: f (its P parts, rows
@@ -91,16 +94,16 @@ struct Shape {
   // parts are made on the way in).  Then h's parts (f32 path) and the
   // warps' df.
   static constexpr int NBUF = F32 ? 1 : 2;
-  static constexpr int FPLANE = kKeys * K::KS;       // elements
-  static constexpr int DPLANE = kKeys * W::CS;
+  static constexpr int FPLANE = KEYS * K::KS;        // elements
+  static constexpr int DPLANE = KEYS * W::CS;
   static constexpr int HPLANE = BI * W::CS;
   static constexpr int FB = 0;
   static constexpr int FF = FB + P * FPLANE * 2;
-  static constexpr int DO = FF + (F32 ? kKeys * K::CF * 4 : 0);
+  static constexpr int DO = FF + (F32 ? KEYS * K::CF * 4 : 0);
   static constexpr int BUF = DO + P * DPLANE * 2;
   static constexpr int HS = NBUF * BUF;
-  static constexpr int DF = HS + (F32 ? P * HPLANE * 2 : 0);  // [warp][kKeys][KB] f32
-  static constexpr int TOTAL = DF + kWarps * kKeys * K::KB * 4;
+  static constexpr int DF = HS + (F32 ? P * HPLANE * 2 : 0);  // [warp][KEYS][KB] f32
+  static constexpr int TOTAL = DF + kWarps * KEYS * K::KB * 4;
 };
 
 template <typename T, typename TD, int CB, int C>
@@ -112,7 +115,7 @@ rows_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restric
   using S = Shape<T, TD, CB, C>;
   using K = Keys<CB>;
   using W = Cols<C>;
-  constexpr int P = S::P, MT = S::MT, NB = S::NB;
+  constexpr int P = S::P, MT = S::MT, NB = S::NB, kKeys = S::KEYS;
   constexpr bool F32 = S::F32;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* s_h = reinterpret_cast<bf16*>(smem + S::HS);
@@ -516,7 +519,7 @@ int launch(const void* f, const void* g, const void* h, const void* dout, const 
 }
 
 // the widths of ops/attention.py:KERNEL_WIDTHS (Cb = max(C / 8, 1))
-#define MSAU_ATTN_BWD_WIDTHS(X) X(1, 8) X(2, 16) X(4, 32) X(8, 64) X(16, 128)
+#define MSAU_ATTN_BWD_WIDTHS(X) X(1, 8) X(2, 16) X(4, 32) X(8, 64) X(16, 128) X(32, 256)
 
 template <typename T, typename TD>
 int dispatch(const void* f, const void* g, const void* h, const void* dout, const void* m,

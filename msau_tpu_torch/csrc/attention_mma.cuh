@@ -39,12 +39,13 @@ namespace attn {
 
 using bf16 = __nv_bfloat16;
 
-// Cb padded to the score product's k (8 or 16) and the row strides of the
-// staged operands, in elements: bf16 rows for ldmatrix (ldsm_stride), f32
-// rows of Cb (16-byte loads where Cb % 4 == 0).
+// Cb padded to the score product's k (8, or a multiple of 16: 16 up to Cb
+// 16, 32 at Cb 32) and the row strides of the staged operands, in
+// elements: bf16 rows for ldmatrix (ldsm_stride), f32 rows of Cb (16-byte
+// loads where Cb % 4 == 0).
 template <int CB>
 struct Keys {
-  static constexpr int KB = CB <= 8 ? 8 : 16;
+  static constexpr int KB = CB <= 8 ? 8 : (CB + 15) / 16 * 16;
   static constexpr int KS = ldsm_stride(KB);
   static constexpr int CF = (CB + 3) / 4 * 4;
 };
@@ -256,8 +257,8 @@ __device__ __forceinline__ float softmax_a(float s, const RowSoftmax& r) {
 }
 
 // Keys rows whose bytes are whole 16-byte pieces of a staged row, which
-// stage_key_rows copies asynchronously: bf16 at Cb 8 or 16 (rows of KS),
-// f32 at Cb 4, 8 or 16 (rows of CF = Cb).
+// stage_key_rows copies asynchronously: bf16 at Cb 8, 16 or 32 (rows of
+// KS), f32 at Cb 4, 8, 16 or 32 (rows of CF = Cb).
 template <typename T, int CB>
 constexpr bool kAsyncKeys = CB * (int)sizeof(T) % 16 == 0;
 
@@ -325,12 +326,16 @@ __device__ __forceinline__ void score_mma(float (&s)[MT][2][4],
     b[0][0] = r[0];
     b[0][1] = r[1];
   } else {
-    unsigned r[4];
-    ldsm_x4(r, p + 8 * (lane >> 4));
-    b[0][0] = r[0];
-    b[0][1] = r[1];
-    b[1][0] = r[2];
-    b[1][1] = r[3];
+    // one x4 load per 16 columns of k: k8 steps 2 kh and 2 kh + 1
+#pragma unroll
+    for (int kh = 0; kh < K::KB / 16; ++kh) {
+      unsigned r[4];
+      ldsm_x4(r, p + 16 * kh + 8 * (lane >> 4));
+      b[2 * kh][0] = r[0];
+      b[2 * kh][1] = r[1];
+      b[2 * kh + 1][0] = r[2];
+      b[2 * kh + 1][1] = r[3];
+    }
   }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)

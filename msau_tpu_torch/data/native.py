@@ -1,10 +1,11 @@
-"""Per-character box records of the rasterizer and of the word grid, in
-numpy.
+"""Per-character box records of the rasterizer and of the word grid.
 
-The port's copies of the numpy paths of ``msau_tpu.native.char_records``
-(``_char_records_numpy``) and ``msau_tpu.native.wordgrid_records``: the JAX
-package also has a C core for them, which the port does not build.
-``tests/test_torch_host_copies.py`` pins each to its original.
+``char_records`` and ``wordgrid_records`` run the C core
+(``msau_tpu_torch.native``, built at first use) where it is available and
+their numpy versions (``*_plain``) otherwise, as the JAX package's
+``msau_tpu.native`` does; the numpy versions are the port's copies of
+that package's numpy paths and the C core's oracle in the tests
+(``tests/test_torch_host_copies.py``, ``tests/test_torch_native.py``).
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ from typing import Tuple
 
 import numpy as np
 
+from msau_tpu_torch import native
 
-def char_records(line_boxes: np.ndarray, text_offsets: np.ndarray,
-                 char_ids: np.ndarray, cap_factor: float
-                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+
+def char_records_plain(line_boxes: np.ndarray, text_offsets: np.ndarray,
+                       char_ids: np.ndarray, cap_factor: float
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """line_boxes [L, 4] int32 scaled (x1, y1, x2, y2), text_offsets [L+1],
     char_ids [total] -> (records [N, 5] (y1, y2, sx, ex, id), line_idx [N]
     1-based, char_pos [N] 1-based)."""
@@ -44,9 +47,10 @@ def char_records(line_boxes: np.ndarray, text_offsets: np.ndarray,
     return rec, (line_of + 1).astype(np.int32), (pos + 1).astype(np.int32)
 
 
-def wordgrid_records(word_boxes: np.ndarray, text_offsets: np.ndarray,
-                     char_ids: np.ndarray, min_x: float, min_y: float,
-                     min_scale: float, min_h: float) -> np.ndarray:
+def wordgrid_records_plain(word_boxes: np.ndarray,
+                           text_offsets: np.ndarray, char_ids: np.ndarray,
+                           min_x: float, min_y: float, min_scale: float,
+                           min_h: float) -> np.ndarray:
     """word_boxes [W, 4] float64 (x, y, w, h), text_offsets [W+1], char_ids
     [total] -> records [total, 5] (y1, y2, x1, x2, id) in cell units: each
     word's chars side by side, ``max(nw // len, 1)`` cells wide."""
@@ -66,3 +70,26 @@ def wordgrid_records(word_boxes: np.ndarray, text_offsets: np.ndarray,
     return np.stack(
         [ny[word_of], ny[word_of] + nh[word_of], sx, sx + pcw[word_of],
          char_ids], axis=1).astype(np.int32)
+
+
+def char_records(line_boxes: np.ndarray, text_offsets: np.ndarray,
+                 char_ids: np.ndarray, cap_factor: float
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``char_records_plain``'s records, from the C core where it is
+    available."""
+    if native.native_available():
+        return native.char_records(line_boxes, text_offsets, char_ids,
+                                   cap_factor)
+    return char_records_plain(line_boxes, text_offsets, char_ids, cap_factor)
+
+
+def wordgrid_records(word_boxes: np.ndarray, text_offsets: np.ndarray,
+                     char_ids: np.ndarray, min_x: float, min_y: float,
+                     min_scale: float, min_h: float) -> np.ndarray:
+    """``wordgrid_records_plain``'s records, from the C core where it is
+    available."""
+    args = (word_boxes, text_offsets, char_ids, min_x, min_y, min_scale,
+            min_h)
+    if native.native_available():
+        return native.wordgrid_records(*args)
+    return wordgrid_records_plain(*args)

@@ -48,7 +48,7 @@ from msau_tpu_torch.ops.precision import wide_dtype
 
 # (Cb, C) pairs the kernel is instantiated for: the model's projections
 # have Cb = max(C // 8, 1)
-KERNEL_WIDTHS = ((1, 8), (2, 16), (4, 32), (8, 64), (16, 128))
+KERNEL_WIDTHS = ((1, 8), (2, 16), (4, 32), (8, 64), (16, 128), (32, 256))
 
 
 def _rounded_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -165,7 +165,7 @@ resident_attention_cuda.launches = 0
 
 def bwd_row_block(c: int) -> int:
     """Query rows per tile of the backward kernel (``Shape::BI`` in
-    ``csrc/attention_bwd.cu``: 4 warps of 32 rows, of 16 when C = 128)."""
+    ``csrc/attention_bwd.cu``: 4 warps of 32 rows, of 16 when C >= 128)."""
     return 64 if c >= 128 else 128
 
 

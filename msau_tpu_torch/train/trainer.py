@@ -42,7 +42,7 @@ from msau_tpu_torch.models.msau import MSAUWrapper, build_model
 from msau_tpu_torch.parallel import sharding as psh
 from msau_tpu_torch.train.loss import masked_cross_entropy, unet_loss
 from msau_tpu_torch.train.optimizer import Optimizer, make_optimizer
-from msau_tpu_torch.utils.checkpoint import CHECKPOINT_FILE
+from msau_tpu_torch.utils.checkpoint import read_state, write_state
 
 
 @dataclasses.dataclass
@@ -346,39 +346,20 @@ class Trainer:
     # checkpoints: torch.save of the full train state, written synchronously
     # ------------------------------------------------------------------
     def save(self, path: str, wait: bool = False) -> None:
-        """Write the train state to ``path/train_state.pt`` (the directory
-        is created; the file is replaced atomically).  The write is
-        synchronous, so ``wait`` has nothing to wait for."""
+        """Write the train state to ``path/train_state.pt``
+        (``utils.checkpoint.write_state``: the directory is created, the
+        file replaced atomically).  The write is synchronous, so ``wait``
+        has nothing to wait for."""
         del wait
-        os.makedirs(path, exist_ok=True)
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
-        st = self.state
-        blob = {"step": st.step, "params": cpu(st.params),
-                "opt_state": {k: (cpu(v) if isinstance(v, dict) else v)
-                              for k, v in st.opt_state.items()}}
-        dst = os.path.join(path, CHECKPOINT_FILE)
-        tmp = f"{dst}.{os.getpid()}.tmp"
-        torch.save(blob, tmp)
-        os.replace(tmp, dst)
+        write_state(path, self.state)
 
     def wait_for_checkpoints(self) -> None:
         """Checkpoints are written synchronously: nothing is pending."""
 
     def restore(self, path: str) -> TrainState:
         """Load a ``save``d state into the current one, in place (the
-        model's parameters stay the state's)."""
+        model's parameters stay the state's; ``utils.checkpoint.read_state``
+        raises on a key or shape that differs)."""
         if self.state is None:
             raise RuntimeError("init_state() before restore, for structure")
-        blob = torch.load(os.path.join(path, CHECKPOINT_FILE),
-                          map_location="cpu", weights_only=True)
-        with torch.no_grad():
-            for k, v in self.state.params.items():
-                v.copy_(blob["params"][k])
-            for k, v in self.state.opt_state.items():
-                if isinstance(v, dict):
-                    for name, buf in v.items():
-                        buf.copy_(blob["opt_state"][k][name])
-                else:
-                    self.state.opt_state[k] = blob["opt_state"][k]
-        self.state.step = blob["step"]
-        return self.state
+        return read_state(path, self.state)

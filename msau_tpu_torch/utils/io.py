@@ -1,14 +1,24 @@
-"""Checkpoint naming, list reading and CSV reports (port of the host half
-of ``msau_tpu.utils.io``; checkpoints themselves are ``Trainer.save`` and
-``utils.checkpoint``).  Naming follows the reference's io_utils scheme:
-``<ckptdir>/<dataset>[_<name>]_<method>_h<hidden>_o<out>/<epoch>``.
+"""Checkpoint naming, rich checkpoints, list reading and CSV reports (port
+of ``msau_tpu.utils.io``).  Naming follows the reference's io_utils
+scheme: ``<ckptdir>/<dataset>[_<name>]_<method>_h<hidden>_o<out>/<epoch>``.
+
+A rich checkpoint (``save_checkpoint`` / ``load_checkpoint``) is the
+train state where ``Trainer.save`` writes it (``path/train_state.pt``,
+``utils.checkpoint``), a JSON sidecar ``path + ".meta.json"`` with the
+epoch and the config, and ``path + ".cg.npz"`` of auxiliary arrays: the
+JAX package's names and contents (it stores the state with orbax).
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from msau_tpu_torch.utils.checkpoint import read_state, write_state
 
 
 def gen_prefix(dataset: str, method: str, hidden_dim: int, output_dim: int,
@@ -27,6 +37,42 @@ def create_filename(ckptdir: str, prefix: str, epoch: Optional[int] = None) -> s
     os.makedirs(d, exist_ok=True)
     name = str(epoch) if epoch is not None else "best"
     return os.path.join(d, name)
+
+
+def save_checkpoint(
+    path: str,
+    state,
+    config: Optional[Dict[str, Any]] = None,
+    cg_dict: Optional[Dict[str, Any]] = None,
+    epoch: int = -1,
+) -> None:
+    """Full checkpoint: the train state (``path/train_state.pt``), a JSON
+    sidecar (epoch, config) and, when ``cg_dict`` holds any, an npz of its
+    arrays that are not None."""
+    path = os.path.abspath(path)
+    write_state(path, state)
+    meta = {"epoch": epoch, "config": config or {}}
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta, f)
+    if cg_dict:
+        np.savez_compressed(
+            path + ".cg.npz",
+            **{k: np.asarray(v) for k, v in cg_dict.items() if v is not None},
+        )
+
+
+def load_checkpoint(path: str, state_template):
+    """-> (state, meta): the saved train state loaded into
+    ``state_template`` in place (the template's devices and dtypes; a key
+    or shape that differs raises ``ValueError``), and the sidecar's
+    ``{"epoch", "config"}``, or ``{}`` where there is none."""
+    path = os.path.abspath(path)
+    state = read_state(path, state_template)
+    meta = {}
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    return state, meta
 
 
 def read_image_list(path: str, prefix: Optional[str] = None) -> List[str]:

@@ -19,10 +19,19 @@ one to one: ``net/block_0/down/dil_conv_0/Conv_0/kernel`` is
 The flax side is a nested dict of numpy arrays, with or without the outer
 ``{"params": ...}`` (and ``"batch_stats"`` beside it); the torch side is a
 state_dict of tensors.
+
+``torch_state_dict_to_flax`` migrates a checkpoint of the original PyTorch
+MSAU (its ``MSAUWrapper`` state_dict, ``msau_net.blocks.{b}...`` keys,
+converted to numpy) into the flax tree, exactly as the JAX package's
+``utils/transplant.py`` does: conv weights ``[out, in, kh, kw]`` -> HWIO,
+``ConvTranspose2d`` weights ``[in, out, kh, kw]`` -> the spatially flipped
+HWIO kernel.  Serve the result with ``KVModel.load(params=...)``, which
+takes a flax tree through ``flax_to_torch``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -106,3 +115,107 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(v)
     return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+# ---------------------------------------------------------------------------
+# migration of the original PyTorch MSAU's checkpoints (numpy only)
+# ---------------------------------------------------------------------------
+_PREFIX = "msau_net."
+
+# reference key pattern (suffix after "msau_net.blocks.{b}.") -> flax path
+# template relative to "net/block_{b}".  {l}=scale layer, {r}=res conv index.
+_RULES = [
+    (re.compile(r"downsamplingblock\.conv1s\.(\d+)\.conv$"),
+     "down/dil_conv_{0}/Conv_0", "conv"),
+    (re.compile(r"downsamplingblock\.conv_res_list\.(\d+)\.conv_res_list\.(\d+)\.custom_conv$"),
+     "down/res_block_{0}/ConvBnLrnDrop_{1}/Conv_0", "conv"),
+    (re.compile(r"downsamplingblock\.conv1_1s\.(\d+)\.custom_conv$"),
+     "down/couple_conv_{0}/Conv_0", "conv"),
+    (re.compile(r"downsamplingblock\.layer_attentions\.attention_block\.([fgh])\.conv$"),
+     "down/attention_{deepest}/{0}", "conv"),
+    (re.compile(r"upsamplingblock\.deconvs\.(\d+)\.conv$"),
+     "up/deconv_{0}", "deconv"),
+    (re.compile(r"upsamplingblock\.conv1s\.(\d+)\.custom_conv$"),
+     "up/merge_conv_{0}/Conv_0", "conv"),
+    (re.compile(r"upsamplingblock\.conv_res_list\.(\d+)\.conv_res_list\.(\d+)\.custom_conv$"),
+     "up/res_block_{0}/ConvBnLrnDrop_{1}/Conv_0", "conv"),
+    (re.compile(r"upsamplingblock\.conv1_1s\.(\d+)\.custom_conv$"),
+     "up/couple_conv_{0}/Conv_0", "conv"),
+]
+
+_BLOCK_RE = re.compile(r"^blocks\.(\d+)\.(.*)$")
+_END_RE = re.compile(r"^end_convs\.(\d+)\.custom_conv$")
+
+
+def _conv_kernel(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+
+def _deconv_kernel(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.flip(w, (2, 3)).transpose(2, 3, 0, 1))
+
+
+def _insert(tree: Dict, path: str, leaf_name: str, value: np.ndarray) -> None:
+    node = tree
+    for part in path.split("/"):
+        node = node.setdefault(part, {})
+    node[leaf_name] = value
+
+
+def torch_state_dict_to_flax(
+    state_dict: Mapping[str, np.ndarray], scale_space_num: int
+) -> Dict:
+    """Build ``{"params": {...}}`` for MSAUWrapper from a reference
+    state_dict converted to numpy (``{k: v.numpy() for k, v in
+    sd.items()}``).
+
+    ``scale_space_num`` determines the deepest layer index (the attention
+    module's flax name, ``attention_{S-1}``).  Raises ``KeyError`` on a
+    reference key no rule knows and on reference parameters left
+    unconverted.
+    """
+    deepest = scale_space_num - 1
+    params: Dict = {"net": {}}
+    matched = set()
+    for key, value in state_dict.items():
+        if not key.startswith(_PREFIX) or not key.endswith(".weight"):
+            continue
+        stem = key[len(_PREFIX):-len(".weight")]
+        bias_key = _PREFIX + stem + ".bias"
+        bias = np.asarray(state_dict[bias_key], np.float32)
+        w = np.asarray(value, np.float32)
+
+        end = _END_RE.match(stem)
+        if end:
+            _insert(params["net"], f"end_conv_{end.group(1)}/Conv_0",
+                    "kernel", _conv_kernel(w))
+            _insert(params["net"], f"end_conv_{end.group(1)}/Conv_0",
+                    "bias", bias)
+            matched.update((key, bias_key))
+            continue
+
+        blk = _BLOCK_RE.match(stem)
+        if not blk:
+            raise KeyError(f"unrecognized reference key: {key}")
+        block_id, rest = blk.group(1), blk.group(2)
+        for pat, template, kind in _RULES:
+            m = pat.match(rest)
+            if not m:
+                continue
+            path = template
+            for i, g in enumerate(m.groups()):
+                path = path.replace("{%d}" % i, g)
+            path = path.replace("{deepest}", str(deepest))
+            full = f"block_{block_id}/{path}"
+            kern = _conv_kernel(w) if kind == "conv" else _deconv_kernel(w)
+            _insert(params["net"], full, "kernel", kern)
+            _insert(params["net"], full, "bias", bias)
+            matched.update((key, bias_key))
+            break
+        else:
+            raise KeyError(f"unrecognized reference key: {key}")
+
+    leftovers = [k for k in state_dict if k.startswith(_PREFIX) and k not in matched]
+    if leftovers:
+        raise KeyError(f"unconverted reference parameters: {leftovers}")
+    return {"params": params}

@@ -230,10 +230,11 @@ def test_config_copies_match(name):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_char_records_copy_matches(seed):
-    """Seeded lines (some empty) through the port's records and the JAX
-    package's numpy path."""
+    """Seeded lines (some empty) through the port's records (its numpy
+    version, and the dispatch, which takes the C core where it is built)
+    and the JAX package's numpy path."""
     from msau_tpu.native import _char_records_numpy
-    from msau_tpu_torch.data.native import char_records
+    from msau_tpu_torch.data.native import char_records, char_records_plain
 
     rng = np.random.default_rng(seed)
     n = 12
@@ -244,21 +245,23 @@ def test_char_records_copy_matches(seed):
     lens[seed] = 0
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     ids = rng.integers(0, 64, int(offsets[-1])).astype(np.int32)
-    got = char_records(boxes, offsets, ids, 1.2)
     want = _char_records_numpy(boxes, offsets, ids, 1.2)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
-    empty = char_records(boxes[:2], np.zeros(3, np.int32),
-                         np.zeros(0, np.int32), 1.2)
-    assert [e.shape for e in empty] == [(0, 5), (0,), (0,)]
+    for fn in (char_records_plain, char_records):
+        got = fn(boxes, offsets, ids, 1.2)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        empty = fn(boxes[:2], np.zeros(3, np.int32), np.zeros(0, np.int32),
+                   1.2)
+        assert [e.shape for e in empty] == [(0, 5), (0,), (0,)]
 
 
 # modules the walk below must reach (the box model, the extras, the word-
 # and feature-grid data side, metrics and io, the FUNSD tools, entry B:
 # augmentation, the pipeline, profiling, viz, the host helpers and the
-# four CLIs, parallel/, the held-out accuracy tools, and the end-to-end
-# demo, loaded from examples/, among them)
+# four CLIs, parallel/, the held-out accuracy tools, the end-to-end
+# demo, loaded from examples/, the native rasterizer core and the
+# reference-layout weights among them)
 NEW_PORT_MODULES = (
     "msau_tpu_torch.ops.boxconv", "msau_tpu_torch.models.msau_box",
     "msau_tpu_torch.models.extras", "msau_tpu_torch.data.wordgrid",
@@ -273,7 +276,8 @@ NEW_PORT_MODULES = (
     "msau_tpu_torch.tools.extract_training_data",
     "msau_tpu_torch.parallel", "msau_tpu_torch.parallel.sharding",
     "msau_tpu_torch.parallel.spatial", "msau_tpu_torch.tools.corpus_eval",
-    "msau_tpu_torch.tools.accuracy_matrix", "end_to_end_kv_torch")
+    "msau_tpu_torch.tools.accuracy_matrix", "end_to_end_kv_torch",
+    "msau_tpu_torch.native", "msau_tpu_torch.utils.reference_weights")
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -309,10 +313,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_wordgrid_records_copy_matches(seed, monkeypatch):
-    """Seeded words (some empty) through the port's records and the JAX
-    package's numpy path (its C core switched off)."""
+    """Seeded words (some empty) through the port's records (its numpy
+    version, and the dispatch) and the JAX package's numpy path (its C core
+    switched off)."""
     from msau_tpu import native as o_native
-    from msau_tpu_torch.data.native import wordgrid_records
+    from msau_tpu_torch.data.native import (
+        wordgrid_records,
+        wordgrid_records_plain,
+    )
 
     monkeypatch.setattr(o_native, "_load", lambda: None)
     rng = np.random.default_rng(seed)
@@ -325,10 +333,11 @@ def test_wordgrid_records_copy_matches(seed, monkeypatch):
     ids = rng.integers(0, 64, int(offsets[-1])).astype(np.int32)
     geo = (float(boxes[:, 0].min()), float(boxes[:, 1].min()), 2.5,
            float(boxes[:, 3].min()))
-    got = wordgrid_records(boxes, offsets, ids, *geo)
     want = o_native.wordgrid_records(boxes, offsets, ids, *geo)
-    assert got.dtype == want.dtype
-    np.testing.assert_array_equal(got, want)
+    for fn in (wordgrid_records_plain, wordgrid_records):
+        got = fn(boxes, offsets, ids, *geo)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def _params(fn):
@@ -454,3 +463,50 @@ def test_augment_host_functions_match(seed):
         assert rot == o_aug.rotated_canvas(*shape, angle)
         np.testing.assert_array_equal(aug.rotation_matrix(shape, rot, angle),
                                       o_aug.rotation_matrix(shape, rot, angle))
+
+
+def test_rasterlib_source_is_a_byte_copy():
+    """The port's C core is the JAX package's source, byte for byte."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "msau_tpu", "native", "rasterlib.c"),
+              "rb") as a, open(os.path.join(root, "msau_tpu_torch", "native",
+                                            "rasterlib.c"), "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("scale_space_num,res_depth", [(2, 1), (4, 2)])
+def test_reference_converter_copy_matches(scale_space_num, res_depth):
+    """The port's torch_state_dict_to_flax: the original's rules and
+    patterns, and its output leaf for leaf on a seeded reference-layout
+    state dict (tests/test_torch_reference_migration.py holds the forward
+    and the errors)."""
+    from msau_tpu.utils import transplant as o_transplant
+    from msau_tpu_torch.config import ModelConfig
+    from msau_tpu_torch.utils import transplant
+    from msau_tpu_torch.utils.reference_weights import reference_state_dict
+
+    assert [(p.pattern, t, k) for p, t, k in transplant._RULES] == \
+        [(p.pattern, t, k) for p, t, k in o_transplant._RULES]
+    for name in ("_PREFIX", "_BLOCK_RE", "_END_RE"):
+        a, b = getattr(transplant, name), getattr(o_transplant, name)
+        assert getattr(a, "pattern", a) == getattr(b, "pattern", b), name
+    w = np.random.default_rng(0).normal(size=(6, 4, 3, 3)).astype(np.float32)
+    for fn in ("_conv_kernel", "_deconv_kernel"):
+        np.testing.assert_array_equal(getattr(transplant, fn)(w),
+                                      getattr(o_transplant, fn)(w))
+    sd = reference_state_dict(ModelConfig(
+        img_channels=6, n_class=4, feat_root=4, scale_space_num=scale_space_num,
+        res_depth=res_depth, num_blocks=3), seed=1)
+    got = transplant.torch_state_dict_to_flax(sd, scale_space_num)
+    want = o_transplant.torch_state_dict_to_flax(sd, scale_space_num)
+
+    def leaves(t, pre=()):
+        for k, v in t.items():
+            yield from (leaves(v, pre + (k,)) if isinstance(v, dict)
+                        else [(pre + (k,), v)])
+
+    got, want = dict(leaves(got)), dict(leaves(want))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k])

@@ -222,7 +222,7 @@ def _scaled_err(got, want):
 # instance and a page's, ragged T, and the other instantiated widths
 ATTN_SHAPES = [(16, 4096, 8, 64), (1, 4096, 8, 64), (2, 1000, 8, 64),
                (3, 66, 8, 64), (2, 300, 1, 8), (2, 300, 2, 16),
-               (1, 520, 4, 32), (1, 300, 16, 128)]
+               (1, 520, 4, 32), (1, 300, 16, 128), (2, 300, 32, 256)]
 
 
 def _attention_case(cuda, n, t, cb, c, dtype, scale=1.0):
@@ -300,7 +300,7 @@ def test_attention_kernels_bf16_large_logits(cuda):
 # streaming threshold, and the other instantiated widths
 FUSED_SHAPES = [(2, 16384, 8, 64), (1, 8200, 8, 64), (3, 66, 8, 64),
                 (2, 300, 1, 8), (2, 300, 2, 16), (1, 520, 4, 32),
-                (1, 300, 16, 128)]
+                (1, 300, 16, 128), (2, 300, 32, 256)]
 
 
 @pytest.mark.gpu
