@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   rerun, each stack timed beside ccl_bound times B;
        attention  the resident forward and backward on every ATTN_CASES
                   entry (N 16 and N 1 at T 4096, Cb 8, C 64; ragged T 1000
-                  and 66; every other width of KERNEL_WIDTHS), f32 and
+                  and 66; every other width of SPECIALISED_WIDTHS), f32 and
                   bf16, and integer logits near 2e5 in bf16
                   (ATTN_LARGE_LOGITS), each run twice for equal bits: the
                   forward within 1e-5 of the float64 plain version (bf16
@@ -77,6 +77,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   blockwise plain version and the kernel against the
                   materialised [T, T] form (1e-5); the forward timed at N
                   2 and N 1;
+       general attention  every width outside SPECIALISED_WIDTHS takes the
+                  kernels of csrc/attention_general.cuh: the resident pair
+                  on ATTN_WIDTH_CASES (C 4 to 1024, ragged T, and phase 9's
+                  train instances) by the attention's tolerances above, and
+                  the streaming pair on FUSED_WIDTH_CASES (also T 16384 at
+                  C 96) against float64 (ATTN_TOL, ATTN_STATS_TOL), its
+                  backward by the streaming one's, f32 and bf16, integer
+                  logits at Cb 64, each twice for equal bits; the autograd
+                  ops on the card at each width with every plain version
+                  made to raise, each launch counted once in launches and
+                  in general_launches; phase 9's instances timed
+                  (ATTN_WIDTH_TIMED) beside their plain versions and
+                  bounds, the f32 forward with both ways of splitting C;
   2. the serve path, KVModel.predict, of the flagship model (img_channels 64,
      17 classes, 4 scales, feat_root 8, res_depth 2, 3 stages) at
      flat_scales 0 and 3, f32 and bf16, with the same seeded random weights
@@ -249,11 +262,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the numpy version's on the bench page, the 2814-line 1024^2 page and
      the 24 entry-B pages, and the host times (this machine's CPU, median
      of 20) of char_records and of the bench page's prepare_host, C and
-     numpy.
+     numpy;
+  9. the model at widths outside SPECIALISED_WIDTHS, every deepest-scale
+     attention a general kernel (phase9's comment: 9a feat_root 12 at the
+     flagship's geometry, 9b the reference defaults at feat_root 16, 9c
+     config 5 at feat_root 12, 9d pool 3), trained through Trainer (the
+     attention's launches per step held, the loss finite and falling) and
+     served through KVModel (launches per request held, decode tables
+     equal to the plain pipeline's), 9b's and 9d's f32 logits on the
+     bench page against the host CPU's float64 forward and 9a's fs 3
+     against fs 0, within 1e-4; PHASE9_BUDGET_S its limit.
 
 The line before the last two is one JSON object with every kernel's route,
 source, the TPU kernel it replaces, its launches in phases 2 (2c and 2d
-included), 3, 4, 5 (5b and 5c), 6 (6a and 6b), 7 (7a-7c) and 8 (8a, 8b), its
+included), 3, 4, 5 (5b and 5c), 6 (6a and 6b), 7 (7a-7c), 8 (8a, 8b) and 9
+(the general kernels' entries: phase 9 alone), its
 largest error against the plain version (f32, 7d's cases included), its time, the plain version's,
 the library call's (or null) and its bound; then the card's name and power
 limit; the last line is the device record.  A fuller report, with nvcc's register and
@@ -561,7 +584,7 @@ def _scaled_err(got, want):
 
 # (N, T, Cb, C) of the resident attention's card cases, each in f32 and
 # bf16: the flagship train step's instance (N 16) and a page's (N 1) at T =
-# 4096, ragged T, and the other widths of ops/attention.py:KERNEL_WIDTHS
+# 4096, ragged T, and the other widths of ops/attention.py:SPECIALISED_WIDTHS
 # (Cb 32, C 256: the reference defaults' deepest scale, 6 scales at
 # feat_root 8, on a 512^2 page and ragged)
 ATTN_CASES = ((16, 4096, 8, 64), (1, 4096, 8, 64), (2, 1000, 8, 64),
@@ -636,15 +659,16 @@ def _attention_tensors(dev, n, t, cb, c, dtype, scale=1.0):
     return f, g, h, dout
 
 
-def check_attention_kernels(dev, cases=None, phase="phase 1"):
+def check_attention_kernels(dev, cases=None, phase="phase 1", large=None):
     """Phase 1, the resident attention's kernels (forward: stats and
     accumulate; backward: rows and combine) on every ATTN_CASES entry in f32
     and bf16 against their plain versions, each run twice for equal bits;
     the forward timed at N 16 and N 1, the backward at N 16 -> {kernel:
     {max_abs_err, ms, plain_ms, bound, cases, times}}.  ``cases``: other
     (N, T, Cb, C) in place of ATTN_CASES and the large logits, untimed
-    (phase 7d).  A probe quicker than the whole script: ``python3 -c
-    "import chip_smoke as cs, torch;
+    (phase 7d and the general kernels' cases), and ``large`` another
+    large-logits case (N, T, Cb, C, scale) with them.  A probe quicker
+    than the whole script: ``python3 -c "import chip_smoke as cs, torch;
     cs.check_attention_kernels(torch.device('cuda', 0))"``."""
     import torch
 
@@ -659,8 +683,9 @@ def check_attention_kernels(dev, cases=None, phase="phase 1"):
     bwd = {"cases": {}, "times": {}, "library_ms": None, "max_abs_err": 0.0}
     runs = [(*case, 1.0, ("float32", "bfloat16"))
             for case in (cases or ATTN_CASES)]
-    if cases is None:
-        runs.append((*ATTN_LARGE_LOGITS, ("bfloat16",)))
+    for case in ((ATTN_LARGE_LOGITS,) if cases is None else
+                 (large,) if large else ()):
+        runs.append((*case, ("bfloat16",)))
     for n, t, cb, c, scale, keys in runs:
         for key in keys:
             dtype = getattr(torch, key)
@@ -802,6 +827,301 @@ def attention_times(dev, iters=10):
         del f, g, h, dout, m, l
         torch.cuda.empty_cache()
     print(f"[attention times] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---- the attention at any width (csrc/attention_general.cuh) -------------
+
+# (N, T, Cb, C) of the general kernels' card cases, each in f32 and bf16,
+# resident and streaming: every width outside
+# ops/attention.py:SPECIALISED_WIDTHS takes them.  The widths of
+# tests/test_torch_attention_widths.py at small and ragged T (37, 129,
+# 300, 70, 100), and phase 9's train instances at feat_root 12 (C 96, N 16,
+# T 4096) and at the reference defaults with feat_root 16 (C 512, N 4, T
+# 256); the streaming cases add config 5's T 16384 at feat_root 12
+ATTN_WIDTH_CASES = ((2, 37, 1, 4), (2, 300, 2, 20), (2, 129, 3, 24),
+                    (2, 300, 12, 96), (16, 4096, 12, 96), (1, 324, 27, 216),
+                    (2, 100, 48, 384), (4, 256, 64, 512), (2, 70, 128, 1024))
+FUSED_WIDTH_CASES = ATTN_WIDTH_CASES[:4] + ATTN_WIDTH_CASES[5:] + (
+    (2, 16384, 12, 96),)
+# integer logits near 2e5 and above (ATTN_LARGE_LOGITS) at the widest
+# score product phase 9 runs, Cb 64: each logit an integer below 2^24
+ATTN_WIDTH_LARGE_LOGITS = (2, 256, 64, 512, 100.0)
+# phase 9's attention instances, each timed in f32 and bf16 beside its
+# plain version and bound, the forward also with each way of splitting C
+# (attention.cu: g_fwd_groups): label -> (op, N, T, Cb, C, backward too)
+ATTN_WIDTH_TIMED = {
+    "9a train": ("resident", 16, 4096, 12, 96, True),
+    "9a serve": ("resident", 1, 4096, 12, 96, False),
+    "9b train": ("resident", 4, 256, 64, 512, True),
+    "9b serve": ("resident", 1, 256, 64, 512, False),
+    "9c train": ("streaming", 2, 16384, 12, 96, True),
+    "9d train": ("resident", 4, 324, 27, 216, True),
+    "9d serve": ("resident", 1, 361, 27, 216, False),
+}
+# the kernels line's entry for each general kernel: its instance above
+GENERAL_TIMED_ON = {"resident_attention_fwd_general": "9a train",
+                    "resident_attention_bwd_general": "9a train",
+                    "fused_attention_fwd_general": "9c train",
+                    "fused_attention_bwd_general": "9c train"}
+
+
+def _fused_width_errors(got, f, g, h, rerun, name):
+    """A general streaming forward's (out, m, l) against the blockwise
+    plain version in float64, the exact answer for either operand dtype
+    (the output is f32 in both): out within ATTN_TOL's f32 value of max(1,
+    max |want|), as the streaming checks scale it (over T 16384 rows the
+    sums of h of either sign cancel: one element lay 4.2e-5 from float64,
+    past rtol = atol = 1e-5 of it, and the f32 plain version 5.5e-5 from
+    the kernel), m and l within
+    ATTN_STATS_TOL (at Cb 64 and above the logits reach 60-90, where the
+    f32 plain version's own m lies ~1e-5 off, one f32 ulp being 7.6e-6;
+    the kernel sums f32 scores in f64), the same bits as ``rerun`` ->
+    errors, also against the f32 plain version."""
+    import torch
+
+    from msau_tpu_torch.ops.attention import fused_attention_plain_stats
+
+    out, m, l = got
+    want, wm, wl = fused_attention_plain_stats(f.double(), g.double(),
+                                               h.double())
+    tol = ATTN_TOL["fwd"]["float32"]
+    err = {"max_abs_err": _max_abs(out, want),
+           "scaled_err": _scaled_err(out, want),
+           "vs_f32_plain_max_abs_err": _max_abs(
+               out, fused_attention_plain_stats(f, g, h)[0]),
+           "m_max_abs_err": _max_abs(m, wm),
+           "l_max_rel_err": float(((l.double() - wl).abs() / wl).max()),
+           "tol": tol, "stats_tol": ATTN_STATS_TOL,
+           "bit_identical": all(torch.equal(a, b) for a, b in zip(got, rerun))}
+    if (out.dtype != torch.float32 or not err["bit_identical"]
+            or not err["scaled_err"] <= tol
+            or not err["m_max_abs_err"] <= ATTN_STATS_TOL
+            or not err["l_max_rel_err"] <= ATTN_STATS_TOL):
+        raise AssertionError(f"fused attention fwd {name}: {err}")
+    return err
+
+
+def check_fused_widths(dev):
+    """Phase 1, the streaming attention's general kernels on every
+    FUSED_WIDTH_CASES entry in f32 and bf16: the forward against the
+    plain version in float64 (_fused_width_errors); the backward on an f32
+    cotangent within FUSED_BWD_TOL of the blockwise plain version; each
+    run twice for equal bits; then ATTN_WIDTH_LARGE_LOGITS (m to the bit)
+    -> {"fused_attention_fwd": record, "fused_attention_bwd": record}."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.ops.attention import (
+        fused_attention_bwd_cuda,
+        fused_attention_bwd_plain,
+        fused_attention_cuda,
+    )
+
+    fwd = {"cases": {}, "max_abs_err": 0.0}
+    bwd = {"cases": {}, "max_abs_err": 0.0}
+    for n, t, cb, c in FUSED_WIDTH_CASES:
+        for key in ("float32", "bfloat16"):
+            f, g, h, _ = _attention_tensors(dev, n, t, cb, c,
+                                            getattr(torch, key))
+            dout = torch.from_numpy(np.random.default_rng(c).normal(
+                size=(n, t, c)).astype(np.float32)).to(dev)
+            name = f"N{n}_T{t}_Cb{cb}_C{c}_{key}"
+            got = fused_attention_cuda(f, g, h)
+            again = fused_attention_cuda(f, g, h)
+            torch.cuda.synchronize()
+            err = _fused_width_errors(got, f, g, h, again, name)
+            if key == "float32":
+                fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                                         err["vs_f32_plain_max_abs_err"])
+            fwd["cases"][name] = err
+            _, m, l = got
+            grads = fused_attention_bwd_cuda(f, g, h, m, l, dout)
+            again = fused_attention_bwd_cuda(f, g, h, m, l, dout)
+            torch.cuda.synchronize()
+            wgrads = fused_attention_bwd_plain(f, g, h, m, l, dout)
+            tol = FUSED_BWD_TOL[key]
+            berr = {"tol": tol, "bit_identical": all(
+                torch.equal(a, b) for a, b in zip(grads, again))}
+            for gname, a, b in zip(("df", "dg", "dh"), grads, wgrads):
+                berr[gname] = {"max_abs_err": _max_abs(a, b),
+                               "scaled_err": _scaled_err(a, b)}
+                if a.dtype != f.dtype or berr[gname]["scaled_err"] > tol:
+                    raise AssertionError(f"fused attention bwd {name} "
+                                         f"{gname}: {berr[gname]} (tol {tol})")
+            if not berr["bit_identical"]:
+                raise AssertionError(f"fused attention bwd {name}: a second "
+                                     "run gave other bits")
+            if key == "float32":
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], max(
+                    berr[k]["max_abs_err"] for k in ("df", "dg", "dh")))
+            bwd["cases"][name] = berr
+            print(f"[phase 1] fused attention {name}: fwd against float64 "
+                  f"scaled err {err['scaled_err']:.3e} (tol "
+                  f"{ATTN_TOL['fwd']['float32']}), m {err['m_max_abs_err']:.2e}"
+                  f", l rel {err['l_max_rel_err']:.2e} (tol {ATTN_STATS_TOL})"
+                  f"; bwd "
+                  + ", ".join(f"{k} {berr[k]['scaled_err']:.3e}"
+                              for k in ("df", "dg", "dh"))
+                  + f" (tol {tol}); same bits on a rerun", flush=True)
+            del f, g, h, dout, got, again, grads, wgrads, m, l
+            torch.cuda.empty_cache()
+    n, t, cb, c, scale = ATTN_WIDTH_LARGE_LOGITS
+    for key in ("float32", "bfloat16"):
+        f, g, h, _ = _attention_tensors(dev, n, t, cb, c, getattr(torch, key),
+                                        scale)
+        got, again = fused_attention_cuda(f, g, h), fused_attention_cuda(f, g, h)
+        name = f"N{n}_T{t}_Cb{cb}_C{c}_{key}_scale{scale:g}"
+        err = fwd["cases"][name] = _fused_width_errors(got, f, g, h, again,
+                                                       name)
+        if not err["m_max_abs_err"] == 0.0:
+            raise AssertionError(f"fused attention {name}: m is not exact")
+        print(f"[phase 1] fused attention {name}: fwd against float64 "
+              f"{err['max_abs_err']:.3e}, m exact; same bits on a rerun",
+              flush=True)
+    return {"fused_attention_fwd": fwd, "fused_attention_bwd": bwd}
+
+
+def _general_autograd_on_card(dev):
+    """Each general width (ATTN_WIDTH_CASES below T 1000) through the
+    autograd ops on the card, forward and backward, f32 and bf16, with every
+    plain version of ops/attention.py replaced by one that raises: each
+    call raises its wrapper's launches and general_launches by one ->
+    {width: launches}."""
+    import torch
+
+    from msau_tpu_torch.ops import attention as A
+
+    wrappers = {"resident": (A.resident_attention, A.resident_attention_cuda,
+                             A.resident_attention_bwd_cuda),
+                "streaming": (A.fused_attention, A.fused_attention_cuda,
+                              A.fused_attention_bwd_cuda)}
+    plain = [k for k in vars(A) if k.endswith(("_plain", "_plain_stats"))]
+    saved = {k: getattr(A, k) for k in plain}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    seen = {}
+    try:
+        for k in plain:
+            setattr(A, k, refuse)
+        for n, t, cb, c in ATTN_WIDTH_CASES:
+            if t >= 1000:
+                continue
+            for key in ("float32", "bfloat16"):
+                f, g, h, dout = _attention_tensors(dev, n, t, cb, c,
+                                                   getattr(torch, key))
+                for op_name, (op, fw, bw) in wrappers.items():
+                    before = [(w.launches, w.general_launches) for w in (fw, bw)]
+                    leaves = [x.clone().requires_grad_() for x in (f, g, h)]
+                    out = op(*leaves)
+                    out.backward(dout.to(out.dtype))
+                    torch.cuda.synchronize()
+                    after = [(w.launches, w.general_launches) for w in (fw, bw)]
+                    if any(a != (b[0] + 1, b[1] + 1)
+                           for a, b in zip(after, before)):
+                        raise AssertionError(
+                            f"{op_name} attention ({cb}, {c}) {key}: "
+                            f"launches {before} -> {after}")
+                    if not all(torch.isfinite(x.grad).all() for x in leaves):
+                        raise AssertionError(f"{op_name} attention ({cb}, "
+                                             f"{c}) {key}: gradient not finite")
+                seen[f"({cb}, {c}) {key}"] = "fwd and bwd launched once each"
+    finally:
+        for k, fn in saved.items():
+            setattr(A, k, fn)
+    print(f"[phase 1] general attention through the autograd ops on the "
+          f"card: {len(seen)} widths x dtypes, resident and streaming, each "
+          "forward and backward one launch of its kernel, no plain version",
+          flush=True)
+    return seen
+
+
+def attention_width_times(dev, iters=10):
+    """ATTN_WIDTH_TIMED: each instance's device ms (f32 and bf16), the f32
+    forward also with every group of C in the grid (1) and with a block's
+    groups looped over one staged A tile (4; the fewest of 1, 2, 4 that
+    cover C) beside the library's default (0), then the plain versions'
+    and the bounds -> {label: {dtype: record}}."""
+    import torch
+
+    from msau_tpu_torch.ops import attention as A
+    from msau_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.library()
+    out = {}
+    for label, (op, n, t, cb, c, with_bwd) in ATTN_WIDTH_TIMED.items():
+        out[label] = {}
+        res = op == "resident"
+        fwd_k = A.resident_attention_cuda if res else A.fused_attention_cuda
+        bwd_k = (A.resident_attention_bwd_cuda if res
+                 else A.fused_attention_bwd_cuda)
+        fwd_p = (A.resident_attention_plain_stats if res
+                 else A.fused_attention_plain_stats)
+        bwd_p = (A.resident_attention_bwd_plain if res
+                 else A.fused_attention_bwd_plain)
+        kname = "resident_attention" if res else "fused_attention"
+        for key in ("float32", "bfloat16"):
+            f, g, h, dout = _attention_tensors(dev, n, t, cb, c,
+                                               getattr(torch, key))
+            if not res:
+                dout = dout.float()
+            rec = {}
+            # the two ways of splitting C in f32 (bf16 read alike in a probe)
+            for groups in (1, 4, 0) if key == "float32" else (0,):
+                lib.msau_attention_fwd_groups(groups)
+                rec[f"fwd_groups{groups}_ms"] = _cuda_ms(
+                    lambda: fwd_k(f, g, h), 2 * iters)
+            lib.msau_attention_fwd_groups(0)
+            rec["fwd_ms"] = rec["fwd_groups0_ms"]
+            rec["fwd_plain_ms"] = _cuda_ms(lambda: fwd_p(f, g, h), 3)
+            rec["fwd_bound"] = _attention_bound(f"{kname}_fwd", n, t, cb, c,
+                                                f.element_size())
+            if with_bwd:
+                _, m, l = fwd_k(f, g, h)
+                rec["bwd_ms"] = _cuda_ms(lambda: bwd_k(f, g, h, m, l, dout),
+                                         iters)
+                rec["bwd_plain_ms"] = _cuda_ms(
+                    lambda: bwd_p(f, g, h, m, l, dout), 3)
+                rec["bwd_bound"] = _attention_bound(f"{kname}_bwd", n, t, cb,
+                                                    c, f.element_size())
+                del m, l
+            out[label][key] = rec
+            print(f"[phase 1] general attention {label} (N {n}, T {t}, Cb "
+                  f"{cb}, C {c}) {key}: " + ", ".join(
+                      f"{k} {v:.4f}" if isinstance(v, float) else
+                      f"{k} {v[0]:.4f} ({v[1]})" for k, v in rec.items()),
+                  flush=True)
+            del f, g, h, dout
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_attention_widths(dev):
+    """Phase 1, the general attention kernels: the resident forward and
+    backward on ATTN_WIDTH_CASES (and ATTN_WIDTH_LARGE_LOGITS in bf16) by
+    check_attention_kernels' tolerances, the streaming pair on
+    FUSED_WIDTH_CASES (check_fused_widths), the autograd ops on the card
+    with no plain version reachable, and the timed instances -> {general
+    kernel: {max_abs_err, ms, plain_ms, bound, library_ms, ...}}."""
+    res = check_attention_kernels(dev, ATTN_WIDTH_CASES, phase="phase 1",
+                                  large=ATTN_WIDTH_LARGE_LOGITS)
+    res.update(check_fused_widths(dev))
+    autograd = _general_autograd_on_card(dev)
+    times = attention_width_times(dev)
+    out = {}
+    for name, label in GENERAL_TIMED_ON.items():
+        base = name[:-len("_general")]
+        part = "bwd" if base.endswith("_bwd") else "fwd"
+        rec = times[label]["float32"]
+        out[name] = {"max_abs_err": res[base]["max_abs_err"],
+                     "cases": res[base]["cases"],
+                     "ms": rec[f"{part}_ms"],
+                     "plain_ms": rec[f"{part}_plain_ms"],
+                     "bound": rec[f"{part}_bound"], "library_ms": None,
+                     "timed_on": f"{label} float32", "times": times,
+                     "autograd_on_card": autograd}
     return out
 
 
@@ -1280,10 +1600,14 @@ def check_flat_kernels(dev, ops=None):
                               "flat_deconv2") \
                 or not case["per_request"] or case["op"] not in out:
             continue
+        # drawn once at batch 16 in f32 and cast for bf16 (the same values
+        # a second draw from the seed gave)
+        base = flat_case_tensors(case, np.random.default_rng(12), dev,
+                                 torch.float32, n=TIMED_BATCH)
         for key in FLAT_TOL:
             dtype = getattr(torch, key)
-            tensors = flat_case_tensors(case, np.random.default_rng(12), dev,
-                                        dtype, n=TIMED_BATCH)
+            tensors = [None if t is None else t.to(dtype) if t.ndim > 1
+                       else t for t in base]
             kernel, plain = flat_case_fns(case, tensors, dtype)
             lib = _flat_library(case, tensors)
             t = {"ms": _cuda_ms(kernel, 10), "plain_ms": _cuda_ms(plain, 5),
@@ -1330,10 +1654,15 @@ def check_flat_bwd_kernels(dev, ops=None):
             continue
         rec, report = out[case["op"]], []
         n = TIMED_BATCH if case["per_step"] else case["n"]
+        # drawn once in f32 and cast for bf16: the numpy draws at batch 16
+        # took most of the phase, and a second draw from the same seed gave
+        # the same values
+        base = flat_bwd_case_tensors(case, np.random.default_rng(13), dev,
+                                     torch.float32, n=n)
         for key in FLAT_TOL:
             dtype = getattr(torch, key)
-            tensors = flat_bwd_case_tensors(case, np.random.default_rng(13),
-                                            dev, dtype, n=n)
+            tensors = [None if t is None else t.to(dtype) if t.ndim > 1
+                       else t for t in base]
             kernel, plain = flat_bwd_case_fns(case, tensors)
             got = kernel()
             again = kernel()
@@ -1391,6 +1720,7 @@ def check_flat_bwd_kernels(dev, ops=None):
             report.append(msg)
             del tensors, got, again, want
             torch.cuda.empty_cache()
+        del base
         print(f"[phase 1] {case['op']} {case['name']}: " + "; ".join(report),
               flush=True)
     for name, rec in out.items():
@@ -1799,6 +2129,22 @@ def _cpu_twin(kv):
     return twin
 
 
+def _page_chargrid(kv, page, side, dev):
+    """The page's one-hot chargrid in its ``side`` bucket, [1, side, side,
+    64] f32 on ``dev``, painted by the card from the KVModel's programs."""
+    import torch
+
+    from msau_tpu_torch.data.rasterize import paint_boxes, round_up
+
+    _, extras = kv.predict(page, return_maps=False)
+    prog = extras["programs"].char
+    prog = prog.padded(round_up(max(len(prog.values), 1), 512))
+    ids = paint_boxes(torch.from_numpy(prog.boxes).to(dev),
+                      torch.from_numpy(prog.values).to(dev), side, side)
+    tokens = torch.arange(64, dtype=torch.int32, device=dev)
+    return (ids[..., None] == tokens).to(torch.float32)[None]
+
+
 def serve_path(dev):
     """Phase 2, the flagship at 512^2 -> (launch counts, stage p50s by
     model, checks)."""
@@ -1889,7 +2235,6 @@ def serve_path_1024(dev):
 
     from msau_tpu_torch import ops
     from msau_tpu_torch.data.pages import page_from_label_dict
-    from msau_tpu_torch.data.rasterize import paint_boxes, round_up
     from msau_tpu_torch.data.synth import make_page
 
     page = page_from_label_dict(
@@ -1909,13 +2254,7 @@ def serve_path_1024(dev):
     # at scales 0 and 1, cuDNN below, the streaming attention) against the
     # CPU's plain versions with the same weights
     kv = models["float32"]
-    _, extras = kv.predict(page, return_maps=False)
-    prog = extras["programs"].char
-    prog = prog.padded(round_up(max(len(prog.values), 1), 512))
-    ids = paint_boxes(torch.from_numpy(prog.boxes).to(dev),
-                      torch.from_numpy(prog.values).to(dev), 1024, 1024)
-    tokens = torch.arange(64, dtype=torch.int32, device=dev)
-    x = (ids[..., None] == tokens).to(torch.float32)[None]
+    x = _page_chargrid(kv, page, 1024, dev)
     t0 = time.perf_counter()
     with torch.inference_mode():
         on_card = kv.model(x)[0].cpu()
@@ -2110,9 +2449,10 @@ def _batch_launches(fs, groups):
     return per
 
 
-def _exact_probs(kv, x):
+def _exact_probs(kv, x, index=0):
     """The float64 forward of the KVModel's network on the CPU (the plain
-    versions, no f32 rounding) on one page's one-hot ``x`` [H, W, V]."""
+    versions, no f32 rounding) on one page's one-hot ``x`` [H, W, V]: its
+    probabilities (``index`` 1: its logits)."""
     import dataclasses
 
     import torch
@@ -2124,7 +2464,7 @@ def _exact_probs(kv, x):
     exact.load_state_dict({k: v.cpu().double()
                            for k, v in kv.model.state_dict().items()})
     with torch.inference_mode():
-        return exact(x[None].cpu().double())[0][0]
+        return exact(x[None].cpu().double())[index][0]
 
 
 def serve_batch(dev):
@@ -2410,7 +2750,7 @@ KERNEL_FAMILIES = (
                                            _OURS + "nhwc_to_nchw_kernel<")),
     ("weight-gradient partial sums", ("msau::sum_partials_kernel",)),
     ("attention fwd / bwd", (_OURS + "stats_kernel<", _OURS + "accum_kernel<",
-                             _OURS + "rows_kernel<")),
+                             _OURS + "rows_kernel<", "msau::attn::general::")),
     ("masked CE fwd / bwd, attention and CE partials",
      (_OURS + "fwd_kernel<", _OURS + "bwd_kernel<", _OURS + "combine_kernel<")),
     ("cuDNN / GEMM", ("cudnn", "xmma", "cutlass", "gemm", "conv2d", "wgrad",
@@ -2496,14 +2836,16 @@ def _attention_bwd_memory(step, dev, kernel):
         live.append(torch.cuda.memory_allocated(dev) + probe.scratch_bytes)
         return out
 
-    # the wrapper keeps its count and scratch size on the module's name
+    # the wrapper keeps its counts and scratch size on the module's name
     probe.launches, probe.scratch_bytes = real.launches, 0
+    probe.general_launches = real.general_launches
     setattr(attention, attr, probe)
     try:
         step()
     finally:
         setattr(attention, attr, real)
         real.launches, real.scratch_bytes = probe.launches, probe.scratch_bytes
+        real.general_launches = probe.general_launches
     return {"scratch_mib": real.scratch_bytes / 2**20,
             "allocated_during_mib": max(live) / 2**20, "launches": len(live)}
 
@@ -4507,6 +4849,245 @@ def phase8(dev):
     return {k: c_a[k] + c_b[k] for k in c_a}, res
 
 
+# ---- phase 9: the model at widths outside SPECIALISED_WIDTHS --------------
+# Each configuration trained and served on the card through Trainer and
+# KVModel with seeded random weights; every deepest-scale attention takes
+# the general kernels (csrc/attention_general.cuh).
+#   9a  the flagship's geometry (bench.py: 512^2, 3 stages, res_depth 2, 64
+#       input channels, 17 classes) at feat_root 12: C 96, Cb 12, T 4096;
+#       train bf16 at flat_scales 3, serve the bench page in f32 at fs 0
+#       and fs 3;
+#   9b  the reference defaults (6 scales, res_depth 3) at feat_root 16: C
+#       512, Cb 64, T 256 at 512^2; train f32 at fs 0, serve the bench
+#       page, its f32 logits against the host CPU's (float64);
+#   9c  config 5's geometry (1024^2, batch 2, remat, fs 2) at feat_root 12:
+#       the streaming pair at C 96, T 16384; train bf16;
+#   9d  pool_size 3, feat_root 8, 4 scales, fs 0 at 486^2: C 216, Cb 27, T
+#       324; train f32, serve the bench page (T 361 in the 512 bucket), its
+#       f32 logits against the host CPU's (float64).
+P9_FLAGSHIP = dict(FLAGSHIP, feat_root=12)
+P9_DEFAULTS = dict(MIGRATED_DEFAULTS, feat_root=16)
+P9_CONFIG5 = dict(CONFIG5, feat_root=12)
+P9_POOL3 = dict(FLAGSHIP, pool_size=3, flat_scales=0)
+# (batch, side, steps) of each train run
+P9_TRAIN = {"9a": (16, 512, 5), "9b": (4, 512, 5), "9c": (2, 1024, 3),
+            "9d": (4, 486, 3)}
+# Adam's step on the bench's structured batch: at 1e-3 the loss falls in
+# three steps in bf16 too (the bench's 1e-4 takes up to 20 there)
+P9_LR = 1e-3
+# the deepest attention's launches per train step: 3 stages, the last
+# stage's output feeds no gradient (2 backwards); with remat each stage's
+# forward runs twice (config 5)
+P9_PER_STEP = {"resident_attention_fwd": 3, "resident_attention_bwd": 2}
+P9_PER_STEP_REMAT = {"fused_attention_fwd": 6, "fused_attention_bwd": 2}
+# 9a's launches per request at fs 3: the flagship's, but its residual
+# blocks at 12, 24 and 48 channels are outside ops/flatres.py:
+# FUSED_CHANNELS, so each of the 18 runs as two flat convs
+P9_SERVE_FS3 = {**SERVE_PER_REQUEST[3], "flat_conv2d": 21 + 36,
+                "flat_res_block": 0}
+# the card's f32 logits on a page against the host CPU's forward in
+# float64 (9b, 9d; the CPU's f32 forward, reported beside it, carries its
+# own f32 error: 8.8e-5 from the card at pool 3 in one run) and fs 3
+# against fs 0 (9a, at 64x64): phase 8a's bound
+P9_LOGITS_TOL = 1e-4
+PHASE9_BUDGET_S = 240.0
+
+
+def _p9_train(dev, label, model_kwargs, dtype, run, per_step, total,
+              general):
+    """P9_TRAIN[run] steps through Trainer on the bench's structured batch
+    with the launch counters reset just before and read just after: the
+    attention's launches per step held to ``per_step``, each a general
+    kernel's; every loss finite, the last below the first -> record; the
+    launches added into ``total`` and ``general``."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import ModelConfig, TrainConfig
+    from msau_tpu_torch.data.synth import make_structured_batch
+    from msau_tpu_torch.train.trainer import Trainer
+
+    bs, hw, steps = P9_TRAIN[run]
+    x, y = make_structured_batch(np.random.default_rng(0), bs, hw, 17, 64)
+    tr = Trainer(ModelConfig(**model_kwargs, dtype=dtype),
+                 TrainConfig(learning_rate=P9_LR, lr_decay_staircase=False),
+                 device=dev)
+    tr.init_state(x, seed=0)
+    batch = tr.put_batch({"input": x, "label": y,
+                          "valid": np.ones(y.shape, bool)})
+    batch["input"] = batch["input"].to(tr.model.compute_dtype)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, t0 = [], time.perf_counter()
+    for _ in range(steps):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        losses.append(float(metrics["loss"]))
+    seconds = time.perf_counter() - t0
+    counts, gen = ops.launch_counts(), ops.general_launch_counts()
+    for name, want in per_step.items():
+        if counts[name] != want * steps or gen[f"{name}_general"] != want * steps:
+            raise AssertionError(
+                f"phase {run} {label}: {name} launched {counts[name]} times "
+                f"({gen[f'{name}_general']} general) in {steps} steps, want "
+                f"{want * steps}")
+    for name, n in counts.items():
+        total[name] += n
+    for name, n in gen.items():
+        general[name] += n
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase {run} {label}: losses {losses}")
+    rec = {"losses": losses, "steps": steps, "batch": bs, "side": hw,
+           "s_per_step_with_first": seconds / steps,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "launches_per_step": {k: v / steps for k, v in counts.items() if v}}
+    print(f"[phase {run}] {label} {dtype} bs {bs} {hw}^2: {steps} steps, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{rec['s_per_step_with_first']:.3f} s/step (first included), peak "
+          f"{rec['peak_mem_gib']:.2f} GiB; launches/step "
+          f"{rec['launches_per_step']}", flush=True)
+    del tr, batch, metrics
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _p9_serve(dev, run, label, model_kwargs, fs, page, total, general,
+              cpu_logits=False):
+    """One f32 KVModel (seeded weights) on the bench page: one request with
+    its launches held to SERVE_PER_REQUEST[fs] (P9_SERVE_FS3 for 9a at fs
+    3), the attention's all general,
+    the decode check; with ``cpu_logits``, its logits on the page's 512^2
+    chargrid against the host CPU's within P9_LOGITS_TOL -> (kv, record)."""
+    import torch
+
+    from msau_tpu_torch import ops
+
+    kv = _bench_kv(dict(model_kwargs, flat_scales=fs), "float32", dev, 512,
+                   page)
+    phase = f"phase {run}"
+    per_request = P9_SERVE_FS3 if fs == 3 else SERVE_PER_REQUEST[fs]
+    p50 = _serve_requests(kv, page, 1, per_request, label, total,
+                          phase=phase)
+    gen = ops.general_launch_counts()
+    if gen["resident_attention_fwd_general"] != 3:
+        raise AssertionError(f"{phase} {label}: general attention launches "
+                             f"{gen}")
+    for name, n in gen.items():
+        general[name] += n
+    check, _ = _decode_check(kv, page, 512, dev, label, phase=phase)
+    rec = {"p50_ms": p50, "check": check}
+    if cpu_logits:
+        x = _page_chargrid(kv, page, 512, dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            card = kv.model(x)[1][0].cpu()
+            host = _cpu_twin(kv)(x.cpu())[1][0]
+        exact = _exact_probs(kv, x[0], index=1)
+        err = rec["logits_card_vs_cpu_f64_max_abs_err"] = _max_abs(card,
+                                                                   exact)
+        rec["logits_card_vs_cpu_f32_max_abs_err"] = _max_abs(card, host)
+        rec["logits_cpu_f32_vs_f64_max_abs_err"] = _max_abs(host, exact)
+        rec["logits_max_abs"] = float(exact.abs().max())
+        rec["cpu_seconds"] = time.perf_counter() - t0
+        print(f"[{phase}] {label}: f32 logits at 512^2 against the host "
+              f"CPU's float64 forward: max abs err {err:.3e} (tol "
+              f"{P9_LOGITS_TOL}; largest |logit| {rec['logits_max_abs']:.3f}"
+              f"); the CPU's f32 forward lies "
+              f"{rec['logits_cpu_f32_vs_f64_max_abs_err']:.3e} from it and "
+              f"{rec['logits_card_vs_cpu_f32_max_abs_err']:.3e} from the "
+              f"card; {rec['cpu_seconds']:.1f} s", flush=True)
+        if not err <= P9_LOGITS_TOL:
+            raise AssertionError(f"{phase} {label}: card vs CPU float64 "
+                                 f"logits max abs err {err}")
+    print(f"[{phase}] {label} predict p50 ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in p50.items()), flush=True)
+    return kv, rec
+
+
+def phase9(dev):
+    """Phase 9, the model at widths outside SPECIALISED_WIDTHS (9a-9d
+    above) -> (launches by kernel, general launches by general kernel,
+    record with each sub-phase's seconds)."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch import ops
+
+    total = {k: 0 for k in ops.KERNEL_WRAPPERS}
+    general = {k: 0 for k in ops.GENERAL_ATTENTION}
+    page = _bench_page()
+    seconds, res = {}, {}
+    t_start = time.perf_counter()
+
+    def sub(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase {name}] {seconds[name]:.1f} s", flush=True)
+        return got
+
+    def run_9a():
+        rec = {"train": _p9_train(dev, "feat_root 12 fs=3",
+                                  dict(P9_FLAGSHIP, flat_scales=3),
+                                  "bfloat16", "9a", P9_PER_STEP, total,
+                                  general)}
+        models = {}
+        for fs in (0, 3):
+            models[fs], rec[f"serve_fs{fs}"] = _p9_serve(
+                dev, "9a", f"feat_root 12 fs={fs} float32", P9_FLAGSHIP, fs,
+                page, total, general)
+        ids = np.random.default_rng(1).integers(0, 64, (1, 64, 64))
+        x = torch.from_numpy(np.eye(64, dtype=np.float32)[ids]).to(dev)
+        with torch.inference_mode():
+            out = {fs: kv.model(x) for fs, kv in models.items()}
+        for i, what in ((1, "logits"), (0, "probs")):
+            err = rec[f"fs3_vs_fs0_64x64_{what}_max_abs_err"] = _max_abs(
+                out[3][i], out[0][i])
+            print(f"[phase 9a] f32 {what} at 64x64, fs 3 vs fs 0: max abs "
+                  f"err {err:.3e} (tol {P9_LOGITS_TOL})", flush=True)
+            if not err <= P9_LOGITS_TOL:
+                raise AssertionError(f"phase 9a: fs 3 vs fs 0 {what} {err}")
+        return rec
+
+    def run_9b():
+        rec = {"train": _p9_train(dev, "reference defaults at feat_root 16",
+                                  P9_DEFAULTS, "float32", "9b", P9_PER_STEP,
+                                  total, general)}
+        _, rec["serve"] = _p9_serve(dev, "9b", "reference defaults at "
+                                    "feat_root 16 fs=0 float32", P9_DEFAULTS,
+                                    0, page, total, general, cpu_logits=True)
+        return rec
+
+    def run_9c():
+        return {"train": _p9_train(dev, "config 5 at feat_root 12",
+                                   P9_CONFIG5, "bfloat16", "9c",
+                                   P9_PER_STEP_REMAT, total, general)}
+
+    def run_9d():
+        rec = {"train": _p9_train(dev, "pool 3 fs=0", P9_POOL3, "float32",
+                                  "9d", P9_PER_STEP, total, general)}
+        _, rec["serve"] = _p9_serve(dev, "9d", "pool 3 fs=0 float32",
+                                    P9_POOL3, 0, page, total, general,
+                                    cpu_logits=True)
+        return rec
+
+    for name, fn in (("9a", run_9a), ("9b", run_9b), ("9c", run_9c),
+                     ("9d", run_9d)):
+        res[name] = sub(name, fn)
+        torch.cuda.empty_cache()
+    res["seconds"] = seconds
+    elapsed = time.perf_counter() - t_start
+    print(f"[phase 9] {elapsed:.1f} s (limit {PHASE9_BUDGET_S:.0f} s); "
+          f"general launches {general}", flush=True)
+    missing = [k for k, v in general.items() if not v]
+    if missing:
+        raise AssertionError(f"phase 9: {missing} did not launch")
+    if elapsed > PHASE9_BUDGET_S:
+        raise AssertionError(f"phase 9 took {elapsed:.0f} s, past its limit "
+                             f"of {PHASE9_BUDGET_S:.0f} s")
+    return total, general, res
+
+
 def main() -> int:
     import torch
 
@@ -4551,6 +5132,8 @@ def main() -> int:
     kernels.update(timed("phase 1 train kernels", check_train_kernels, dev))
     kernels.update(timed("phase 1 streaming attention",
                          check_fused_attention, dev))
+    kernels.update(timed("phase 1 general attention",
+                         check_attention_widths, dev))
     kernels.update(timed("phase 1 flat kernels", check_flat_kernels, dev))
     kernels.update(timed("phase 1 flat backward kernels",
                          check_flat_bwd_kernels, dev))
@@ -4614,9 +5197,14 @@ def main() -> int:
                                            rec["max_abs_err"])
     phase8_counts, phase8_res = timed("phase 8 last modules", phase8, dev)
     print(f"[phase 8] launches: {phase8_counts}", flush=True)
+    phase9_counts, phase9_general, phase9_res = timed(
+        "phase 9 widths", phase9, dev)
+    print(f"[phase 9] launches: {phase9_counts}", flush=True)
     launches = {k: counts[k] + train_counts[k] + phase4[k] + phase5[k]
                 + phase6[k] + phase7_counts[k] + phase8_counts[k]
-                for k in counts}
+                + phase9_counts[k] for k in counts}
+    # the general kernels run in phase 9 alone
+    launches.update(phase9_general)
 
     sources = {
         "paint": ("msau_tpu_torch/csrc/paint.cu",
@@ -4639,6 +5227,20 @@ def main() -> int:
         # (pallas_attn.py:158) is blockwise XLA with this kernel's formula
         "fused_attention_bwd": ("msau_tpu_torch/csrc/attention_bwd.cu",
                                 "msau_tpu/ops/pallas_attn.py:262"),
+        # every width outside SPECIALISED_WIDTHS: the general kernels,
+        # through the same four entry points
+        "resident_attention_fwd_general": (
+            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu/ops/pallas_attn.py:238"),
+        "resident_attention_bwd_general": (
+            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu/ops/pallas_attn.py:262"),
+        "fused_attention_fwd_general": (
+            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu/ops/pallas_attn.py:41 (and :66)"),
+        "fused_attention_bwd_general": (
+            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu/ops/pallas_attn.py:262"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4657,13 +5259,15 @@ def main() -> int:
                            "variants": phase4, "entry_b": phase5,
                            "parallel": phase6,
                            "trained_end_to_end": phase7_counts,
-                           "last_modules": phase8_counts},
+                           "last_modules": phase8_counts,
+                           "widths": phase9_counts,
+                           "widths_general": phase9_general},
               "predict_p50_ms": timings, "train": train,
               "variants": variants, "entry_a_seconds": entry_seconds,
               "entry_b": entry_b_res, "spatial_shards": sp_res,
               "world_of_one": one_res,
               "trained_end_to_end": {**phase7_res, "kernels": phase7_errs},
-              "last_modules": phase8_res,
+              "last_modules": phase8_res, "widths": phase9_res,
               "checks": checks}
     with open(cuda_lib.BUILD_DIR.parent / "chip_smoke.json", "w") as f:
         json.dump(report, f, indent=1)

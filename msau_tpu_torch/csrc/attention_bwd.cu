@@ -60,10 +60,16 @@
 // rows per SM.  At T = 16384 (the streaming use) a row block could not stay
 // resident at all.  The ragged edge of T is masked: missing rows have g = h
 // = 0 and 1/l = 0 (a = 0); missing keys have f = dout = 0 and a forced to 0.
+//
+// The rows kernel is instantiated for the widths of attention.cu; every
+// other Cb, C >= 1 takes the general backward of attention_general.cuh
+// through the same entry points (launch_general: the DH, DG and DF
+// sweeps, with partial rho in place of the df scratch).
 
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_general.cuh"
 #include "attention_mma.cuh"
 
 namespace {
@@ -518,8 +524,31 @@ int launch(const void* f, const void* g, const void* h, const void* dout, const 
   return (int)cudaGetLastError();
 }
 
-// the widths of ops/attention.py:KERNEL_WIDTHS (Cb = max(C / 8, 1))
+// the widths with an instance of their own (ops/attention.py:
+// SPECIALISED_WIDTHS): the model's Cb = max(C / 8, 1) at C = 8 ... 256
 #define MSAU_ATTN_BWD_WIDTHS(X) X(1, 8) X(2, 16) X(4, 32) X(8, 64) X(16, 128) X(32, 256)
+
+// Every other width (attention_general.cuh): the DH sweep (dh, and rho in
+// one partial slice per block of columns: partial is [groups, N, T] f32,
+// groups = ops/attention.py:general_bwd_groups), then DG and DF, which add
+// the slices in order.
+template <typename T, typename TD>
+int launch_general(const void* f, const void* g, const void* h, const void* dout, const void* m,
+                   const void* l, void* df, void* dg, void* dh, void* partial, int groups, int n,
+                   int t, int cb, int c, cudaStream_t stream) {
+  using namespace general;
+  const int gpb = loop_groups(c);
+  if (cb <= 0 || c <= 0 || groups != (c + gpb * kGroup - 1) / (gpb * kGroup))
+    return (int)cudaErrorInvalidValue;
+  float* rho = (float*)partial;
+  int err = launch_sweep_groups<DH, T, TD, T>(gpb, f, g, h, dout, m, l, rho, 0, dh, n, t, cb, c,
+                                              stream);
+  if (err == 0)
+    err = launch_sweep<DG, T, TD, T, 1>(f, g, h, dout, m, l, rho, groups, dg, n, t, cb, c, stream);
+  if (err == 0)
+    err = launch_sweep<DF, T, TD, T, 1>(f, g, h, dout, m, l, rho, groups, df, n, t, cb, c, stream);
+  return err;
+}
 
 template <typename T, typename TD>
 int dispatch(const void* f, const void* g, const void* h, const void* dout, const void* m,
@@ -531,7 +560,8 @@ int dispatch(const void* f, const void* g, const void* h, const void* dout, cons
                                   stream);
   MSAU_ATTN_BWD_WIDTHS(MSAU_CASE)
 #undef MSAU_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_general<T, TD>(f, g, h, dout, m, l, df, dg, dh, partial, per_image, n, t, cb, c,
+                               stream);
 }
 
 template <typename T, typename TD>
@@ -548,7 +578,10 @@ int dispatch_slots(int cb, int c) {
 // Blocks of the backward's rows kernel that the card holds at once, for
 // these widths and types, or a negative CUDA error; the caller sizes its
 // grid from it (ops/attention.py:bwd_blocks_per_image).  dout_f32: the
-// streaming path's f32 cotangent (msau_fused_attention_bwd).
+// streaming path's f32 cotangent (msau_fused_attention_bwd).  Only the
+// widths with an instance of their own have a rows kernel; any other gives
+// -cudaErrorInvalidValue (the general backward's scratch is its partial
+// rho, sized without the card).
 extern "C" int msau_attention_bwd_slots(int cb, int c, int is_bf16, int dout_f32) {
   if (!is_bf16) return dispatch_slots<float, float>(cb, c);
   return dout_f32 ? dispatch_slots<__nv_bfloat16, float>(cb, c)
@@ -556,7 +589,10 @@ extern "C" int msau_attention_bwd_slots(int cb, int c, int is_bf16, int dout_f32
 }
 
 // partial: [per_image, N, T, Cb] f32 scratch, allocated by the caller, with
-// per_image blocks per image (at most the row tiles of an image).  dout has the operands' type.
+// per_image blocks per image (at most the row tiles of an image), for the
+// widths with an instance of their own; for any other, [per_image, N, T]
+// f32 with per_image the general backward's column blocks
+// (launch_general).  dout has the operands' type.
 extern "C" int msau_resident_attention_bwd(const void* f, const void* g, const void* h,
                                            const void* dout, const void* m, const void* l,
                                            void* df, void* dg, void* dh, void* partial,

@@ -68,11 +68,28 @@ KERNEL_WRAPPERS = {
     "fused_attention_bwd": fused_attention_bwd_cuda,
 }
 
+# the attention's general kernels (csrc/attention_general.cuh, every width
+# outside ops.attention.SPECIALISED_WIDTHS) -> the wrapper whose
+# ``general_launches`` counts them; its ``launches`` counts them too
+GENERAL_ATTENTION = {
+    "resident_attention_fwd_general": resident_attention_cuda,
+    "resident_attention_bwd_general": resident_attention_bwd_cuda,
+    "fused_attention_fwd_general": fused_attention_cuda,
+    "fused_attention_bwd_general": fused_attention_bwd_cuda,
+}
+
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for fn in GENERAL_ATTENTION.values():
+        fn.general_launches = 0
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def general_launch_counts() -> dict:
+    return {name: fn.general_launches
+            for name, fn in GENERAL_ATTENTION.items()}

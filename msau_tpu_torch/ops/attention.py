@@ -35,6 +35,12 @@ JAX package's ``_fused_bwd`` is that kernel's formula in f32).  A CPU
 tensor takes the blockwise plain versions
 (``fused_attention_plain_stats``, ``fused_attention_bwd_plain``), which
 stream blocks of ``block`` keys.
+
+Every op takes any Cb, C >= 1, as the JAX block does.  At the widths of
+``SPECIALISED_WIDTHS`` the CUDA entry points run their tensor-core
+instances; at any other they run the general kernels of
+``csrc/attention_general.cuh`` (FP32 pipes, Cb and C runtime arguments),
+which each wrapper also counts in ``general_launches``.
 """
 
 from __future__ import annotations
@@ -46,9 +52,15 @@ import torch
 from msau_tpu_torch.ops import cuda_lib
 from msau_tpu_torch.ops.precision import wide_dtype
 
-# (Cb, C) pairs the kernel is instantiated for: the model's projections
-# have Cb = max(C // 8, 1)
-KERNEL_WIDTHS = ((1, 8), (2, 16), (4, 32), (8, 64), (16, 128), (32, 256))
+# (Cb, C) pairs with kernel instances of their own (tensor-core kernels,
+# csrc/attention.cu and attention_bwd.cu): the model's Cb = max(C // 8, 1)
+# at feat_root 8 and pool 2, C = 8 ... 256.  Every other Cb, C >= 1 takes
+# the general kernels (csrc/attention_general.cuh), with Cb and C as
+# runtime arguments; the block builds any Cb = max(C // num_heads, 1).
+SPECIALISED_WIDTHS = ((1, 8), (2, 16), (4, 32), (8, 64), (16, 128),
+                      (32, 256))
+# output columns of a group of the general kernels (general::kGroup)
+GENERAL_GROUP = 64
 
 
 def _rounded_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -135,18 +147,20 @@ def _check_operands(name: str, f: torch.Tensor, g: torch.Tensor,
     if g.shape != f.shape or h.shape[:2] != (n, t):
         raise ValueError(f"{name}: shapes f {tuple(f.shape)} "
                          f"g {tuple(g.shape)} h {tuple(h.shape)}")
-    if (cb, c) not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: (Cb, C) = {(cb, c)} not in "
-                         f"{KERNEL_WIDTHS}")
+    if cb < 1 or c < 1:
+        raise ValueError(f"{name}: (Cb, C) = {(cb, c)}: both must be >= 1")
     return n, t, cb, c
 
 
 def resident_attention_cuda(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the kernel (stats, then accumulate; no scratch) -> (out, m,
+    """Launch the kernels (stats, then accumulate; no scratch; the
+    general pair at a width outside ``SPECIALISED_WIDTHS``) -> (out, m,
     l), where m, l ([N, T] f32) are each query row's score max and sum-exp.
-    ``resident_attention_cuda.launches`` counts calls."""
+    ``resident_attention_cuda.launches`` counts calls, and
+    ``.general_launches`` those at a width outside ``SPECIALISED_WIDTHS``
+    (the other three wrappers count alike)."""
     n, t, cb, c = _check_operands("resident_attention", f, g, h)
     out = torch.empty_like(h)
     m = torch.empty((n, t), dtype=torch.float32, device=f.device)
@@ -157,10 +171,13 @@ def resident_attention_cuda(
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_resident_attention_fwd", code)
     resident_attention_cuda.launches += 1
+    resident_attention_cuda.general_launches += (
+        (cb, c) not in SPECIALISED_WIDTHS)
     return out, m, l
 
 
 resident_attention_cuda.launches = 0
+resident_attention_cuda.general_launches = 0
 
 
 def bwd_row_block(c: int) -> int:
@@ -180,9 +197,22 @@ def bwd_blocks_per_image(n: int, t: int, c: int, slots: int) -> int:
     return -(-tiles // per_block)
 
 
+def general_bwd_groups(c: int) -> int:
+    """Column blocks of the general backward's dh sweep, each holding the
+    fewest of 1, 2, 4 groups of ``GENERAL_GROUP`` that cover C, at most 4
+    (``general::loop_groups``); one partial rho slice each."""
+    per_block = 1 if c <= GENERAL_GROUP else 2 if c <= 2 * GENERAL_GROUP else 4
+    return -(-c // (per_block * GENERAL_GROUP))
+
+
 def _bwd_scratch(f: torch.Tensor, c: int, dout_f32: bool) -> torch.Tensor:
-    """The backward's df scratch, [blocks per image, N, T, Cb] f32."""
+    """The backward's scratch: at ``SPECIALISED_WIDTHS`` its df slices,
+    [blocks per image, N, T, Cb] f32; at any other width the general
+    kernels' partial rho, [general_bwd_groups(C), N, T] f32."""
     n, t, cb = f.shape
+    if (cb, c) not in SPECIALISED_WIDTHS:
+        return torch.empty((general_bwd_groups(c), n, t),
+                           dtype=torch.float32, device=f.device)
     slots = cuda_lib.library().msau_attention_bwd_slots(
         cb, c, int(f.dtype == torch.bfloat16), int(dout_f32))
     if slots <= 0:
@@ -211,10 +241,12 @@ def resident_attention_bwd_cuda(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
     l: torch.Tensor, dout: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel (rows pass, df combine) -> (df, dg, dh)
-    in the input dtype.  ``resident_attention_bwd_cuda.launches`` counts
-    calls; ``resident_attention_bwd_cuda.scratch_bytes`` is the last call's
-    df scratch."""
+    """Launch the backward kernels (rows pass and df combine; at a width
+    outside ``SPECIALISED_WIDTHS`` the general dh, dg and df sweeps) ->
+    (df, dg, dh) in the input dtype.
+    ``resident_attention_bwd_cuda.launches`` counts calls;
+    ``resident_attention_bwd_cuda.scratch_bytes`` is the last call's
+    scratch."""
     n, t, cb, c = _check_operands("resident_attention_bwd", f, g, h)
     _check_bwd_operands("resident_attention_bwd", f, h, m, l, dout, h.dtype)
     df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
@@ -226,11 +258,14 @@ def resident_attention_bwd_cuda(
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_resident_attention_bwd", code)
     resident_attention_bwd_cuda.launches += 1
+    resident_attention_bwd_cuda.general_launches += (
+        (cb, c) not in SPECIALISED_WIDTHS)
     resident_attention_bwd_cuda.scratch_bytes = 4 * partial.numel()
     return df, dg, dh
 
 
 resident_attention_bwd_cuda.launches = 0
+resident_attention_bwd_cuda.general_launches = 0
 resident_attention_bwd_cuda.scratch_bytes = 0
 
 
@@ -355,20 +390,24 @@ def fused_attention_cuda(
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_fused_attention_fwd", code)
     fused_attention_cuda.launches += 1
+    fused_attention_cuda.general_launches += (
+        (cb, c) not in SPECIALISED_WIDTHS)
     return out, m, l
 
 
 fused_attention_cuda.launches = 0
+fused_attention_cuda.general_launches = 0
 
 
 def fused_attention_bwd_cuda(
     f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
     l: torch.Tensor, dout: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel on the streaming forward's f32 cotangent
-    (its f32 path whatever the operands' type) -> (df, dg, dh) in the
+    """Launch the backward kernels on the streaming forward's f32
+    cotangent (the f32 path whatever the operands' type; the general
+    sweeps outside ``SPECIALISED_WIDTHS``) -> (df, dg, dh) in the
     operands' dtype.  ``fused_attention_bwd_cuda.launches`` counts calls;
-    ``fused_attention_bwd_cuda.scratch_bytes`` is the last call's df
+    ``fused_attention_bwd_cuda.scratch_bytes`` is the last call's
     scratch."""
     n, t, cb, c = _check_operands("fused_attention_bwd", f, g, h)
     _check_bwd_operands("fused_attention_bwd", f, h, m, l, dout,
@@ -382,11 +421,14 @@ def fused_attention_bwd_cuda(
         int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_fused_attention_bwd", code)
     fused_attention_bwd_cuda.launches += 1
+    fused_attention_bwd_cuda.general_launches += (
+        (cb, c) not in SPECIALISED_WIDTHS)
     fused_attention_bwd_cuda.scratch_bytes = 4 * partial.numel()
     return df, dg, dh
 
 
 fused_attention_bwd_cuda.launches = 0
+fused_attention_bwd_cuda.general_launches = 0
 fused_attention_bwd_cuda.scratch_bytes = 0
 
 

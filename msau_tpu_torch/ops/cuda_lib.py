@@ -55,6 +55,9 @@ SIGNATURES = {
     # is_bf16, stream
     "msau_resident_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
+    # groups (0, 1 or 4) -> the setting it replaces: how the general
+    # attention forward splits C (csrc/attention.cu: g_fwd_groups)
+    "msau_attention_fwd_groups": (_I,),
     # f, g, h, out (f32), m, l, n, t, cb, c, is_bf16, stream
     "msau_fused_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _P),

@@ -6,7 +6,8 @@ port counterpart or its reason.  One test per module of ``msau_tpu/``.
 ``TPU_ONLY`` holds the body-flat layout helpers (the port's flat layers
 take ``flat=True`` over NCHW tensors, ``ops/flatconv.py``), the Pallas
 dispatchers and support gates (the port's ``ops/*`` wrappers take any
-shape), the TPU precision knob, initialisers the port writes as one
+shape: the attention any Cb and C, on the card through its general
+kernels where no specialised instance has the width), the TPU precision knob, initialisers the port writes as one
 helper, the oracles, and one capability: ``start_server``.
 """
 
@@ -106,7 +107,8 @@ TPU_ONLY = {
     "ops.paint_pallas:paint_boxes_pallas": (
         DISPATCH, "ops.paint:paint_boxes_cuda", "the Pallas launcher"),
     "ops.pallas_attn:resident_attn_supported": (
-        DISPATCH, None, "VMEM gate; the port's resident kernel takes any T"),
+        DISPATCH, None, "VMEM gate; the port's resident kernels take any "
+        "T, Cb and C"),
     "utils.profiling:start_server": (
         CAPABILITY, "utils.profiling:capture_trace",
         "a live JAX profiler server has no torch counterpart; capture_trace "

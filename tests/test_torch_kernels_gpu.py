@@ -22,9 +22,11 @@ by max(1, the largest |gradient|), is at most 1e-4 in f32 (sums over T =
 4096 keys in another order, and rho cancels against h . dout) and 2e-2 for
 bf16 (rounded outputs).  Both run on every ``ATTN_SHAPES`` entry (the
 train step's and a page's instances, ragged T, every width of
-``KERNEL_WIDTHS``) with the same bits on a second run, and in bf16 with
-integer logits near 2e5.  The masked CE: ``correct``
-exact (sums of 0/1), ``ce_sum`` to rel 1e-5 (f32 sums in another order),
+``SPECIALISED_WIDTHS``, and ``GENERAL_SHAPES``: widths outside it, which
+the general kernels take, C 4 to 1024) with the same bits on a second
+run, and in bf16 with integer logits near 2e5 (at Cb 8 and at Cb 64);
+the general streaming forward against its plain version in float64.  The
+masked CE: ``correct`` exact (sums of 0/1), ``ce_sum`` to rel 1e-5 (f32 sums in another order),
 dlogits to 1e-6 in f32 and 1e-2 in bf16 (one bf16 rounding of values <= 1).
 The flat-layout ops (``utils.flat_cases``: the flagship's serve shapes and
 ragged ones): the layout copy and the max pool exact; the convs, the
@@ -220,9 +222,17 @@ def _scaled_err(got, want):
 
 # (N, T, Cb, C) of the resident attention: the flagship train step's
 # instance and a page's, ragged T, and the other instantiated widths
+# (SPECIALISED_WIDTHS); then widths the general kernels take, the model's
+# (feat_root 12: C 96; pool 3: C 216; 6 scales at feat_root 16 and 32: C
+# 512, 1024) and odd ones, at small and ragged T, and the feat_root-12
+# train step's instance (N 16, T 4096)
+GENERAL_SHAPES = [(2, 37, 1, 4), (2, 300, 2, 20), (2, 129, 3, 24),
+                  (2, 300, 12, 96), (16, 4096, 12, 96), (1, 324, 27, 216),
+                  (2, 100, 48, 384), (4, 256, 64, 512), (2, 70, 128, 1024)]
 ATTN_SHAPES = [(16, 4096, 8, 64), (1, 4096, 8, 64), (2, 1000, 8, 64),
                (3, 66, 8, 64), (2, 300, 1, 8), (2, 300, 2, 16),
-               (1, 520, 4, 32), (1, 300, 16, 128), (2, 300, 32, 256)]
+               (1, 520, 4, 32), (1, 300, 16, 128), (2, 300, 32, 256)
+               ] + GENERAL_SHAPES
 
 
 def _attention_case(cuda, n, t, cb, c, dtype, scale=1.0):
@@ -296,11 +306,45 @@ def test_attention_kernels_bf16_large_logits(cuda):
         assert _scaled_err(a, b) <= 2e-2, (name, _scaled_err(a, b))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["resident", "streaming"])
+def test_general_attention_bf16_large_logits(cuda, op):
+    """Integer logits near 2e5 and above at Cb 64, C 512 (the general
+    kernels; each logit an integer below 2^24, exact in any sum order): m
+    to the bit, the output and gradients within the bf16 tolerances."""
+    f, g, h, dout = _attention_case(cuda, 2, 256, 64, 512, torch.bfloat16,
+                                    100.0)
+    if op == "resident":
+        got, m, l = resident_attention_cuda(f, g, h)
+        want, wm, wl = resident_attention_plain_stats(f, g, h)
+        tol, bwd, bwd_plain = 2e-2, resident_attention_bwd_cuda, \
+            resident_attention_bwd_plain
+    else:
+        got, m, l = fused_attention_cuda(f, g, h)
+        want, wm, wl = fused_attention_plain_stats(f, g, h)
+        tol, bwd, bwd_plain = 1e-5, fused_attention_bwd_cuda, \
+            fused_attention_bwd_plain
+        dout = dout.float()
+    assert _scaled_err(got, want) <= tol
+    torch.testing.assert_close(m, wm, rtol=0, atol=0)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=0)
+    grads = bwd(f, g, h, wm, wl, dout)
+    again = bwd(f, g, h, wm, wl, dout)
+    for name, a, b, a2 in zip(("df", "dg", "dh"), grads,
+                              bwd_plain(f, g, h, wm, wl, dout), again):
+        assert _scaled_err(a, b) <= 2e-2, (name, _scaled_err(a, b))
+        assert torch.equal(a, a2), name
+
+
 # (N, T, Cb, C): config 5's deepest scale, ragged T above and below the
 # streaming threshold, and the other instantiated widths
 FUSED_SHAPES = [(2, 16384, 8, 64), (1, 8200, 8, 64), (3, 66, 8, 64),
                 (2, 300, 1, 8), (2, 300, 2, 16), (1, 520, 4, 32),
                 (1, 300, 16, 128), (2, 300, 32, 256)]
+# the streaming pair at the general kernels' widths (but the N 16 train
+# step) and config 5 at feat_root 12 (C 96, T 16384)
+GENERAL_FUSED_SHAPES = [s for s in GENERAL_SHAPES if s[0] != 16] + [
+    (2, 16384, 12, 96)]
 
 
 @pytest.mark.gpu
@@ -310,12 +354,14 @@ def test_fused_attention_kernel_matches_plain(cuda, n, t, cb, c, dtype):
     f, g, h = (torch.from_numpy(a).to(cuda, dtype) for a in
                attention_inputs(np.random.default_rng(t), n, t, cb, c))
     got, m, l = fused_attention_cuda(f, g, h)
+    again = fused_attention_cuda(f, g, h)
     torch.cuda.synchronize()
     want, wm, wl = fused_attention_plain_stats(f, g, h)
     assert got.dtype == torch.float32 and got.shape == (n, t, c)
     assert _scaled_err(got, want) <= 1e-5
     torch.testing.assert_close(m, wm, rtol=0, atol=1e-5)
     torch.testing.assert_close(l, wl, rtol=1e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip((got, m, l), again))
 
 
 @pytest.mark.gpu
@@ -410,6 +456,41 @@ def test_fused_attention_bwd_kernel_matches_plain(cuda, n, t, cb, c, dtype,
         assert a.dtype == dtype and a.shape == b.shape, name
         assert _scaled_err(a, b) <= tol, (name, _scaled_err(a, b))
         assert torch.equal(a, a2), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t,cb,c", GENERAL_FUSED_SHAPES)
+def test_general_fused_attention_kernel_matches_exact(cuda, n, t, cb, c,
+                                                      dtype):
+    """The general streaming forward against the plain version in float64
+    (the exact answer for either operand dtype): at Cb 64 and above the
+    logits reach 60-90, where the f32 plain version's own m lies ~1e-5
+    off (one f32 ulp there is 7.6e-6), while the kernel sums the f32
+    scores in f64 and rounds m once.  1e-5 of max(1, max |want|), m 1e-5,
+    l a relative 1e-5, the same bits on a rerun."""
+    f, g, h = (torch.from_numpy(a).to(cuda, dtype) for a in
+               attention_inputs(np.random.default_rng(t), n, t, cb, c))
+    got = fused_attention_cuda(f, g, h)
+    again = fused_attention_cuda(f, g, h)
+    torch.cuda.synchronize()
+    want, wm, wl = fused_attention_plain_stats(f.double(), g.double(),
+                                               h.double())
+    assert got[0].dtype == torch.float32 and got[0].shape == (n, t, c)
+    assert _scaled_err(got[0], want) <= 1e-5
+    torch.testing.assert_close(got[1].double(), wm, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2].double(), wl, rtol=1e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,t,cb,c", GENERAL_FUSED_SHAPES)
+def test_general_fused_attention_bwd_kernel_matches_plain(cuda, n, t, cb, c,
+                                                          dtype, tol):
+    test_fused_attention_bwd_kernel_matches_plain(cuda, n, t, cb, c, dtype,
+                                                  tol)
 
 
 @pytest.mark.gpu
