@@ -78,8 +78,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   materialised [T, T] form (1e-5); the forward timed at N
                   2 and N 1;
        general attention  every width outside SPECIALISED_WIDTHS takes the
-                  kernels of csrc/attention_general.cuh: the resident pair
-                  on ATTN_WIDTH_CASES (C 4 to 1024, ragged T, and phase 9's
+                  kernels of csrc/attention_general_fwd.cu and
+                  attention_general_bwd.cu: the resident pair
+                  on ATTN_WIDTH_CASES (C 4 to 2400, ragged T, and phase 9's
                   train instances) by the attention's tolerances above, and
                   the streaming pair on FUSED_WIDTH_CASES (also T 16384 at
                   C 96) against float64 (ATTN_TOL, ATTN_STATS_TOL), its
@@ -87,9 +88,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   logits at Cb 64, each twice for equal bits; the autograd
                   ops on the card at each width with every plain version
                   made to raise, each launch counted once in launches and
-                  in general_launches; phase 9's instances timed
-                  (ATTN_WIDTH_TIMED) beside their plain versions and
-                  bounds, the f32 forward with both ways of splitting C;
+                  in general_launches; phase 9's instances and two wide
+                  ones timed (ATTN_WIDTH_TIMED) beside their plain
+                  versions, the bound and the tensor-core bound of the
+                  design's products (_attention_tc_bound);
   2. the serve path, KVModel.predict, of the flagship model (img_channels 64,
      17 classes, 4 scales, feat_root 8, res_depth 2, 3 stages) at
      flat_scales 0 and 3, f32 and bf16, with the same seeded random weights
@@ -328,9 +330,14 @@ def _profile_once(fn, iters, keys=None):
     return per_call / 1e3, (min(launches), max(launches))
 
 
-# how the calls of _device_time were timed in this run, and whether the
-# profiler last failed a call outright
-TIMER = {"profiler_calls": 0, "event_calls": 0, "profiler_down": False}
+# how the calls of _device_time were timed in this run, whether the
+# profiler last failed a call outright, and the host clock before which a
+# call after such a failure asks it no more
+TIMER = {"profiler_calls": 0, "event_calls": 0, "profiler_down": False,
+         "retry_at": 0.0}
+# seconds a failed profiler is left alone: its outages last minutes, and
+# each session asked during one costs as much host time as a recorded one
+PROFILER_RETRY_S = 20.0
 
 
 def _event_time(fn, iters):
@@ -358,12 +365,17 @@ def _device_time(fn, iters, attempts=3):
     after a pause, up to ``attempts`` times.  Now and then the profiler
     stays empty for minutes, every session started within a few seconds of
     the last one lost (one run lost 159 sessions): a call that used up its
-    attempts takes CUDA events (``_event_time``), and until the profiler
-    records again each later call gives it one session and no pause, so the
-    run ends inside its time limit; TIMER counts both, and the report and
-    the line before the kernels' say how many calls fell back."""
+    attempts takes CUDA events (``_event_time``), the calls of the next
+    PROFILER_RETRY_S seconds take them with no session, and until the
+    profiler records again each later call gives it one session and no
+    pause, so the run ends inside its time limit; TIMER counts both, and
+    the report and the line before the kernels' say how many calls fell
+    back."""
     for _ in range(2):
         fn()
+    if TIMER["profiler_down"] and time.perf_counter() < TIMER["retry_at"]:
+        TIMER["event_calls"] += 1
+        return _event_time(fn, iters)
     for i in range(1 if TIMER["profiler_down"] else attempts):
         got = _profile_once(fn, iters)
         if got is not None:
@@ -375,6 +387,7 @@ def _device_time(fn, iters, attempts=3):
         if not TIMER["profiler_down"] and i + 1 < attempts:
             time.sleep(0.5 * 2 ** i)
     TIMER["profiler_down"] = True
+    TIMER["retry_at"] = time.perf_counter() + PROFILER_RETRY_S
     TIMER["event_calls"] += 1
     print("[timer] timed by CUDA events instead", flush=True)
     return _event_time(fn, iters)
@@ -611,6 +624,21 @@ ATTN_STATS_TOL = 1e-4
 CE_SHAPE = (16, 17, 512 * 512)
 
 
+def _attention_bytes(kernel, n, t, cb, c, itemsize):
+    """Bytes one call of an attention kernel must move: forward f, g, h in,
+    out and m, l (f32) out; backward f, g, h, dout, m, l in, df, dg, dh
+    out.  The streaming forward's output is f32 whatever the operands, and
+    the streaming backward counts 4-byte items (its f32 path)."""
+    out_size = itemsize
+    if kernel == "fused_attention_fwd":
+        out_size = 4
+    elif kernel.startswith("fused_attention"):
+        itemsize = out_size = 4
+    if kernel.endswith("_fwd"):
+        return n * t * ((2 * cb + c) * itemsize + c * out_size) + n * t * 8
+    return n * t * (4 * cb + 3 * c) * itemsize + n * t * 8
+
+
 def _attention_bound(kernel, n, t, cb, c, itemsize):
     """(bound_ms, bound_by) of one call of an attention kernel.  Forward:
     the score product and A^T h; f, g, h in, out and m, l (f32) out.
@@ -626,19 +654,56 @@ def _attention_bound(kernel, n, t, cb, c, itemsize):
     their own (bound by operations where it is the larger)."""
     fwd = kernel.endswith("_fwd")
     flops = 2 * n * t * t * ((cb + c) if fwd else (3 * cb + 2 * c))
-    peak, out_size = PEAK_F32_FLOPS, itemsize
+    peak = PEAK_F32_FLOPS
     if kernel == "fused_attention_fwd" and itemsize == 2:
         flops = 2 * n * t * t * (cb + 3 * c)
-        peak, out_size = PEAK_BF16_FLOPS, 4
-    elif kernel.startswith("fused_attention"):
-        itemsize = out_size = 4
+        peak = PEAK_BF16_FLOPS
     elif kernel in DTYPE_AWARE and itemsize == 2:
         peak = PEAK_BF16_FLOPS
-    nbytes = n * t * (((2 * cb + c) * itemsize + c * out_size) if fwd
-                      else (4 * cb + 3 * c) * itemsize) + n * t * 2 * 4
-    ms, by = _bound(flops, nbytes, peak)
+    ms, by = _bound(flops, _attention_bytes(kernel, n, t, cb, c, itemsize),
+                    peak)
     exp_ms = n * t * t / PEAK_EXP_PER_S * 1e3
     return (exp_ms, "operations") if exp_ms > ms else (ms, by)
+
+
+# The FP64 tensor cores' peak (H100 SXM data sheet), where the general
+# attention kernels sum the f32 score product
+PEAK_F64_TC_FLOPS = 67e12
+
+
+def _attention_tc_bound(kernel, n, t, cb, c, itemsize):
+    """(bound_ms, bound_by) of one call of a general attention kernel at
+    the tensor cores' rates, by the products its design forms
+    (csrc/attention_general_fwd.cu, _bwd.cu): the score product in each of
+    its two passes (forward: stats and accumulate; backward: dh and ds), on the
+    FP64 tensor cores with f32 operands and in bf16 with bf16 ones; every
+    other product in bf16 as as many terms as its parts give (f32
+    operands: six; bf16: one; an f32 A, ds or dout against bf16 operands:
+    three; f32 A, ds and dout against each other: six); 2 N T^2
+    exponentials (one a pass) on the SFUs; the bytes as _attention_bound
+    counts them."""
+    fwd = kernel.endswith("_fwd")
+    stream = kernel.startswith("fused_attention")
+    bf16 = itemsize == 2
+    score = 2 * 2 * n * t * t * cb
+    if fwd:
+        # A^T h: A in f32 for an f32 output (the streaming form)
+        terms = 1 if bf16 and not stream else 3 if bf16 else 6
+        wide = terms * 2 * n * t * t * c
+    else:
+        # a dout and h dout^T over C, ds f and ds^T g over Cb; the
+        # streaming backward's cotangent is f32 in both dtypes
+        dterm = 3 if stream else 1
+        wide = (2 * n * t * t * c * (6 if stream or not bf16 else 1)
+                + 2 * n * t * t * c * (6 if not bf16 else dterm)
+                + 2 * 2 * n * t * t * cb * (6 if not bf16 else dterm))
+    ms = score / (PEAK_BF16_FLOPS if bf16 else PEAK_F64_TC_FLOPS) * 1e3 + (
+        wide / PEAK_BF16_FLOPS * 1e3)
+    exp_ms = 2 * n * t * t / PEAK_EXP_PER_S * 1e3
+    bytes_ms = (_attention_bytes(kernel, n, t, cb, c, itemsize)
+                / PEAK_BYTES_PER_S * 1e3)
+    return max((ms, "operations"), (exp_ms, "operations"),
+               (bytes_ms, "bytes"))
 
 
 def _attention_tensors(dev, n, t, cb, c, dtype, scale=1.0):
@@ -708,6 +773,11 @@ def check_attention_kernels(dev, cases=None, phase="phase 1", large=None):
             err = {"max_abs_err": _max_abs(got[0], want),
                    "vs_f32_plain_max_abs_err": f32_err,
                    "scaled_err": _scaled_err(got[0], want),
+                   # the largest share of its allowance (rtol = atol = tol)
+                   # any element uses: the check below holds while <= 1
+                   "tol_share": float(((got[0].double() - want.double()).abs()
+                                       / (tol * (1 + want.double().abs()))
+                                       ).max()),
                    "m_max_abs_err": _max_abs(got[1], wm),
                    "l_max_rel_err": float(((got[2] - wl).abs() / wl).max()),
                    "tol": tol, "bit_identical": all(
@@ -830,26 +900,34 @@ def attention_times(dev, iters=10):
     return out
 
 
-# ---- the attention at any width (csrc/attention_general.cuh) -------------
+# ---- the attention at any width (csrc/attention_general_*.cu) ------------
 
 # (N, T, Cb, C) of the general kernels' card cases, each in f32 and bf16,
 # resident and streaming: every width outside
 # ops/attention.py:SPECIALISED_WIDTHS takes them.  The widths of
 # tests/test_torch_attention_widths.py at small and ragged T (37, 129,
-# 300, 70, 100), and phase 9's train instances at feat_root 12 (C 96, N 16,
-# T 4096) and at the reference defaults with feat_root 16 (C 512, N 4, T
-# 256); the streaming cases add config 5's T 16384 at feat_root 12
+# 300, 70, 100), two that stress the padding (Cb 5, 7; C 40, 52: k and n
+# tiles partly past the edge), a Cb past 128 (the backward's dg and df in
+# two launches), one past the 256 columns the kernels stage (Cb 300, C
+# 2400: the rest read from global memory), and phase 9's train instances
+# at feat_root 12 (C 96, N 16, T 4096) and at the reference defaults with
+# feat_root 16 (C 512, N 4, T 256); the streaming cases add config 5's T
+# 16384 at feat_root 12
 ATTN_WIDTH_CASES = ((2, 37, 1, 4), (2, 300, 2, 20), (2, 129, 3, 24),
                     (2, 300, 12, 96), (16, 4096, 12, 96), (1, 324, 27, 216),
-                    (2, 100, 48, 384), (4, 256, 64, 512), (2, 70, 128, 1024))
+                    (2, 100, 48, 384), (4, 256, 64, 512), (2, 70, 128, 1024),
+                    (2, 300, 5, 40), (3, 45, 7, 52), (1, 100, 200, 256),
+                    (1, 64, 300, 2400))
 FUSED_WIDTH_CASES = ATTN_WIDTH_CASES[:4] + ATTN_WIDTH_CASES[5:] + (
     (2, 16384, 12, 96),)
 # integer logits near 2e5 and above (ATTN_LARGE_LOGITS) at the widest
 # score product phase 9 runs, Cb 64: each logit an integer below 2^24
 ATTN_WIDTH_LARGE_LOGITS = (2, 256, 64, 512, 100.0)
 # phase 9's attention instances, each timed in f32 and bf16 beside its
-# plain version and bound, the forward also with each way of splitting C
-# (attention.cu: g_fwd_groups): label -> (op, N, T, Cb, C, backward too)
+# plain version and both bounds, and two wide ones whose backward forms
+# the scores in more than two passes (C 512: three; C 1024: five; the
+# forward's accumulate forms them once per 128 columns of C): label ->
+# (op, N, T, Cb, C, backward too)
 ATTN_WIDTH_TIMED = {
     "9a train": ("resident", 16, 4096, 12, 96, True),
     "9a serve": ("resident", 1, 4096, 12, 96, False),
@@ -858,6 +936,8 @@ ATTN_WIDTH_TIMED = {
     "9c train": ("streaming", 2, 16384, 12, 96, True),
     "9d train": ("resident", 4, 324, 27, 216, True),
     "9d serve": ("resident", 1, 361, 27, 216, False),
+    "C 512, T 4096": ("resident", 1, 4096, 64, 512, True),
+    "C 1024, T 1000": ("resident", 1, 1000, 128, 1024, True),
 }
 # the kernels line's entry for each general kernel: its instance above
 GENERAL_TIMED_ON = {"resident_attention_fwd_general": "9a train",
@@ -1039,17 +1119,14 @@ def _general_autograd_on_card(dev):
 
 
 def attention_width_times(dev, iters=10):
-    """ATTN_WIDTH_TIMED: each instance's device ms (f32 and bf16), the f32
-    forward also with every group of C in the grid (1) and with a block's
-    groups looped over one staged A tile (4; the fewest of 1, 2, 4 that
-    cover C) beside the library's default (0), then the plain versions'
-    and the bounds -> {label: {dtype: record}}."""
+    """ATTN_WIDTH_TIMED: each instance's device ms (f32 and bf16), the
+    plain versions', the bound (_attention_bound) and the tensor-core bound
+    of the design's products (_attention_tc_bound) -> {label: {dtype:
+    record}}."""
     import torch
 
     from msau_tpu_torch.ops import attention as A
-    from msau_tpu_torch.ops import cuda_lib
 
-    lib = cuda_lib.library()
     out = {}
     for label, (op, n, t, cb, c, with_bwd) in ATTN_WIDTH_TIMED.items():
         out[label] = {}
@@ -1067,17 +1144,13 @@ def attention_width_times(dev, iters=10):
                                                getattr(torch, key))
             if not res:
                 dout = dout.float()
-            rec = {}
-            # the two ways of splitting C in f32 (bf16 read alike in a probe)
-            for groups in (1, 4, 0) if key == "float32" else (0,):
-                lib.msau_attention_fwd_groups(groups)
-                rec[f"fwd_groups{groups}_ms"] = _cuda_ms(
-                    lambda: fwd_k(f, g, h), 2 * iters)
-            lib.msau_attention_fwd_groups(0)
-            rec["fwd_ms"] = rec["fwd_groups0_ms"]
+            isz = f.element_size()
+            rec = {"fwd_ms": _cuda_ms(lambda: fwd_k(f, g, h), 2 * iters)}
             rec["fwd_plain_ms"] = _cuda_ms(lambda: fwd_p(f, g, h), 3)
             rec["fwd_bound"] = _attention_bound(f"{kname}_fwd", n, t, cb, c,
-                                                f.element_size())
+                                                isz)
+            rec["fwd_tc_bound"] = _attention_tc_bound(f"{kname}_fwd", n, t,
+                                                      cb, c, isz)
             if with_bwd:
                 _, m, l = fwd_k(f, g, h)
                 rec["bwd_ms"] = _cuda_ms(lambda: bwd_k(f, g, h, m, l, dout),
@@ -1085,7 +1158,9 @@ def attention_width_times(dev, iters=10):
                 rec["bwd_plain_ms"] = _cuda_ms(
                     lambda: bwd_p(f, g, h, m, l, dout), 3)
                 rec["bwd_bound"] = _attention_bound(f"{kname}_bwd", n, t, cb,
-                                                    c, f.element_size())
+                                                    c, isz)
+                rec["bwd_tc_bound"] = _attention_tc_bound(
+                    f"{kname}_bwd", n, t, cb, c, isz)
                 del m, l
             out[label][key] = rec
             print(f"[phase 1] general attention {label} (N {n}, T {t}, Cb "
@@ -4852,7 +4927,7 @@ def phase8(dev):
 # ---- phase 9: the model at widths outside SPECIALISED_WIDTHS --------------
 # Each configuration trained and served on the card through Trainer and
 # KVModel with seeded random weights; every deepest-scale attention takes
-# the general kernels (csrc/attention_general.cuh).
+# the general kernels (csrc/attention_general_fwd.cu, _bwd.cu).
 #   9a  the flagship's geometry (bench.py: 512^2, 3 stages, res_depth 2, 64
 #       input channels, 17 classes) at feat_root 12: C 96, Cb 12, T 4096;
 #       train bf16 at flat_scales 3, serve the bench page in f32 at fs 0
@@ -5230,16 +5305,16 @@ def main() -> int:
         # every width outside SPECIALISED_WIDTHS: the general kernels,
         # through the same four entry points
         "resident_attention_fwd_general": (
-            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu_torch/csrc/attention_general_fwd.cu",
             "msau_tpu/ops/pallas_attn.py:238"),
         "resident_attention_bwd_general": (
-            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu_torch/csrc/attention_general_bwd.cu",
             "msau_tpu/ops/pallas_attn.py:262"),
         "fused_attention_fwd_general": (
-            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu_torch/csrc/attention_general_fwd.cu",
             "msau_tpu/ops/pallas_attn.py:41 (and :66)"),
         "fused_attention_bwd_general": (
-            "msau_tpu_torch/csrc/attention_general.cuh",
+            "msau_tpu_torch/csrc/attention_general_bwd.cu",
             "msau_tpu/ops/pallas_attn.py:262"),
     }
     line = {"kernels": [

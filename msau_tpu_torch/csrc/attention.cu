@@ -78,10 +78,8 @@
 // (8, 64), (16, 128) and (32, 256): the model's Cb = max(C / 8, 1) at
 // feat_root 8 and pool 2.  Every other Cb, C >= 1 (feat_root 12 or 16,
 // pool 3, a seventh scale...) takes the general pair of
-// attention_general.cuh through the same entry points: its stats kernel
-// and its FWD sweep, on the FP32 pipes, Cb and C runtime arguments, C in
-// groups of 64 columns that a block loops over on one staged A tile or
-// that the grid takes (general_fwd_groups).
+// attention_general_fwd.cu through the same entry points: the same two
+// launches on the tensor cores with Cb and C runtime arguments.
 
 #include <math.h>
 #include <stdint.h>
@@ -540,33 +538,6 @@ int launch(const void* f, const void* g, const void* h, void* out, void* m, void
   return (int)cudaGetLastError();
 }
 
-// Groups of general::kGroup output columns a block of the general forward
-// holds (msau_attention_fwd_groups): 1 gives every group to the grid, 4 the
-// fewest of 1, 2, 4 that cover C (one A tile, staged once per chunk, for
-// all of them), 0 picks by the rule in general_fwd_groups.
-int g_fwd_groups = 0;
-
-int general_fwd_groups(int n, int t, int c) {
-  const int loop = general::loop_groups(c);
-  if (g_fwd_groups == 1 || g_fwd_groups == 4) return g_fwd_groups == 1 ? 1 : loop;
-  // the block's loop, unless its grid leaves SMs without a block: then
-  // the grid takes the groups, each block recomputing its scores
-  const int64_t blocks = (int64_t)n * ((t + general::kRows - 1) / general::kRows) *
-                         ((c + loop * general::kGroup - 1) / (loop * general::kGroup));
-  return blocks < general::sm_count() ? 1 : loop;
-}
-
-// Every width without an instance of its own: stats, then the FWD sweep
-// (attention_general.cuh).
-template <typename T, typename TO>
-int launch_general(const void* f, const void* g, const void* h, void* out, void* m, void* l,
-                   int n, int t, int cb, int c, cudaStream_t stream) {
-  const int err = general::launch_stats<T>(f, g, m, l, n, t, cb, stream);
-  if (err != 0) return err;
-  return general::launch_sweep_groups<general::FWD, T, T, TO>(
-      general_fwd_groups(n, t, c), f, g, h, h, m, l, nullptr, 0, out, n, t, cb, c, stream);
-}
-
 template <typename T, typename TO>
 int dispatch(const void* f, const void* g, const void* h, void* out, void* m, void* l, int n,
              int t, int cb, int c, cudaStream_t stream) {
@@ -582,8 +553,8 @@ int dispatch(const void* f, const void* g, const void* h, void* out, void* m, vo
   MSAU_ATTN_CASE(16, 128)
   MSAU_ATTN_CASE(32, 256)
 #undef MSAU_ATTN_CASE
-  if (cb <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  return launch_general<T, TO>(f, g, h, out, m, l, n, t, cb, c, stream);
+  // every other width: attention_general_fwd.cu
+  return general::fwd(f, g, h, out, m, l, n, t, cb, c, !kF32<T>, kF32<TO>, stream);
 }
 
 }  // namespace
@@ -606,14 +577,4 @@ extern "C" int msau_fused_attention_fwd(const void* f, const void* g, const void
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? dispatch<bf16, float>(f, g, h, out, m, l, n, t, cb, c, s)
                  : dispatch<float, float>(f, g, h, out, m, l, n, t, cb, c, s);
-}
-
-// Sets how the general forward splits C (g_fwd_groups: 0, 1 or 4) and
-// returns the setting it replaces; -1 for any other value.  For measuring
-// the two ways against each other; the library starts at 0.
-extern "C" int msau_attention_fwd_groups(int groups) {
-  if (groups != 0 && groups != 1 && groups != 4) return -1;
-  const int old = g_fwd_groups;
-  g_fwd_groups = groups;
-  return old;
 }

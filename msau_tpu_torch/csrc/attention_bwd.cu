@@ -62,9 +62,9 @@
 // = 0 and 1/l = 0 (a = 0); missing keys have f = dout = 0 and a forced to 0.
 //
 // The rows kernel is instantiated for the widths of attention.cu; every
-// other Cb, C >= 1 takes the general backward of attention_general.cuh
-// through the same entry points (launch_general: the DH, DG and DF
-// sweeps, with partial rho in place of the df scratch).
+// other Cb, C >= 1 takes the general backward of attention_general_bwd.cu
+// through the same entry points (two passes over the scores, the scratch
+// its rho and df slices).
 
 #include <math.h>
 #include <stdint.h>
@@ -477,17 +477,6 @@ rows_kernel(const T* __restrict__ f, const T* __restrict__ g, const T* __restric
   }
 }
 
-// df = the per_image slices [per_image, N, T, Cb] summed in block order
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                               int64_t count, int per_image) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= count) return;
-  float s = 0.f;
-  for (int k = 0; k < per_image; ++k) s += partial[k * count + e];
-  store(out + e, s);
-}
-
 // Blocks of rows_kernel the card holds at once (blocks per SM from the
 // occupancy API, times the SMs), or a negative error.
 template <typename T, typename TD, int CB, int C>
@@ -506,10 +495,12 @@ int card_slots() {
 
 template <typename T, typename TD, int CB, int C>
 int launch(const void* f, const void* g, const void* h, const void* dout, const void* m,
-           const void* l, void* df, void* dg, void* dh, void* partial, int per_image, int n,
-           int t, cudaStream_t stream) {
+           const void* l, void* df, void* dg, void* dh, void* partial, int64_t partial_floats,
+           int per_image, int n, int t, cudaStream_t stream) {
   using S = Shape<T, TD, CB, C>;
-  if (per_image < 1 || per_image > (t + S::BI - 1) / S::BI) return (int)cudaErrorInvalidValue;
+  if (per_image < 1 || per_image > (t + S::BI - 1) / S::BI ||
+      partial_floats < (int64_t)per_image * n * t * CB)
+    return (int)cudaErrorInvalidValue;
   auto kernel = rows_kernel<T, TD, CB, C>;
   cudaError_t err = allow_smem(kernel, S::TOTAL);
   if (err != cudaSuccess) return (int)err;
@@ -528,40 +519,20 @@ int launch(const void* f, const void* g, const void* h, const void* dout, const 
 // SPECIALISED_WIDTHS): the model's Cb = max(C / 8, 1) at C = 8 ... 256
 #define MSAU_ATTN_BWD_WIDTHS(X) X(1, 8) X(2, 16) X(4, 32) X(8, 64) X(16, 128) X(32, 256)
 
-// Every other width (attention_general.cuh): the DH sweep (dh, and rho in
-// one partial slice per block of columns: partial is [groups, N, T] f32,
-// groups = ops/attention.py:general_bwd_groups), then DG and DF, which add
-// the slices in order.
-template <typename T, typename TD>
-int launch_general(const void* f, const void* g, const void* h, const void* dout, const void* m,
-                   const void* l, void* df, void* dg, void* dh, void* partial, int groups, int n,
-                   int t, int cb, int c, cudaStream_t stream) {
-  using namespace general;
-  const int gpb = loop_groups(c);
-  if (cb <= 0 || c <= 0 || groups != (c + gpb * kGroup - 1) / (gpb * kGroup))
-    return (int)cudaErrorInvalidValue;
-  float* rho = (float*)partial;
-  int err = launch_sweep_groups<DH, T, TD, T>(gpb, f, g, h, dout, m, l, rho, 0, dh, n, t, cb, c,
-                                              stream);
-  if (err == 0)
-    err = launch_sweep<DG, T, TD, T, 1>(f, g, h, dout, m, l, rho, groups, dg, n, t, cb, c, stream);
-  if (err == 0)
-    err = launch_sweep<DF, T, TD, T, 1>(f, g, h, dout, m, l, rho, groups, df, n, t, cb, c, stream);
-  return err;
-}
-
 template <typename T, typename TD>
 int dispatch(const void* f, const void* g, const void* h, const void* dout, const void* m,
-             const void* l, void* df, void* dg, void* dh, void* partial, int per_image, int n,
-             int t, int cb, int c, cudaStream_t stream) {
-#define MSAU_CASE(CB_, C_)                                                                    \
-  if (cb == CB_ && c == C_)                                                                   \
-    return launch<T, TD, CB_, C_>(f, g, h, dout, m, l, df, dg, dh, partial, per_image, n, t, \
-                                  stream);
+             const void* l, void* df, void* dg, void* dh, void* partial, int64_t partial_floats,
+             int per_image, int n, int t, int cb, int c, cudaStream_t stream) {
+#define MSAU_CASE(CB_, C_)                                                                \
+  if (cb == CB_ && c == C_)                                                               \
+    return launch<T, TD, CB_, C_>(f, g, h, dout, m, l, df, dg, dh, partial, partial_floats, \
+                                  per_image, n, t, stream);
   MSAU_ATTN_BWD_WIDTHS(MSAU_CASE)
 #undef MSAU_CASE
-  return launch_general<T, TD>(f, g, h, dout, m, l, df, dg, dh, partial, per_image, n, t, cb, c,
-                               stream);
+  // every other width: attention_general_bwd.cu
+  return general::bwd(f, g, h, dout, m, l, df, dg, dh, (float*)partial, partial_floats, per_image,
+                      n, t, cb, c, !std::is_same<T, float>::value, std::is_same<TD, float>::value,
+                      stream);
 }
 
 template <typename T, typename TD>
@@ -580,42 +551,46 @@ int dispatch_slots(int cb, int c) {
 // grid from it (ops/attention.py:bwd_blocks_per_image).  dout_f32: the
 // streaming path's f32 cotangent (msau_fused_attention_bwd).  Only the
 // widths with an instance of their own have a rows kernel; any other gives
-// -cudaErrorInvalidValue (the general backward's scratch is its partial
-// rho, sized without the card).
+// -cudaErrorInvalidValue (the general backward's scratch is sized without
+// the card: ops/attention.py:general_bwd_plan).
 extern "C" int msau_attention_bwd_slots(int cb, int c, int is_bf16, int dout_f32) {
   if (!is_bf16) return dispatch_slots<float, float>(cb, c);
   return dout_f32 ? dispatch_slots<__nv_bfloat16, float>(cb, c)
                   : dispatch_slots<__nv_bfloat16, __nv_bfloat16>(cb, c);
 }
 
-// partial: [per_image, N, T, Cb] f32 scratch, allocated by the caller, with
-// per_image blocks per image (at most the row tiles of an image), for the
-// widths with an instance of their own; for any other, [per_image, N, T]
-// f32 with per_image the general backward's column blocks
-// (launch_general).  dout has the operands' type.
+// partial: f32 scratch of partial_floats, allocated by the caller: [per_image,
+// N, T, Cb] with per_image blocks per image (at most the row tiles of an
+// image), for the widths with an instance of their own; for any other, the
+// general backward's rho and df slices (attention_general.cuh:
+// general::bwd) with per_image blocks per image of its ds kernel.  A
+// scratch smaller than what the kernels write is refused.  dout has the
+// operands' type.
 extern "C" int msau_resident_attention_bwd(const void* f, const void* g, const void* h,
                                            const void* dout, const void* m, const void* l,
                                            void* df, void* dg, void* dh, void* partial,
-                                           int per_image, int n, int t, int cb, int c,
-                                           int is_bf16, void* stream) {
+                                           long long partial_floats, int per_image, int n, int t,
+                                           int cb, int c, int is_bf16, void* stream) {
   if (n <= 0 || t <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? dispatch<__nv_bfloat16, __nv_bfloat16>(f, g, h, dout, m, l, df, dg, dh,
-                                                          partial, per_image, n, t, cb, c, s)
-                 : dispatch<float, float>(f, g, h, dout, m, l, df, dg, dh, partial, per_image,
-                                          n, t, cb, c, s);
+                                                          partial, partial_floats, per_image, n,
+                                                          t, cb, c, s)
+                 : dispatch<float, float>(f, g, h, dout, m, l, df, dg, dh, partial,
+                                          partial_floats, per_image, n, t, cb, c, s);
 }
 
 // The streaming path's backward: dout is f32 whatever the operands' type,
 // and the kernel takes its f32 path.  partial as above.
 extern "C" int msau_fused_attention_bwd(const void* f, const void* g, const void* h,
                                         const void* dout, const void* m, const void* l, void* df,
-                                        void* dg, void* dh, void* partial, int per_image, int n,
-                                        int t, int cb, int c, int is_bf16, void* stream) {
+                                        void* dg, void* dh, void* partial,
+                                        long long partial_floats, int per_image, int n, int t,
+                                        int cb, int c, int is_bf16, void* stream) {
   if (n <= 0 || t <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? dispatch<__nv_bfloat16, float>(f, g, h, dout, m, l, df, dg, dh, partial,
-                                                  per_image, n, t, cb, c, s)
-                 : dispatch<float, float>(f, g, h, dout, m, l, df, dg, dh, partial, per_image,
-                                          n, t, cb, c, s);
+                                                  partial_floats, per_image, n, t, cb, c, s)
+                 : dispatch<float, float>(f, g, h, dout, m, l, df, dg, dh, partial,
+                                          partial_floats, per_image, n, t, cb, c, s);
 }

@@ -389,5 +389,17 @@ __device__ __forceinline__ void stage_key_rows(void* dst, const T* src, int r0, 
   }
 }
 
+// The backward's df: the per_image slices [per_image, N, T, Cb] f32 summed
+// in block order (no float atomics: a rerun gives the same bits), cast
+template <typename T>
+__global__ void combine_kernel(const float* __restrict__ partial, T* __restrict__ out,
+                               int64_t count, int per_image) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  float s = 0.f;
+  for (int k = 0; k < per_image; ++k) s += partial[k * count + e];
+  store(out + e, s);
+}
+
 }  // namespace attn
 }  // namespace msau

@@ -36,11 +36,12 @@ tensor takes the blockwise plain versions
 (``fused_attention_plain_stats``, ``fused_attention_bwd_plain``), which
 stream blocks of ``block`` keys.
 
-Every op takes any Cb, C >= 1, as the JAX block does.  At the widths of
-``SPECIALISED_WIDTHS`` the CUDA entry points run their tensor-core
-instances; at any other they run the general kernels of
-``csrc/attention_general.cuh`` (FP32 pipes, Cb and C runtime arguments),
-which each wrapper also counts in ``general_launches``.
+Every op takes any Cb, C >= 1, on the CPU as on the card, as the JAX
+block does.  At the widths of ``SPECIALISED_WIDTHS`` the CUDA entry points
+run their tensor-core instances; at any other they run the general kernels
+(``csrc/attention_general_fwd.cu``, ``attention_general_bwd.cu``: the same
+tensor-core design with Cb and C runtime arguments), which each wrapper
+also counts in ``general_launches``.
 """
 
 from __future__ import annotations
@@ -55,12 +56,14 @@ from msau_tpu_torch.ops.precision import wide_dtype
 # (Cb, C) pairs with kernel instances of their own (tensor-core kernels,
 # csrc/attention.cu and attention_bwd.cu): the model's Cb = max(C // 8, 1)
 # at feat_root 8 and pool 2, C = 8 ... 256.  Every other Cb, C >= 1 takes
-# the general kernels (csrc/attention_general.cuh), with Cb and C as
-# runtime arguments; the block builds any Cb = max(C // num_heads, 1).
+# the general kernels (csrc/attention_general_fwd.cu,
+# attention_general_bwd.cu), with Cb and C as runtime arguments; the block
+# builds any Cb = max(C // num_heads, 1).
 SPECIALISED_WIDTHS = ((1, 8), (2, 16), (4, 32), (8, 64), (16, 128),
                       (32, 256))
-# output columns of a group of the general kernels (general::kGroup)
-GENERAL_GROUP = 64
+# the SMs the general backward's ds grid is sized for without asking the
+# card: the H100's
+GENERAL_BWD_SMS = 132
 
 
 def _rounded_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -197,28 +200,62 @@ def bwd_blocks_per_image(n: int, t: int, c: int, slots: int) -> int:
     return -(-tiles // per_block)
 
 
-def general_bwd_groups(c: int) -> int:
-    """Column blocks of the general backward's dh sweep, each holding the
-    fewest of 1, 2, 4 groups of ``GENERAL_GROUP`` that cover C, at most 4
-    (``general::loop_groups``); one partial rho slice each."""
-    per_block = 1 if c <= GENERAL_GROUP else 2 if c <= 2 * GENERAL_GROUP else 4
-    return -(-c // (per_block * GENERAL_GROUP))
+def general_bwd_rho_groups(c: int) -> int:
+    """Column groups of the general backward's dh kernel, one partial rho
+    slice [N, T] each (``general::bwd_rho_groups``): one group covers C up
+    to 256 columns, and the grid takes a group of 256 per further 256."""
+    return 1 if c <= 128 else -(-c // 256)
 
 
-def _bwd_scratch(f: torch.Tensor, c: int, dout_f32: bool) -> torch.Tensor:
-    """The backward's scratch: at ``SPECIALISED_WIDTHS`` its df slices,
-    [blocks per image, N, T, Cb] f32; at any other width the general
-    kernels' partial rho, [general_bwd_groups(C), N, T] f32."""
+def general_bwd_rows(cb: int, f32: bool) -> int:
+    """Rows i of a tile of the general backward's ds kernel
+    (``general::bwd_rows``): 8 warps of 16, 4 with f32 operands at Cb > 32
+    (their parts in shared memory)."""
+    return 64 if f32 and cb > 32 else 128
+
+
+def general_bwd_slots(f32: bool) -> int:
+    """Blocks of the general backward's ds kernel the card holds at once,
+    without asking it: its ``__launch_bounds__`` blocks per SM (one with
+    f32 operands, whose parts fill an SM's shared memory; two with bf16)
+    on ``GENERAL_BWD_SMS``."""
+    return GENERAL_BWD_SMS * (1 if f32 else 2)
+
+
+def general_bwd_plan(n: int, t: int, cb: int, c: int,
+                     f32: bool) -> Tuple[int, int]:
+    """(blocks per image of the general backward's ds kernel, f32 floats of
+    its scratch), from the shapes and the operands' type alone: the
+    batch's row tiles over ``general_bwd_slots``, as few tiles per block as
+    fill them; the scratch holds the rho slices,
+    [general_bwd_rho_groups(C), N, T], then one df slice [N, T, Cb] per
+    block of an image.  ``general::bwd`` refuses a smaller scratch."""
+    tiles = -(-t // general_bwd_rows(cb, f32))
+    per_block = -(-tiles * n // general_bwd_slots(f32))
+    per_image = -(-tiles // per_block)
+    return per_image, (general_bwd_rho_groups(c) * n * t
+                       + per_image * n * t * cb)
+
+
+def _bwd_scratch(f: torch.Tensor, c: int,
+                 dout_f32: bool) -> Tuple[torch.Tensor, int]:
+    """The backward's scratch and its blocks per image: at
+    ``SPECIALISED_WIDTHS`` its df slices, [blocks per image, N, T, Cb] f32,
+    the blocks from the slots the card reports; at any other width the
+    general kernels' rho and df slices, flat f32 (``general_bwd_plan``)."""
     n, t, cb = f.shape
     if (cb, c) not in SPECIALISED_WIDTHS:
-        return torch.empty((general_bwd_groups(c), n, t),
-                           dtype=torch.float32, device=f.device)
+        per_image, floats = general_bwd_plan(n, t, cb, c,
+                                             f.dtype == torch.float32)
+        return torch.empty((floats,), dtype=torch.float32,
+                           device=f.device), per_image
     slots = cuda_lib.library().msau_attention_bwd_slots(
         cb, c, int(f.dtype == torch.bfloat16), int(dout_f32))
     if slots <= 0:
         cuda_lib.check("msau_attention_bwd_slots", -slots)
-    return torch.empty((bwd_blocks_per_image(n, t, c, slots), n, t, cb),
-                       dtype=torch.float32, device=f.device)
+    per_image = bwd_blocks_per_image(n, t, c, slots)
+    return torch.empty((per_image, n, t, cb), dtype=torch.float32,
+                       device=f.device), per_image
 
 
 def _check_bwd_operands(name: str, f: torch.Tensor, h: torch.Tensor,
@@ -242,7 +279,7 @@ def resident_attention_bwd_cuda(
     l: torch.Tensor, dout: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (rows pass and df combine; at a width
-    outside ``SPECIALISED_WIDTHS`` the general dh, dg and df sweeps) ->
+    outside ``SPECIALISED_WIDTHS`` the general dh, ds and combine kernels) ->
     (df, dg, dh) in the input dtype.
     ``resident_attention_bwd_cuda.launches`` counts calls;
     ``resident_attention_bwd_cuda.scratch_bytes`` is the last call's
@@ -250,12 +287,13 @@ def resident_attention_bwd_cuda(
     n, t, cb, c = _check_operands("resident_attention_bwd", f, g, h)
     _check_bwd_operands("resident_attention_bwd", f, h, m, l, dout, h.dtype)
     df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
-    partial = _bwd_scratch(f, c, False)
+    partial, per_image = _bwd_scratch(f, c, False)
     code = cuda_lib.library().msau_resident_attention_bwd(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), df.data_ptr(), dg.data_ptr(),
-        dh.data_ptr(), partial.data_ptr(), partial.shape[0], n, t, cb, c,
-        int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
+        dh.data_ptr(), partial.data_ptr(), partial.numel(), per_image, n,
+        t, cb, c, int(f.dtype == torch.bfloat16),
+        cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_resident_attention_bwd", code)
     resident_attention_bwd_cuda.launches += 1
     resident_attention_bwd_cuda.general_launches += (
@@ -413,12 +451,13 @@ def fused_attention_bwd_cuda(
     _check_bwd_operands("fused_attention_bwd", f, h, m, l, dout,
                         torch.float32)
     df, dg, dh = torch.empty_like(f), torch.empty_like(g), torch.empty_like(h)
-    partial = _bwd_scratch(f, c, True)
+    partial, per_image = _bwd_scratch(f, c, True)
     code = cuda_lib.library().msau_fused_attention_bwd(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), df.data_ptr(), dg.data_ptr(),
-        dh.data_ptr(), partial.data_ptr(), partial.shape[0], n, t, cb, c,
-        int(f.dtype == torch.bfloat16), cuda_lib.stream_ptr(f.device))
+        dh.data_ptr(), partial.data_ptr(), partial.numel(), per_image, n,
+        t, cb, c, int(f.dtype == torch.bfloat16),
+        cuda_lib.stream_ptr(f.device))
     cuda_lib.check("msau_fused_attention_bwd", code)
     fused_attention_bwd_cuda.launches += 1
     fused_attention_bwd_cuda.general_launches += (

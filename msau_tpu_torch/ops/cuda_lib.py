@@ -37,6 +37,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream are c_void_p)
 SIGNATURES = {
@@ -51,20 +52,17 @@ SIGNATURES = {
     # cb, c, is_bf16, dout_f32 -> the attention backward's block slots on
     # the card (occupancy API x SMs), or a negative error
     "msau_attention_bwd_slots": (_I, _I, _I, _I),
-    # f, g, h, dout, m, l, df, dg, dh, partial, per_image, n, t, cb, c,
-    # is_bf16, stream
+    # f, g, h, dout, m, l, df, dg, dh, partial, partial_floats, per_image,
+    # n, t, cb, c, is_bf16, stream
     "msau_resident_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _P),
-    # groups (0, 1 or 4) -> the setting it replaces: how the general
-    # attention forward splits C (csrc/attention.cu: g_fwd_groups)
-    "msau_attention_fwd_groups": (_I,),
+                                    _L, _I, _I, _I, _I, _I, _I, _P),
     # f, g, h, out (f32), m, l, n, t, cb, c, is_bf16, stream
     "msau_fused_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _P),
-    # f, g, h, dout (f32), m, l, df, dg, dh, partial, per_image, n, t, cb,
-    # c, is_bf16, stream
-    "msau_fused_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _P),
+    # f, g, h, dout (f32), m, l, df, dg, dh, partial, partial_floats,
+    # per_image, n, t, cb, c, is_bf16, stream
+    "msau_fused_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                                 _I, _I, _I, _I, _I, _I, _P),
     # logits, labels, mask, partial, ce_out, correct_out, blocks, n, c,
     # length, is_bf16, stream
     "msau_masked_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -254,8 +254,9 @@ def test_bwd_scratch_shapes(monkeypatch, n, t, cb, c, slots, shape, dtype,
 
     monkeypatch.setattr(cuda_lib, "library", Lib)
     f = torch.zeros((n, t, cb), dtype=dtype)
-    partial = attn_ops._bwd_scratch(f, c, dout_f32)
+    partial, per_image = attn_ops._bwd_scratch(f, c, dout_f32)
     assert partial.shape == shape and partial.dtype == torch.float32
+    assert per_image == shape[0]
     assert calls == [(cb, c, int(dtype == torch.bfloat16), int(dout_f32))]
 
 

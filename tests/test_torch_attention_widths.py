@@ -188,40 +188,69 @@ def test_ragged_t_port_alone(cb, c):
         _assert_grads(grads, [w.numpy() for w in wgrads])
 
 
-@pytest.mark.parametrize("cb,c", [w[:2] for w in WIDTHS] + [(8, 64)])
+@pytest.mark.parametrize("cb,c", [w[:2] for w in WIDTHS] + [(8, 64),
+                                                              (300, 2400)])
 def test_every_width_passes_the_operand_check(cb, c):
-    """No width is refused: the check stops a CPU tensor at its device, not
-    at its width."""
+    """No width is refused, a Cb past the general kernels' staged columns
+    (300) among them: the check stops a CPU tensor at its device, not at
+    its width."""
     f, g, h = map(torch.from_numpy, attention_inputs(
         np.random.default_rng(0), 1, 16, cb, c))
     with pytest.raises(ValueError, match="CUDA"):
         resident_attention_cuda(f, g, h)
 
 
-@pytest.mark.parametrize("c,groups", [(1, 1), (4, 1), (64, 1), (65, 1),
-                                      (96, 1), (128, 1), (129, 1), (216, 1),
-                                      (256, 1), (257, 2), (384, 2), (512, 2),
-                                      (1024, 4), (1025, 5)])
-def test_general_bwd_groups(c, groups):
-    """Column blocks of the general dh sweep: up to 4 groups of 64 columns
-    a block, so rho needs one partial slice per 256 columns past 256."""
-    assert attn_ops.general_bwd_groups(c) == groups
+@pytest.mark.parametrize("c,groups", [(1, 1), (4, 1), (20, 1), (96, 1),
+                                      (128, 1), (129, 1), (216, 1), (256, 1),
+                                      (257, 2), (512, 2), (1024, 4),
+                                      (1025, 5), (2400, 10)])
+def test_general_bwd_rho_groups(c, groups):
+    """Column groups of the general dh kernel: one covers C up to 256
+    columns (16 n8 tiles up to 128, 32 above), so rho needs one partial
+    slice per 256 columns past 256."""
+    assert attn_ops.general_bwd_rho_groups(c) == groups
 
 
-@pytest.mark.parametrize("cb,c", [(12, 96), (27, 216), (64, 512),
-                                  (128, 1024), (3, 24)])
-@pytest.mark.parametrize("dout_f32", [False, True])
-def test_general_bwd_scratch_is_partial_rho(monkeypatch, cb, c, dout_f32):
-    """Outside SPECIALISED_WIDTHS the backward's scratch is the partial
-    rho, [groups, N, T] f32, sized without asking the card."""
+@pytest.mark.parametrize("f32,slots", [(True, 132), (False, 264)])
+def test_general_bwd_slots(f32, slots):
+    """The general ds kernel's blocks on the H100 at once, without asking
+    the card: one an SM with f32 operands, two with bf16."""
+    assert attn_ops.general_bwd_slots(f32) == slots
+
+
+@pytest.mark.parametrize("n,t,cb,c,per_image,per_image_f32", [
+    # 9a's train step: 32 tiles an image, 2 a block (f32: 4 on 132 slots)
+    (16, 4096, 12, 96, 16, 8),
+    (2, 16384, 12, 96, 128, 64),    # 9c's streaming backward
+    (1, 4096, 12, 96, 32, 32),      # one image: a tile a block
+    (4, 256, 64, 512, 2, 4),        # 9b: two rho slices; f32 64-row tiles
+    (4, 324, 27, 216, 3, 3),        # 9d: a ragged last tile
+    (2, 70, 128, 1024, 1, 2),       # four rho slices
+    (1, 64, 300, 2400, 1, 1),       # Cb past the staged columns, ten slices
+    (2, 37, 1, 4, 1, 1),            # one tile
+])
+@pytest.mark.parametrize("dtype,dout_f32", [(torch.bfloat16, False),
+                                            (torch.bfloat16, True),
+                                            (torch.float32, False)])
+def test_general_bwd_scratch(monkeypatch, n, t, cb, c, per_image,
+                             per_image_f32, dtype, dout_f32):
+    """Outside SPECIALISED_WIDTHS the backward's scratch is the general
+    kernels' rho slices [groups, N, T] then one df slice [N, T, Cb] per
+    block of an image, flat f32, sized without asking the card: the
+    batch's row tiles (general_bwd_rows: 128, or 64 with f32 operands at
+    Cb > 32) over general_bwd_slots."""
     class Lib:
         def msau_attention_bwd_slots(self, *args):
             raise AssertionError("the general backward needs no slots")
 
     monkeypatch.setattr(cuda_lib, "library", Lib)
-    f = torch.zeros((3, 40, cb), dtype=torch.bfloat16)
-    partial = attn_ops._bwd_scratch(f, c, dout_f32)
-    assert partial.shape == (attn_ops.general_bwd_groups(c), 3, 40)
+    f = torch.zeros((n, t, cb), dtype=dtype)
+    partial, blocks = attn_ops._bwd_scratch(f, c, dout_f32)
+    f32 = dtype == torch.float32
+    assert blocks == (per_image_f32 if f32 else per_image)
+    assert blocks <= -(-t // attn_ops.general_bwd_rows(cb, f32))
+    groups = attn_ops.general_bwd_rho_groups(c)
+    assert partial.shape == (groups * n * t + blocks * n * t * cb,)
     assert partial.dtype == torch.float32
 
 
@@ -289,9 +318,8 @@ def test_model_at_new_width_matches_jax(name):
 
 # ---------------------------------------------------------------- the card run
 def test_every_c_entry_point_has_a_signature():
-    """Each ``extern "C"`` function of ``csrc/*.cu`` (the general attention's
-    ``msau_attention_fwd_groups`` among them) has its argument types in
-    ``cuda_lib.SIGNATURES``, and nothing else is there."""
+    """Each ``extern "C"`` function of ``csrc/*.cu`` has its argument types
+    in ``cuda_lib.SIGNATURES``, and nothing else is there."""
     import re
 
     names = set()

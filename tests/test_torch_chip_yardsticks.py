@@ -10,6 +10,8 @@ Tolerance: the library call and the plain version are both f32 convs of
 the same operands on the CPU, so they agree to 1e-5 of the output's scale.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -269,3 +271,25 @@ def test_serve_batch_pages_fill_two_buckets():
         assert hb == wb
         sides[hb] = sides.get(hb, 0) + 1
     assert sides == cs.SERVE_BATCH_GROUPS
+
+
+def test_device_time_leaves_a_failed_profiler_alone(monkeypatch):
+    """After the profiler fails a call outright, the calls of the next
+    PROFILER_RETRY_S seconds take CUDA events and start no session; the
+    first call after that asks it once more."""
+    sessions, clock = [], [100.0]
+    monkeypatch.setattr(cs, "TIMER", {"profiler_calls": 0, "event_calls": 0,
+                                      "profiler_down": False, "retry_at": 0.0})
+    monkeypatch.setattr(cs, "_profile_once",
+                        lambda fn, iters: sessions.append(1))
+    monkeypatch.setattr(cs, "_event_time", lambda fn, iters: (1.0, (1.0, 1.0)))
+    monkeypatch.setattr(cs, "time", types.SimpleNamespace(
+        perf_counter=lambda: clock[0], sleep=lambda s: None))
+    assert cs._device_time(lambda: None, 2) == (1.0, (1.0, 1.0))
+    assert len(sessions) == 3 and cs.TIMER["profiler_down"]
+    clock[0] += cs.PROFILER_RETRY_S / 2
+    cs._device_time(lambda: None, 2)
+    assert len(sessions) == 3
+    clock[0] += cs.PROFILER_RETRY_S
+    cs._device_time(lambda: None, 2)
+    assert len(sessions) == 4 and cs.TIMER["event_calls"] == 3

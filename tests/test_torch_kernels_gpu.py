@@ -23,8 +23,9 @@ by max(1, the largest |gradient|), is at most 1e-4 in f32 (sums over T =
 bf16 (rounded outputs).  Both run on every ``ATTN_SHAPES`` entry (the
 train step's and a page's instances, ragged T, every width of
 ``SPECIALISED_WIDTHS``, and ``GENERAL_SHAPES``: widths outside it, which
-the general kernels take, C 4 to 1024) with the same bits on a second
-run, and in bf16 with integer logits near 2e5 (at Cb 8 and at Cb 64);
+the general kernels take, C 4 to 2400 and Cb 1 to 300, padding edges
+included) with the
+same bits on a second run (the general backward on three), and in bf16 with integer logits near 2e5 (at Cb 8 and at Cb 64);
 the general streaming forward against its plain version in float64.  The
 masked CE: ``correct`` exact (sums of 0/1), ``ce_sum`` to rel 1e-5 (f32 sums in another order),
 dlogits to 1e-6 in f32 and 1e-2 in bf16 (one bf16 rounding of values <= 1).
@@ -56,6 +57,7 @@ import numpy as np
 import pytest
 import torch
 
+from msau_tpu_torch.ops import attention as attn_ops
 from msau_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_bwd_cuda,
@@ -225,10 +227,18 @@ def _scaled_err(got, want):
 # (SPECIALISED_WIDTHS); then widths the general kernels take, the model's
 # (feat_root 12: C 96; pool 3: C 216; 6 scales at feat_root 16 and 32: C
 # 512, 1024) and odd ones, at small and ragged T, and the feat_root-12
-# train step's instance (N 16, T 4096)
+# train step's instance (N 16, T 4096); then widths that stress the
+# padding (Cb not a multiple of 8 or 16, C not one of 16: k and n tiles
+# partly past the edge), C 1024 at a T of many ragged tiles, a Cb past
+# 128 (the backward's dg and df in two launches of 128 columns) and one
+# past the 256 columns the kernels stage (the rest read from global
+# memory; dg and df in three launches)
 GENERAL_SHAPES = [(2, 37, 1, 4), (2, 300, 2, 20), (2, 129, 3, 24),
                   (2, 300, 12, 96), (16, 4096, 12, 96), (1, 324, 27, 216),
-                  (2, 100, 48, 384), (4, 256, 64, 512), (2, 70, 128, 1024)]
+                  (2, 100, 48, 384), (4, 256, 64, 512), (2, 70, 128, 1024),
+                  (2, 300, 5, 40), (1, 361, 27, 216), (3, 45, 7, 52),
+                  (1, 1000, 128, 1024), (1, 100, 200, 256),
+                  (1, 64, 300, 2400)]
 ATTN_SHAPES = [(16, 4096, 8, 64), (1, 4096, 8, 64), (2, 1000, 8, 64),
                (3, 66, 8, 64), (2, 300, 1, 8), (2, 300, 2, 16),
                (1, 520, 4, 32), (1, 300, 16, 128), (2, 300, 32, 256)
@@ -334,6 +344,51 @@ def test_general_attention_bf16_large_logits(cuda, op):
                               bwd_plain(f, g, h, wm, wl, dout), again):
         assert _scaled_err(a, b) <= 2e-2, (name, _scaled_err(a, b))
         assert torch.equal(a, a2), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["resident", "streaming"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t,cb,c", [(16, 4096, 12, 96), (1, 361, 27, 216),
+                                      (4, 256, 64, 512), (2, 70, 128, 1024),
+                                      (1, 64, 300, 2400)])
+def test_general_attention_bwd_same_bits(cuda, op, dtype, n, t, cb, c):
+    """The general backward gives the same bits on every run: its df is
+    summed through per-block slices added in block order and its rho
+    through per-group slices added in group order, never by float atomics
+    (three runs, each with a fresh scratch)."""
+    f, g, h, dout = _attention_case(cuda, n, t, cb, c, dtype)
+    if op == "resident":
+        _, m, l = resident_attention_cuda(f, g, h)
+        bwd = resident_attention_bwd_cuda
+    else:
+        _, m, l = fused_attention_cuda(f, g, h)
+        bwd, dout = fused_attention_bwd_cuda, dout.float()
+    runs = [bwd(f, g, h, m, l, dout) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for name, a, b in zip(("df", "dg", "dh"), runs[0], other):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_general_attention_refuses_a_short_scratch(cuda):
+    """The general backward refuses a scratch smaller than the rho and df
+    slices its kernels write (the host's plan and the kernels' own
+    geometry must agree), before any launch."""
+    from msau_tpu_torch.ops import cuda_lib
+
+    n, t, cb, c = 1, 64, 300, 2400
+    f, g, h, dout = _attention_case(cuda, n, t, cb, c, torch.float32)
+    _, m, l = resident_attention_cuda(f, g, h)
+    per_image, floats = attn_ops.general_bwd_plan(n, t, cb, c, True)
+    short = torch.empty((floats - 1,), dtype=torch.float32, device=cuda)
+    outs = [torch.empty_like(x) for x in (f, g, h)]
+    code = cuda_lib.library().msau_resident_attention_bwd(
+        *(x.data_ptr() for x in (f, g, h, dout, m, l, *outs, short)),
+        short.numel(), per_image, n, t, cb, c, 0,
+        cuda_lib.stream_ptr(f.device))
+    assert code != 0
 
 
 # (N, T, Cb, C): config 5's deepest scale, ragged T above and below the
