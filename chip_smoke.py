@@ -2860,6 +2860,8 @@ def _profile_steps(step, steps, host_ops=False):
         wall = (time.perf_counter() - t0) * 1e3 / steps
     fams, names, host, calls, busy, count = {}, {}, {}, {}, 0.0, 0
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue   # a span (``utils.profiling.trace``) and its device twin
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host[evt.key] = evt.self_cpu_time_total
             calls[evt.key] = evt.count

@@ -43,6 +43,7 @@ from msau_tpu_torch.parallel import sharding as psh
 from msau_tpu_torch.train.loss import masked_cross_entropy, unet_loss
 from msau_tpu_torch.train.optimizer import Optimizer, make_optimizer
 from msau_tpu_torch.utils.checkpoint import read_state, write_state
+from msau_tpu_torch.utils.profiling import trace, trace_allocs
 
 
 @dataclasses.dataclass
@@ -98,10 +99,14 @@ def make_loss_and_grad(model: MSAUWrapper, *, masked: bool = True,
     names, params = zip(*model.named_parameters())
 
     def loss_and_grad(batch):
-        loss, metrics = _loss(model, batch, masked, aux_weight, sum_ranks)
+        with trace("msau.forward"):
+            loss, metrics = _loss(model, batch, masked, aux_weight, sum_ranks)
         # the last stage's attention feeds only a next stage, which does
-        # not exist: its parameters get zero gradients, as under jax.grad
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        # not exist: its parameters get zero gradients, as under jax.grad;
+        # the span is the host's wait while autograd's device thread
+        # enqueues the backward
+        with trace("msau.backward"):
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         if sum_ranks is not None:
             grads = psh.sum_flat(grads)
@@ -120,16 +125,24 @@ def make_train_step(model: MSAUWrapper, optimizer: Optimizer, *,
     gradients' global norm.  ``state.params`` must be the model's own
     parameters (``TrainState.create``); they and ``state.opt_state`` are
     updated in place.  ``donate`` is a TPU knob, accepted and ignored;
-    ``sum_ranks`` as in ``make_loss_and_grad``."""
+    ``sum_ranks`` as in ``make_loss_and_grad``.
+
+    While a torch profiler records, the step opens the spans
+    ``msau.train_step`` (counting the allocator's device calls) and, in
+    it, ``msau.forward``, ``msau.backward`` and ``msau.update``
+    (``utils.profiling.trace``)."""
     del donate
     loss_and_grad = make_loss_and_grad(model, masked=masked,
                                        aux_weight=aux_weight,
                                        sum_ranks=sum_ranks)
+    first = next(model.parameters())
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        _, metrics, grads = loss_and_grad(batch)
-        metrics["grad_norm"] = optimizer.update(grads, state.opt_state,
-                                                state.params)
+        with trace_allocs("msau.train_step", first):
+            _, metrics, grads = loss_and_grad(batch)
+            with trace("msau.update"):
+                metrics["grad_norm"] = optimizer.update(
+                    grads, state.opt_state, state.params)
         state.step += 1
         return state, metrics
 

@@ -669,3 +669,88 @@ def test_tf32_stays_off_after_import(cuda):
     want = box_conv2d(img.double(), *(c.double() for c in coords), **kw)
     got = box_conv2d(img.to(cuda), *(c.to(cuda) for c in coords), **kw)
     assert err(got, want) <= 5e-5
+
+
+@pytest.mark.gpu
+def test_train_step_spans_on_card(cuda, tmp_path):
+    """A training step traced on the card (``utils.profiling.trace``):
+    every kernel of the step was launched inside the host span of
+    ``msau.train_step``, the backward's by autograd's device thread too,
+    so the span's device-side extent (its first to its last kernel)
+    covers the step.  The profiler writes a device twin
+    (``gpu_user_annotation``) of each phase, in order inside that extent,
+    and the backward's twin spans the kernels that autograd's thread
+    launched.  ``allocator_calls`` equals the allocator's own count
+    of device allocations and frees over the step
+    (``torch.cuda.memory_stats``), which an emptied cache makes nonzero."""
+    import json
+
+    from msau_tpu_torch.config import ModelConfig, TrainConfig
+    from msau_tpu_torch.train.trainer import Trainer
+    from msau_tpu_torch.utils import profiling
+
+    cfg = ModelConfig(img_channels=3, n_class=3, scale_space_num=3,
+                      res_depth=1, feat_root=4, num_blocks=1,
+                      final_act="softmax", flat_scales=1)
+    tr = Trainer(cfg, TrainConfig(optimizer="adam", learning_rate=1e-3),
+                 device=cuda)
+    tr.init_state(np.zeros((2, 32, 32, 3), np.float32))
+    rng = np.random.default_rng(0)
+    batch = tr.put_batch({
+        "input": rng.random((2, 32, 32, 3)).astype(np.float32),
+        "label": rng.integers(0, 3, (2, 32, 32)).astype(np.int32),
+        "valid": np.ones((2, 32, 32), bool)})
+    for _ in range(2):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    profiling.reset_spans()
+
+    def allocs():
+        s = torch.cuda.memory_stats(cuda)
+        return s["num_device_alloc"] + s["num_device_free"]
+
+    with profiling.capture_trace(str(tmp_path)):
+        n0 = allocs()
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        n1 = allocs()
+        torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert profiling.counter_totals() == {"allocator_calls": n1 - n0}
+    assert n1 - n0 > 0
+    assert {k: v[0] for k, v in profiling.span_totals().items()} == {
+        "msau.train_step": 1, "msau.forward": 1, "msau.backward": 1,
+        "msau.update": 1}
+    profiling.reset_spans()
+
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    extent = lambda e: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+    launched = {e["args"]["correlation"]: (float(e["ts"]), e["tid"])
+                for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    # kernels, copies and sets on the card, with their launches
+    ops = [(e["cat"], extent(e), launched[e["args"]["correlation"]])
+           for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                               "gpu_memset")]
+    (step,) = [e for e in events if e.get("cat") == "user_annotation"
+               and e["name"] == "msau.train_step"]
+    a, b = extent(step)
+    assert ops
+    assert all(a <= t <= b for _, _, (t, _) in ops), (a, b)
+    # the backward's kernels come from another thread
+    assert len({tid for cat, _, (_, tid) in ops if cat == "kernel"}) == 2
+    first = min(x[0] for _, x, _ in ops)
+    last = max(x[1] for _, x, _ in ops)
+    backward = [x for _, x, (_, tid) in ops if tid != step["tid"]]
+    twins = {e["name"]: extent(e) for e in events
+             if e.get("cat") == "gpu_user_annotation"}
+    fwd, bwd, update = (twins["msau.forward"], twins["msau.backward"],
+                        twins["msau.update"])
+    ns = 2e-3   # the trace prints times to the ns, rounded apart (us)
+    assert (first - ns <= fwd[0] and fwd[1] <= bwd[0] + ns
+            and bwd[1] <= update[0] + ns and update[1] <= last + ns), (
+        first, last, twins)
+    assert (bwd[0] - ns <= min(x[0] for x in backward)
+            and max(x[1] for x in backward) <= bwd[1] + ns), (
+        min(x[0] for x in backward), max(x[1] for x in backward), bwd)
