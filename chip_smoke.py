@@ -410,6 +410,8 @@ def _cuda_ms(fn, iters):
 # (every channel count), and the resident attention's forward and backward
 # (every width; the streaming forward with bf16 operands too, and the
 # streaming backward runs its f32 path in both dtypes: _attention_bound).
+# The flat conv's f32 forward and dx go to the tensor cores too, as six
+# bf16 products of three-part operands, where _conv_tc takes the shape.
 # H100 SXM data sheet; the SFUs' exp2 rate, a floor of the attention's own,
 # is 16 results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of arithmetic instructions) on 132 SMs at
@@ -418,6 +420,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_EXP_PER_S = 132 * 16 * 1.98e9
+# f32 flat convs on the tensor cores (_conv_tc): each f32 product is six
+# bf16 products of three-part operands
+PEAK_F32_TC_FLOPS = PEAK_BF16_FLOPS / 6
 DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
                "concat_conv1x1_bwd", "flat_conv2d", "flat_conv_dx",
                "flat_conv_bwd", "concat_conv1x1", "flat_res_block",
@@ -425,11 +430,10 @@ DTYPE_AWARE = ("flat_deconv2", "flat_deconv2_dx", "flat_deconv2_dw",
                "resident_attention_bwd")
 
 
-def _conv_fast(case, itemsize):
-    """Whether a flat conv case (flat_conv2d, concat_conv1x1, flat_conv_dx
-    or flat_conv_bwd) takes the fast kernels of csrc/conv_fast.cuh,
-    mirroring their dispatch (fast_shape, the dw plan and the shared memory
-    of launch_fast / launch_bwd_fast)."""
+def _fast_shape(case, itemsize):
+    """(op, k, d, cin, cout) of a flat conv case as its kernel sees it (the
+    dx conv's channels swapped) where csrc/conv_fast.cuh:fast_shape takes
+    it, else None."""
     op, k, d = case["op"], case.get("k", 1), case.get("d", 1)
     cin, cout = case["c"] + case.get("cb", 0), case["cout"]
     pleft = (k - 1) * d // 2
@@ -439,9 +443,54 @@ def _conv_fast(case, itemsize):
     right = (k - 1) * d - pleft
     if (k not in ((3, 4) if op == "flat_conv_bwd" else (1, 3, 4))
             or cin > 64 or cout > 64 or pleft > v or right > v):
+        return None
+    return op, k, d, cin, cout
+
+
+def _conv_tc(case):
+    """Whether an f32 flat conv case (flat_conv2d, concat_conv1x1 or
+    flat_conv_dx) runs on the tensor cores, mirroring csrc/flatconv.cu's
+    tc_plan: a fast shape whose three bf16 parts, in tiles of 8 rows (of 4
+    for a 3x3 kernel into more than 24 channels) and passes of at most 32
+    input channels in chunks of 8, fit a block's shared memory (the
+    weights', then the tile's or E)."""
+    if case["op"] not in ("flat_conv2d", "concat_conv1x1", "flat_conv_dx"):
         return False
+    shape = _fast_shape(case, 4)
+    if shape is None:
+        return False
+    _, k, d, cin, cout = shape
+    a16 = lambda b: (b + 15) // 16 * 16
+    chunks = lambda c: 8 * (7 if -(-c // 8) == 6 else -(-c // 8))
+    cs = chunks(min(cin, 32))
+    wcs = chunks(cin if cin <= 32 else -(-cin // 32) * 32)
+    nt = next(t for t in (1, 2, 3, 4, 8) if cout <= 8 * t)
+
+    def smem(mt):   # tiles of 4 mt rows
+        parts = a16(6 * (4 * mt + (k - 1) * d) * 40 * cs)
+        e = a16(cout * (32 * 4 * mt + 4) * 4)
+        return a16(6 * k * k * nt * 8 * wcs) + max(parts, e)
+    return smem(2) <= 227 * 1024 or (k == 3 and cout > 24
+                                     and smem(1) <= 227 * 1024)
+
+
+def _conv_fast(case, itemsize):
+    """Whether a flat conv case (flat_conv2d, concat_conv1x1, flat_conv_dx
+    or flat_conv_bwd) takes the fast kernels of csrc/conv_fast.cuh,
+    mirroring their dispatch (fast_shape, the dw plan and the shared memory
+    of launch_fast (bf16), tc_plan (f32) and launch_bwd_fast)."""
+    shape = _fast_shape(case, itemsize)
+    if shape is None:
+        return False
+    op, k, d, cin, cout = shape
+    v = 16 // itemsize
     a16 = lambda b: (b + 15) // 16 * 16
     f32 = itemsize == 4
+    if f32 and op != "flat_conv_bwd":
+        if _conv_tc(case):
+            return True
+        if k == 1:   # the coupling takes the tensor cores or the general path
+            return False
     th = 4 if f32 else 8
     p, es = 32 * th, 32 * th + 4
     kc = -(-cin // (4 if f32 else 16))
@@ -1490,7 +1539,8 @@ def _flat_bound(case, n, itemsize):
     The DTYPE_AWARE ops' bf16 operations (the deconv's with the 3x3 kernel;
     other odd K take the general kernels, FP32 pipes; the flat conv's where
     _conv_fast takes the shape; the residual block's) count at the
-    tensor-core peak."""
+    tensor-core peak, the flat conv's f32 forward and dx where _conv_tc
+    takes the shape at a sixth of it."""
     op, c, cb = case["op"], case["c"], case.get("cb", 0)
     h, w = case["h"], case["w"]
     hw, cin = h * w, c + cb
@@ -1508,6 +1558,8 @@ def _flat_bound(case, n, itemsize):
               and op in DTYPE_AWARE and itemsize == 2
               and _conv_fast(case, itemsize))
     peak = PEAK_BF16_FLOPS if tensor else PEAK_F32_FLOPS
+    if itemsize == 4 and _conv_tc(case):
+        peak = PEAK_F32_TC_FLOPS
     if op in ("flat_conv2d", "concat_conv1x1", "flat_conv_dx"):
         return _bound(conv, n * hw * (cin + cout) * itemsize, peak)
     if op == "concat_conv1x1_bwd":

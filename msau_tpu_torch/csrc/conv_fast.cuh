@@ -2,21 +2,21 @@
 // stage 1): the pieces both kernels share.
 //
 // A block of 8 warps walks output tiles of TH rows x 32 columns of one image
-// (TH = 4 in f32, 8 in bf16).  Per tile it stages the input once, every
-// input channel of the tile and its dilated halo, as [pixel][channel] in the
-// activation dtype: each staged pixel is a run of channels padded to an odd
-// number of 16-byte chunks, so the 8 pixels an ldmatrix (bf16) or 8 lanes of
-// a float4 load (f32) read fall in 8 distinct bank groups, and a tap's
-// window is a shift by whole pixels.  Global rows are read as 16-byte runs
-// from an aligned column x0 - V (V = 16 bytes of elements), so the staged
-// rows span 32 + 2V columns and the taps may reach up to V columns left or
-// right of the tile; runs of V channels x V pixels are transposed in
-// registers.  Where the width allows 16-byte runs, the next tile's rows are
-// prefetched by cp.async into a buffer of their own while the block
-// computes this one, then transposed on chip (prefetch_tile,
-// transpose_tile); else they are loaded and transposed in one step
-// (stage_tile).  Work items take the channel group fastest, so a warp's
-// 16-byte stores to the staged pixels fall in distinct bank groups.
+// (TH = 4 in f32 on the FP32 pipes, 8 in bf16, 8 or 4 in f32 on the tensor
+// cores).  Per tile it stages the input once, every input channel of the
+// tile and its dilated halo, as [pixel][channel]: each staged pixel is a run
+// of channels laid out so that the 8 pixels an ldmatrix or 8 lanes of a
+// float4 load read fall in 8 distinct bank groups, and a tap's window is a
+// shift by whole pixels.  Global rows are read as 16-byte runs from an
+// aligned column x0 - V (V = 16 bytes of elements), so the staged rows span
+// 32 + 2V columns and the taps may reach up to V columns left or right of
+// the tile; runs of V channels x V pixels are transposed in registers.
+// Where the width allows 16-byte runs, the next tile's rows are prefetched
+// by cp.async into a buffer of their own while the block computes this one,
+// then transposed on chip (prefetch_tile, transpose_tile); else they are
+// loaded and transposed in one step (stage_tile).  Work items take the
+// channel group fastest, so a warp's stores to the staged pixels fall in
+// distinct bank groups.
 //
 // The conv over a staged tile, preact[co][pixel] (+ bias, f32), is an
 // implicit GEMM, M = the tile's pixels, N = output channels, K = taps x
@@ -24,8 +24,20 @@
 //   - bf16 on the tensor cores: mma.sync m16n8k16 (f32 sums), A (16 pixels
 //     x 16 channels) by ldmatrix from the staged pixels at the tap's shift,
 //     B from the weights staged as [tap][cout][channel]; warp w owns tile
-//     row w (two m-tiles) and every output channel;
-//   - f32 on the FP32 pipes (1e-5: no TF32): lane c owns column c and the
+//     row w (two m-tiles) and every output channel.  Staged pixels are runs
+//     padded to an odd number of 16-byte chunks;
+//   - f32 on the tensor cores (conv_core_tc): the same products with each
+//     operand split into three bf16 parts x = x0 + x1 + x2 when it is
+//     staged, and the six products qa + qb < 3 of each k step summed as the
+//     attention's f32 products are (attention_mma.cuh: mma_parts), which
+//     carries them to f32's 24 bits (no TF32: two parts carry 16).  Each
+//     part is staged as [pixel][channel] runs of 8-channel chunks of 16
+//     bytes (an odd number of chunks, or a power of two with the chunk
+//     index XORed with pixel bits), at most 32 channels a pass; K runs over
+//     (tap, chunk) pairs, two a k16 step and an odd last one an m16n8k8
+//     step.  Warp w owns MT m-tiles (TH = 4 MT) and every output channel:
+//     no K split;
+//   - f32 on the FP32 pipes (stage 1): lane c owns column c and the
 //     tile's 4 rows, with 8 or 16 output channels in registers (64 sums);
 //     the warps split the output channels and K, and add their K shares in
 //     order through shared memory.  Each float4 of input feeds 4 x CT FMAs.
@@ -36,6 +48,9 @@
 
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "attention_mma.cuh"
 #include "conv_tile.cuh"
 
 namespace msau {
@@ -44,10 +59,10 @@ namespace fast {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
-template <typename T>
+template <typename T, int TH_ = sizeof(T) == 4 ? 4 : 8>
 struct Tile {
   static constexpr int V = 16 / (int)sizeof(T);   // elements per 16 bytes
-  static constexpr int TH = sizeof(T) == 4 ? 4 : 8;   // tile rows
+  static constexpr int TH = TH_;                  // tile rows
   static constexpr int SW = kTw + 2 * V;          // staged columns
   static constexpr int P = TH * kTw;              // tile pixels
   static constexpr int ES = P + 4;                // f32 [co][pixel] row stride
@@ -67,7 +82,15 @@ struct Geo {
   int tiles_x, tiles_y, n_tiles;
   int vec;      // 16-byte global loads (width and pointers allow them)
   int rgs;      // prefetch buffer: elements per group of V channels
+  // f32 on the tensor cores: pixel bits >> sw pick a staged pixel's chunk
+  // XOR, wcs / wsw the weight rows' stride and XOR shift; psz / wsz the
+  // bf16 elements of one part of the tile, of the weights; nch passes of
+  // kChunk input channels staged per tile
+  int sw, wcs, wsw, psz, wsz, nch;
 };
+
+// f32 on the tensor cores: input channels staged per pass over a tile
+constexpr int kChunk = 32;
 
 // resident blocks of kThreads per SM at ``smem`` bytes of shared memory
 // (the kernel's attribute must already allow them)
@@ -107,6 +130,41 @@ inline Geo make_geo(const ConvIn& p, int n, int ct) {
   return g;
 }
 
+// f32 on the tensor cores, tiles of 4 MT rows, input channels staged in
+// one pass or (``passes``) in nch passes of at most kChunk: each pixel of
+// a part holds cs channels, the pass's in 8-channel chunks of 16 bytes,
+// each weight row wcs >= cin (zeros past cin).
+inline Geo make_geo_tc(const ConvIn& p, int n, int mt, int nt, bool passes) {
+  using Tl = Tile<float>;
+  Geo g{};
+  g.cin = p.ca + p.cb;
+  g.nch = passes ? (g.cin + kChunk - 1) / kChunk : 1;
+  const int pass = passes ? std::min(g.cin, kChunk) : g.cin;
+  // m chunks a row: 8 rows at a stride of an odd number of chunks fall in
+  // distinct bank groups as they lie; at 2, 4 or 8 chunks the chunk index
+  // is XORed with row bits >> sw (8 / m rows share an XOR)
+  const auto chunks = [](int c, int& sw) {
+    int m = (c + 7) / 8;
+    if (m == 6) m = 7;
+    sw = m == 2 ? 2 : m == 4 ? 1 : m == 8 ? 0 : 31;
+    return 8 * m;
+  };
+  g.cs = chunks(pass, g.sw);
+  g.wcs = chunks(g.nch > 1 ? g.nch * kChunk : g.cin, g.wsw);   // every pass's chunks
+  g.cgs = g.cs / 4;
+  const int th = 4 * mt;
+  g.hr = th + (p.kh - 1) * p.dil;
+  g.rgs = Tl::V * g.hr * Tl::SW + ((g.hr * Tl::SW) % 2 == 0 ? Tl::V : 0);
+  g.psz = g.hr * Tl::SW * g.cs;
+  g.wsz = p.kh * p.kw * nt * 8 * g.wcs;
+  g.tiles_x = (p.w_ + kTw - 1) / kTw;
+  g.tiles_y = (p.h + th - 1) / th;
+  g.n_tiles = n * g.tiles_x * g.tiles_y;
+  const auto aligned = [](const void* q) { return ((uintptr_t)q & 15) == 0; };
+  g.vec = p.w_ % Tl::V == 0 && aligned(p.a) && (p.b == nullptr || aligned(p.b));
+  return g;
+}
+
 // The tile geometry the fast path takes: a square kernel of side 1 (the
 // coupling conv; forward only), 3 or 4, at most 64 input and 64 output
 // channels, taps reaching at most V columns past either side of the tile.
@@ -135,10 +193,12 @@ inline size_t w_bytes(const ConvIn& p, const Geo& g, int nt) {
 inline size_t red_bytes(const Geo& g) {
   return align16((size_t)g.ns * g.co * Tile<float>::P * 4);
 }
-template <typename T>
+template <typename T, int TH = Tile<T>::TH>
 inline size_t e_bytes(int cout) {
-  return align16((size_t)cout * Tile<T>::ES * 4);
+  return align16((size_t)cout * Tile<T, TH>::ES * 4);
 }
+// f32 on the tensor cores: the three parts of the tile, of the weights
+inline size_t parts_bytes(int elems) { return align16((size_t)3 * elems * 2); }
 
 // ---- staging --------------------------------------------------------------
 
@@ -189,12 +249,58 @@ __device__ __forceinline__ void transpose_runs(const uint4 (&in)[V], uint4 (&out
   }
 }
 
-// Stages input channels [0, cgs V) of image img for the tile at (x0, y0)
-// into xs[row][SW][cs]: staged row r is image row y0 - pt + r, staged
-// column q image column x0 - V + q; zeros outside the image and past cin.
+// Where a transposed run goes: o[j] holds V channels, group chg, of staged
+// pixel (row r, column q V + j).  RunStore: xs[row][SW][cs] as it is
+// (the FP32 and bf16 cores); PartStore: f32 split into three bf16 parts.
 template <typename T>
-__device__ void stage_tile(const ConvIn& p, const Geo& g, T* __restrict__ xs, int img,
-                           int x0, int y0) {
+struct RunStore {
+  T* xs;
+  int cs;
+  __device__ __forceinline__ void operator()(int r, int q, int chg,
+                                             const uint4 (&o)[Tile<T>::V]) const {
+    constexpr int V = Tile<T>::V;
+    T* dst = xs + (size_t)(r * Tile<T>::SW + q * V) * cs + chg * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) *reinterpret_cast<uint4*>(dst + (size_t)j * cs) = o[j];
+  }
+};
+
+// The offset of 16-byte chunk c of staged row px (a pixel, or a weight row)
+// in one part: rows of cs bf16, the chunk index XORed with row bits >> sw
+// where cs / 8 is a power of two (sw 31: none), so the 8 consecutive rows
+// an ldmatrix reads fall in 8 distinct bank groups.
+__device__ __forceinline__ int part_at(int cs, int sw, int px, int c) {
+  return px * cs + ((c ^ ((px >> sw) & (cs / 8 - 1))) << 3);
+}
+__device__ __forceinline__ int part_at(const Geo& g, int px, int c) {
+  return part_at(g.cs, g.sw, px, c);
+}
+
+struct PartStore {
+  __nv_bfloat16* xs;   // three parts of psz elements
+  int cs, sw, psz;
+  __device__ __forceinline__ void operator()(int r, int q, int chg, const uint4 (&o)[4]) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int px = r * Tile<float>::SW + q * 4 + j;
+      const float4 v = *reinterpret_cast<const float4*>(&o[j]);
+      unsigned lo[3], hi[3];
+      attn::split2<3>(lo, v.x, v.y);
+      attn::split2<3>(hi, v.z, v.w);
+      __nv_bfloat16* dst = xs + part_at(cs, sw, px, chg >> 1) + 4 * (chg & 1);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        *reinterpret_cast<uint2*>(dst + (size_t)k * psz) = make_uint2(lo[k], hi[k]);
+    }
+  }
+};
+
+// Stages input channels [c0, c0 + cgs V) of image img for the tile at (x0,
+// y0) through ``put``: staged row r is image row y0 - pt + r, staged column
+// q image column x0 - V + q; zeros outside the image and past cin.
+template <typename T, typename Store>
+__device__ void stage_runs(const ConvIn& p, const Geo& g, const Store& put, int img, int x0,
+                           int y0, int c0 = 0) {
   using Tl = Tile<T>;
   constexpr int V = Tl::V, SW = Tl::SW, CG = SW / V;
   constexpr int NB = V == 4 ? 4 : 2;   // runs in flight per thread
@@ -214,7 +320,7 @@ __device__ void stage_tile(const ConvIn& p, const Geo& g, T* __restrict__ xs, in
       const bool row_ok = it < items && gy >= 0 && gy < p.h;
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        const int ch = chg * V + e;
+        const int ch = c0 + chg * V + e;
         const T* row = nullptr;
         if (row_ok && ch < g.cin)
           row = (ch < p.ca ? a + ((int64_t)img * p.ca + ch) * plane
@@ -228,14 +334,17 @@ __device__ void stage_tile(const ConvIn& p, const Geo& g, T* __restrict__ xs, in
       const int it = i0 + k * kThreads;
       if (it >= items) break;
       const int chg = it % g.cgs, rest = it / g.cgs;
-      const int q = rest % CG, r = rest / CG;
       uint4 o[V];
       transpose_runs<V>(v[k], o);
-      T* dst = xs + (size_t)(r * SW + q * V) * g.cs + chg * V;
-#pragma unroll
-      for (int j = 0; j < V; ++j) *reinterpret_cast<uint4*>(dst + (size_t)j * g.cs) = o[j];
+      put(rest / CG, rest % CG, chg, o);
     }
   }
+}
+
+template <typename T>
+__device__ void stage_tile(const ConvIn& p, const Geo& g, T* __restrict__ xs, int img,
+                           int x0, int y0) {
+  stage_runs<T>(p, g, RunStore<T>{xs, g.cs}, img, x0, y0);
 }
 
 // The double-buffered form of stage_tile, for widths and pointers that
@@ -273,8 +382,8 @@ inline size_t raw_bytes(const Geo& g) {
   return align16((size_t)((g.cin + Tile<T>::V - 1) / Tile<T>::V) * g.rgs * sizeof(T));
 }
 
-template <typename T>
-__device__ void transpose_tile(const Geo& g, const T* __restrict__ raw, T* __restrict__ xs) {
+template <typename T, typename Store>
+__device__ void transpose_runs_from(const Geo& g, const T* __restrict__ raw, const Store& put) {
   using Tl = Tile<T>;
   constexpr int V = Tl::V, SW = Tl::SW, CG = SW / V;
   const int items = g.hr * g.cgs * CG;
@@ -291,10 +400,13 @@ __device__ void transpose_tile(const Geo& g, const T* __restrict__ raw, T* __res
     }
     uint4 o[V];
     transpose_runs<V>(v, o);
-    T* dst = xs + (size_t)(r * SW + q * V) * g.cs + chg * V;
-#pragma unroll
-    for (int j = 0; j < V; ++j) *reinterpret_cast<uint4*>(dst + (size_t)j * g.cs) = o[j];
+    put(r, q, chg, o);
   }
+}
+
+template <typename T>
+__device__ void transpose_tile(const Geo& g, const T* __restrict__ raw, T* __restrict__ xs) {
+  transpose_runs_from<T>(g, raw, RunStore<T>{xs, g.cs});
 }
 
 // Weights w [cout][cin][kh][kw] (activation dtype) into shared memory:
@@ -320,6 +432,28 @@ __device__ void stage_weights(const ConvIn& p, const Geo& g, T* __restrict__ ws,
                                        ? w[((int64_t)co * g.cin + ci) * taps + tap]
                                        : zero_of<T>();
     }
+  }
+}
+
+// f32 on the tensor cores: w [cout][cin][kh][kw] into three bf16 parts
+// (attn::split2, two channels at a time), each [tap][nt * 8][wcs] (weight
+// row tap nt 8 + co, chunks XORed as the staged pixels'), zeros past cin /
+// cout.
+__device__ inline void stage_weights_tc(const ConvIn& p, const Geo& g,
+                                        __nv_bfloat16* __restrict__ ws, int nt) {
+  const float* w = (const float*)p.w;
+  const int taps = p.kh * p.kw, rows = taps * nt * 8, pairs = g.wcs / 2;
+  for (int i = threadIdx.x; i < rows * pairs; i += kThreads) {
+    const int ci = 2 * (i % pairs), rw = i / pairs;
+    const int co = rw % (nt * 8), tap = rw / (nt * 8);
+    const auto at = [&](int c) {
+      return co < p.cout && c < g.cin ? w[((int64_t)co * g.cin + c) * taps + tap] : 0.f;
+    };
+    unsigned q[3];
+    attn::split2<3>(q, at(ci), at(ci + 1));
+    __nv_bfloat16* dst = ws + part_at(g.wcs, g.wsw, rw, ci >> 3) + (ci & 7);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) *reinterpret_cast<unsigned*>(dst + (size_t)k * g.wsz) = q[k];
   }
 }
 
@@ -390,6 +524,169 @@ __device__ void conv_core_bf16(const ConvIn& p, const Geo& g, const __nv_bfloat1
         const int px = warp * kTw + 16 * m + gq + 8 * (e >> 1);
         if (co < p.cout) E[co * ES + px] = acc[m][n][e] + bias[co];
       }
+  __syncthreads();
+}
+
+// d += a b over three parts of each (the m16n8k8 form of attn::mma_parts:
+// the six products qa + qb < 3, the smallest first, into a zeroed
+// temporary added to d on the FP32 pipes).
+__device__ __forceinline__ void mma_parts_k8(float (&d)[4], const unsigned (&a)[3][2],
+                                             const unsigned (&b)[3]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int s = 2; s >= 0; --s)
+#pragma unroll
+    for (int qa = 0; qa <= s; ++qa) msau::mma_bf16_k8(t, a[qa][0], a[qa][1], b[s - qa]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// f32 on the tensor cores: acc += the conv over pass j's input channels,
+// from the three parts of the staged tile (xs, PartStore) and of the
+// weights (ws, stage_weights_tc).  Each tap's channels are c8 chunks of 8:
+// k16 steps take two chunks of a tap and an odd chunk count's last one an
+// m16n8k8 step, except at one chunk (at most 8 channels), where a k16 step
+// takes two taps and an odd last tap the m16n8k8 step; so no step
+// multiplies zero padding past a multiple of 8 channels.  Warp w owns
+// m-tiles MT w .. MT w + MT - 1 of the tile's 4 MT rows (two 16-pixel
+// m-tiles a row) and every output channel; acc[m][n] is m-tile MT w + m,
+// output channels 8 n .. 8 n + 7 as mma.sync's accumulator holds them.
+template <int KH, int NT, int MT>
+__device__ __forceinline__ void conv_core_tc(const ConvIn& p, const Geo& g,
+                                             const __nv_bfloat16* xs,
+                                             const __nv_bfloat16* ws, int j,
+                                             float (&acc)[MT][NT][4]) {
+  using Tl = Tile<float, 4 * MT>;
+  constexpr int KW = KH, TAPS = KH * KW, SW = Tl::SW, WR = NT * 8;
+  using bf16 = __nv_bfloat16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = p.dil, xp = g.psz, wp = g.wsz, c8 = g.cs / 8, wc0 = c8 * j;
+  // lane's A row at tap (0, 0): staged pixel of tile pixel 16 mt + lane % 16
+  int pa[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int mt = MT * warp + m;
+    pa[m] = (mt >> 1) * SW + 16 * (mt & 1) + (lane & 15) + Tl::V - p.pleft;
+  }
+  // A (x4: lanes 16-31 the k 8-15 half) at staged pixel px, chunk c
+  auto load_a = [&](unsigned (&a)[3][4], int px, int c) {
+    const bf16* at = xs + part_at(g, px, c);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) msau::ldsm_x4(a[k], at + (size_t)k * xp);
+  };
+  // B of n-tiles n, n + 1 (x4: lanes 16-31 the second) at weight row
+  // ``row`` + their output channel, chunk c; then the products
+  auto mma_pair = [&](unsigned (&a)[MT][3][4], int n, int row, int c) {
+    unsigned b4[3][4];
+    const bf16* at = ws + part_at(g.wcs, g.wsw, row + 8 * (n + (lane >> 4)) + (lane & 7), c);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) msau::ldsm_x4(b4[k], at + (size_t)k * wp);
+    unsigned lo[3][2], hi[3][2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      lo[k][0] = b4[k][0];
+      lo[k][1] = b4[k][1];
+      hi[k][0] = b4[k][2];
+      hi[k][1] = b4[k][3];
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      attn::mma_parts<3>(acc[m][n], a[m], lo);
+      attn::mma_parts<3>(acc[m][n + 1], a[m], hi);
+    }
+  };
+  // the last n-tile of an odd NT (x2: lanes 0-15)
+  auto mma_last = [&](unsigned (&a)[MT][3][4], int row, int c) {
+    unsigned b2[3][2];
+    const bf16* at = ws + part_at(g.wcs, g.wsw, row + 8 * (NT - 1) + (lane & 7), c);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) msau::ldsm_x2(b2[k], at + (size_t)k * wp);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) attn::mma_parts<3>(acc[m][NT - 1], a[m], b2);
+  };
+  // an m16n8k8 step: A x2 (lanes 0-15 address the rows) at pixel shift sh,
+  // chunk c; B (x2: lanes 0-7 n-tile n, 8-15 n + 1) at weight row ``row``
+  auto mma_k8 = [&](int sh, int c, int row, int wc) {
+    unsigned a2[MT][3][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const bf16* at = xs + part_at(g, pa[m] + sh, c);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) msau::ldsm_x2(a2[m][k], at + (size_t)k * xp);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      const int nn = n + 1 < NT ? n + ((lane >> 3) & 1) : n;   // an odd last: n twice
+      const bf16* at = ws + part_at(g.wcs, g.wsw, row + 8 * nn + (lane & 7), wc);
+      unsigned b2[3][2];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) msau::ldsm_x2(b2[k], at + (size_t)k * wp);
+      const unsigned b0[3] = {b2[0][0], b2[1][0], b2[2][0]};
+      const unsigned b1[3] = {b2[0][1], b2[1][1], b2[2][1]};
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_parts_k8(acc[m][n], a2[m], b0);
+        if (n + 1 < NT) mma_parts_k8(acc[m][n + 1], a2[m], b1);
+      }
+    }
+  };
+  if (c8 > 1) {
+#pragma unroll 1
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int sh = (tap / KW) * d * SW + (tap % KW) * d;
+      for (int k = 0; k + 1 < c8; k += 2) {
+        unsigned af[MT][3][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) load_a(af[m], pa[m] + sh, k + (lane >> 4));
+        const int hk = wc0 + k + ((lane >> 3) & 1);
+#pragma unroll
+        for (int n = 0; n + 1 < NT; n += 2) mma_pair(af, n, tap * WR, hk);
+        if constexpr (NT % 2 == 1) mma_last(af, tap * WR, hk);
+      }
+      if (c8 & 1) mma_k8(sh, c8 - 1, tap * WR, wc0 + c8 - 1);
+    }
+  } else {
+    // at most 8 channels: k16 step s is taps 2 s (k 0-7) and 2 s + 1
+#pragma unroll 1
+    for (int s = 0; s < TAPS / 2; ++s) {
+      const int ta = 2 * s + (lane >> 4), tb = 2 * s + ((lane >> 3) & 1);
+      const int sh = (ta / KW) * d * SW + (ta % KW) * d;
+      unsigned af[MT][3][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) load_a(af[m], pa[m] + sh, 0);
+      // B: lanes 8-15 (and 24-31) address tap 2 s + 1's rows
+#pragma unroll
+      for (int n = 0; n + 1 < NT; n += 2) mma_pair(af, n, tb * WR, 0);
+      if constexpr (NT % 2 == 1) mma_last(af, tb * WR, 0);
+    }
+    if constexpr (TAPS % 2 == 1) {
+      constexpr int tap = TAPS - 1;
+      mma_k8((tap / KW) * d * SW + (tap % KW) * d, 0, tap * WR, 0);
+    }
+  }
+}
+
+// E[co][pixel] = bias + acc (conv_core_tc's sums), for co < cout.  E may
+// alias xs: every warp is past its reads before E is written.
+template <int NT, int MT>
+__device__ __forceinline__ void store_tc(const ConvIn& p, const float (&acc)[MT][NT][4],
+                                         const float* __restrict__ bias, float* E) {
+  constexpr int ES = Tile<float, 4 * MT>::ES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();   // E may alias xs
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int mt = MT * warp + m;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = 8 * n + 2 * t4 + (e & 1);
+        const int px = (mt >> 1) * kTw + 16 * (mt & 1) + gq + 8 * (e >> 1);
+        if (co < p.cout) E[co * ES + px] = acc[m][n][e] + bias[co];
+      }
+  }
   __syncthreads();
 }
 

@@ -17,23 +17,32 @@
 // outputs; here one block loops over every input channel itself.
 //
 // What bounds it on the H100.  A 3x3 conv does 9 cin cout multiply-adds
-// per pixel against (cin + cout) values moved: 8 -> 8 is 576 FMAs for 64 B
-// in f32, far above the 20 FMA/B at which the card's 67 TFLOP/s f32 rate and
-// 3.35 TB/s meet, so f32 (held to 1e-5: no TF32) is bound by the FP32 pipes;
-// bf16 on the tensor cores (989 TFLOP/s) is bound by device memory.
+// per pixel against (cin + cout) values moved: 8 -> 8 in f32 is 1152
+// operations for 64 B, 18 a byte.  The FP32 pipes (67 TFLOP/s) meet device
+// memory (3.35 TB/s) at 20 a byte, so f32 there (held to 1e-5: no TF32) is
+// bound by the pipes; f32 as six bf16 products on the tensor cores (989 / 6
+// TFLOP/s) meets it at 49 a byte and bf16 (989) at 295, so on the tensor
+// cores both dtypes are bound by device memory.
 //
 // The fast path (conv_fast.cuh; square 1x1, 3x3 and 4x4 kernels, up to 64
 // -> 64 channels, taps within 16 bytes of columns of the tile: every conv
-// and coupling of the flagship and config 5): a persistent grid of 8-warp blocks walks
-// 32-column tiles (4 rows f32, 8 bf16); each tile's input, every channel
-// with its halo, is staged once as [pixel][channel] (prefetched by cp.async
-// while the tile before computes, where the width allows 16-byte runs and
-// the buffer costs no resident block); the conv is an implicit GEMM (M =
-// pixels, N = cout, K = taps x cin): bf16 on mma.sync from ldmatrix, f32 on
-// the FP32 pipes with 4 x 8..16 register tiles and K split across warps;
-// the f32 sums land in shared memory as [co][pixel] and one thread per
-// pixel adds the bias, applies the act and the LRN window (a running sum
-// over the channels) and writes every output channel once.
+// and coupling of the flagship and config 5): a persistent grid of 8-warp
+// blocks walks 32-column tiles (8 rows; 4 in f32 where 8 do not fit); each
+// tile's input, every channel with its halo, is
+// staged once as [pixel][channel] (prefetched by cp.async while the tile
+// before computes, where the width allows 16-byte runs and the buffer costs
+// no resident block); the conv is an implicit GEMM (M = pixels, N = cout,
+// K = taps x cin) on mma.sync from ldmatrix, one warp per 32 or 16 pixels
+// with every output channel: bf16 as it is, f32 as three bf16 parts of
+// each operand, split as they are staged, six products a k step.  The
+// sums land in shared memory as [co][pixel] and one thread per pixel adds
+// the bias, applies the act and the LRN window (a running sum over the
+// channels) and writes every output channel once.
+//
+// f32 shapes whose three parts do not fit a block's shared memory even in
+// tiles of 4 rows (wide weights: 48 -> 48 at 3x3, 32 -> 48 at 4x4) run on
+// the FP32 pipes instead, in tiles of 4 rows: 4 x 16 register tiles, K
+// split across warps and summed through shared memory.
 //
 // The general path (any other kernel size, wider channels): one block per
 // 32-column x TH-row output tile and 32 output channels (a wider cout takes
@@ -204,10 +213,10 @@ int launch(const ConvArgs& p, int n, cudaStream_t stream) {
 
 // One pixel's epilogue: act(E + bias) (E holds the bias), then the LRN over
 // the output channels, stored to y / y2.
-template <typename T>
+template <typename T, int TH>
 __device__ inline void epilogue_fwd(const ConvArgs& p, const float* E, int img, int x0,
                                     int y0) {
-  using Tl = msau::fast::Tile<T>;
+  using Tl = msau::fast::Tile<T, TH>;
   const int pp = threadIdx.x;
   if (pp >= Tl::P) return;
   const int oy = y0 + pp / kTw, ox = x0 + pp % kTw;
@@ -238,22 +247,27 @@ __device__ inline void epilogue_fwd(const ConvArgs& p, const float* E, int img, 
   }
 }
 
-// NC: output channels per warp group in f32 (CT: 8, 12 or 16), n-tiles of
-// 8 in bf16 (NT).  Shared memory: the weights, then the staged tile (f32: its
-// space then holds the K shares; bf16: then E), then f32's E.
-// off_r >= 0: the input is prefetched there by cp.async (double buffered
-// with xs); else staged synchronously.
-template <typename T, int KH, int NC>
-__global__ void __launch_bounds__(msau::fast::kThreads, 2)
+// NC: n-tiles of 8 output channels on the tensor cores (NT); in f32 on the
+// FP32 pipes, output channels per warp group (CT).  MT > 0: f32 on the
+// tensor cores, tiles of 4 MT rows.  Shared memory: the weights, then the
+// staged tile (the FP32 pipes: its space then holds the K shares; the
+// tensor cores: then E), then the FP32 pipes' E.  off_r >= 0: the input is
+// prefetched there by cp.async (double buffered with xs); else staged
+// synchronously.
+template <typename T, int KH, int NC, int MT = 0>
+__global__ void __launch_bounds__(msau::fast::kThreads, MT * NC >= 16 ? 1 : 2)
 conv_fast_kernel(ConvArgs p, msau::fast::Geo g, int off_x, int off_e, int off_r) {
   using namespace msau::fast;
-  constexpr int TH = Tile<T>::TH;
+  constexpr bool kTc = MT > 0;
+  constexpr int TH = kTc ? 4 * MT : Tile<T>::TH;
   extern __shared__ __align__(16) float smem_f[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   T* ws = reinterpret_cast<T*>(smem);
   T* xs = reinterpret_cast<T*>(smem + off_x);
   float* E = reinterpret_cast<float*>(smem + off_e);
   T* raw = reinterpret_cast<T*>(smem + (off_r >= 0 ? off_r : 0));
+  using bf16 = __nv_bfloat16;
+  [[maybe_unused]] const PartStore parts{reinterpret_cast<bf16*>(xs), g.cs, g.sw, g.psz};
   const int per_img = g.tiles_x * g.tiles_y;
   auto origin = [&](int tile, int& img, int& x0, int& y0) {
     img = tile / per_img;
@@ -261,7 +275,10 @@ conv_fast_kernel(ConvArgs p, msau::fast::Geo g, int off_x, int off_e, int off_r)
     x0 = (t2 % g.tiles_x) * kTw;
     y0 = (t2 / g.tiles_x) * TH;
   };
-  stage_weights<T>(p.in, g, ws, NC);
+  if constexpr (kTc)
+    stage_weights_tc(p.in, g, reinterpret_cast<bf16*>(ws), NC);
+  else
+    stage_weights<T>(p.in, g, ws, NC);
   if (off_r >= 0 && (int)blockIdx.x < g.n_tiles) {
     int img, x0, y0;
     origin(blockIdx.x, img, x0, y0);
@@ -274,7 +291,10 @@ conv_fast_kernel(ConvArgs p, msau::fast::Geo g, int off_x, int off_e, int off_r)
     if (off_r >= 0) {
       msau::cp_async_wait<0>();
       __syncthreads();   // the tile has landed; the last epilogue is done
-      transpose_tile<T>(g, raw, xs);
+      if constexpr (kTc)
+        transpose_runs_from<T>(g, raw, parts);
+      else
+        transpose_tile<T>(g, raw, xs);
       __syncthreads();
       if (tile + (int)gridDim.x < g.n_tiles) {
         int img2, x2, y2;
@@ -284,15 +304,37 @@ conv_fast_kernel(ConvArgs p, msau::fast::Geo g, int off_x, int off_e, int off_r)
       msau::cp_async_commit();
     } else {
       __syncthreads();   // the last tile's epilogue is done with E / xs
-      stage_tile<T>(p.in, g, xs, img, x0, y0);
+      if constexpr (kTc)
+        stage_runs<T>(p.in, g, parts, img, x0, y0);
+      else
+        stage_tile<T>(p.in, g, xs, img, x0, y0);
       __syncthreads();
     }
-    if constexpr (sizeof(T) == 4)
+    if constexpr (kTc) {
+      float acc[MT][NC][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+      const bf16* xb = reinterpret_cast<const bf16*>(xs);
+      const bf16* wb = reinterpret_cast<const bf16*>(ws);
+      conv_core_tc<KH, NC, MT>(p.in, g, xb, wb, 0, acc);
+      for (int j = 1; j < g.nch; ++j) {   // the next kChunk input channels
+        __syncthreads();
+        stage_runs<T>(p.in, g, parts, img, x0, y0, j * kChunk);
+        __syncthreads();
+        conv_core_tc<KH, NC, MT>(p.in, g, xb, wb, j, acc);
+      }
+      store_tc<NC, MT>(p.in, acc, p.bias, E);
+    } else if constexpr (sizeof(T) == 4) {
       conv_core_f32<KH, NC>(p.in, g, (const float*)xs, (const float*)ws, p.bias,
                             (float*)xs, E);
-    else
+    } else {
       conv_core_bf16<KH, NC>(p.in, g, xs, ws, p.bias, E);
-    epilogue_fwd<T>(p, E, img, x0, y0);
+    }
+    epilogue_fwd<T, TH>(p, E, img, x0, y0);
   }
 }
 
@@ -305,6 +347,31 @@ int resident_blocks(Kernel kernel, size_t smem) {
   return msau::fast::blocks_per_sm(kernel, smem) * std::max(1, sms);
 }
 
+// Launches a fast kernel over g's tiles with ``smem`` bytes of shared
+// memory, plus the cp.async prefetch buffer where the runs allow it (and a
+// tile's input is staged in one pass), shared memory holds it and it costs
+// no resident block.
+template <typename T, typename Kernel>
+int launch_tiles(Kernel kernel, const ConvArgs& p, const msau::fast::Geo& g, size_t smem,
+                 int off_x, int off_e, cudaStream_t stream, bool one_pass = true) {
+  using namespace msau::fast;
+  int off_r = -1;
+  const size_t with_raw = smem + raw_bytes<T>(g);
+  if (one_pass && g.vec && with_raw <= 227 * 1024) {
+    const cudaError_t err = msau::allow_smem(kernel, with_raw);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks_per_sm(kernel, with_raw) >= blocks_per_sm(kernel, smem)) {
+      off_r = (int)smem;
+      smem = with_raw;
+    }
+  }
+  const cudaError_t err = msau::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (int)std::min<int64_t>(g.n_tiles, resident_blocks(kernel, smem));
+  kernel<<<blocks, msau::fast::kThreads, smem, stream>>>(p, g, off_x, off_e, off_r);
+  return (int)cudaGetLastError();
+}
+
 // -> the launch's code, or -1 (nothing launched) where the shared memory
 // the shape needs is more than a block may have
 template <typename T, int KH, int NC>
@@ -315,51 +382,100 @@ int launch_fast(const ConvArgs& p, int n, cudaStream_t stream) {
   const size_t wb = w_bytes<T>(p.in, g, NC);
   const size_t region = kF32 ? std::max(xs_bytes<T>(g), red_bytes(g))
                              : std::max(xs_bytes<T>(g), e_bytes<T>(p.in.cout));
-  size_t smem = wb + region + (kF32 ? e_bytes<T>(p.in.cout) : 0);
+  const size_t smem = wb + region + (kF32 ? e_bytes<T>(p.in.cout) : 0);
   if (smem > 227 * 1024) return -1;
-  // the cp.async prefetch where the runs allow it and shared memory holds it
-  auto kernel = conv_fast_kernel<T, KH, NC>;
-  int off_r = -1;
-  const size_t with_raw = smem + raw_bytes<T>(g);
-  if (g.vec && with_raw <= 227 * 1024) {
-    const cudaError_t err = msau::allow_smem(kernel, with_raw);
-    if (err != cudaSuccess) return (int)err;
-    // only where it costs no resident block
-    if (blocks_per_sm(kernel, with_raw) >= blocks_per_sm(kernel, smem)) {
-      off_r = (int)smem;
-      smem = with_raw;
-    }
-  }
-  const cudaError_t err = msau::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)std::min<int64_t>(g.n_tiles, resident_blocks(kernel, smem));
-  kernel<<<blocks, msau::fast::kThreads, smem, stream>>>(
-      p, g, (int)wb, (int)(kF32 ? wb + region : wb), off_r);
-  return (int)cudaGetLastError();
+  return launch_tiles<T>(conv_fast_kernel<T, KH, NC>, p, g, smem, (int)wb,
+                         (int)(kF32 ? wb + region : wb), stream);
 }
 
-template <typename T, int NC>
+template <int NT>
 int launch_fast_k(const ConvArgs& p, int n, cudaStream_t stream) {
-  if (p.in.kh == 1) return launch_fast<T, 1, NC>(p, n, stream);
-  return p.in.kh == 3 ? launch_fast<T, 3, NC>(p, n, stream)
-                      : launch_fast<T, 4, NC>(p, n, stream);
+  using T = __nv_bfloat16;
+  if (p.in.kh == 1) return launch_fast<T, 1, NT>(p, n, stream);
+  return p.in.kh == 3 ? launch_fast<T, 3, NT>(p, n, stream)
+                      : launch_fast<T, 4, NT>(p, n, stream);
+}
+
+// the n-tiles of 8 output channels a tensor-core instance holds: 1, 2, 3,
+// 4 or 8
+int cout_tiles(int cout) {
+  return cout <= 8 ? 1 : cout <= 16 ? 2 : cout <= 24 ? 3 : cout <= 32 ? 4 : 8;
+}
+
+// ---- f32 on the tensor cores ----------------------------------------------
+
+// shared memory of tiles of 4 mt rows: the weights' three parts, then the
+// tile's (E in their place once the conv is summed)
+size_t tc_smem(const ConvIn& in, const msau::fast::Geo& g, int mt) {
+  using namespace msau::fast;
+  const size_t e = align16((size_t)in.cout * (32 * 4 * mt + 4) * 4);
+  return parts_bytes(g.wsz) + std::max(parts_bytes(g.psz), e);
+}
+size_t tc_smem(const ConvIn& in, int mt, bool passes) {
+  return tc_smem(in, msau::fast::make_geo_tc(in, 1, mt, cout_tiles(in.cout), passes), mt);
+}
+
+// f32 fast shapes on the tensor cores: tiles of 8 rows (2), of 4 (1) where
+// 8 rows' parts pass a block's shared memory (of the fast shapes only 3x3
+// kernels into more than 24 channels), else the FP32 pipes (0).
+int tc_plan(const ConvIn& in) {
+  if (!msau::fast::fast_shape<float>(in)) return 0;
+  if (tc_smem(in, 2, true) <= 227 * 1024) return 2;
+  return in.kh == 3 && in.cout > 24 && tc_smem(in, 1, true) <= 227 * 1024 ? 1 : 0;
+}
+
+// A tile's input channels are staged in one pass where the cp.async
+// prefetch can hold them (it overlaps their staging with the tile before),
+// else in passes of kChunk, which leave room for more resident blocks.
+template <int KH, int NT, int MT>
+int launch_tc(const ConvArgs& p, int n, cudaStream_t stream) {
+  using namespace msau::fast;
+  Geo g = make_geo_tc(p.in, n, MT, NT, false);
+  if (!(g.vec && tc_smem(p.in, g, MT) + raw_bytes<float>(g) <= 227 * 1024))
+    g = make_geo_tc(p.in, n, MT, NT, true);
+  const int wb = (int)parts_bytes(g.wsz);
+  return launch_tiles<float>(conv_fast_kernel<float, KH, NT, MT>, p, g, tc_smem(p.in, g, MT),
+                             wb, wb, stream, g.nch == 1);
+}
+
+template <int NT>
+int launch_tc_k(const ConvArgs& p, int n, int mt, cudaStream_t stream) {
+  if constexpr (NT >= 4)
+    if (mt == 1) return launch_tc<3, NT, 1>(p, n, stream);
+  const int kh = p.in.kh;
+  return kh == 1 ? launch_tc<1, NT, 2>(p, n, stream)
+                 : kh == 3 ? launch_tc<3, NT, 2>(p, n, stream) : launch_tc<4, NT, 2>(p, n, stream);
+}
+
+int dispatch_tc(const ConvArgs& p, int n, int mt, cudaStream_t stream) {
+  switch (cout_tiles(p.in.cout)) {
+    case 1: return launch_tc_k<1>(p, n, mt, stream);
+    case 2: return launch_tc_k<2>(p, n, mt, stream);
+    case 3: return launch_tc_k<3>(p, n, mt, stream);
+    case 4: return launch_tc_k<4>(p, n, mt, stream);
+    default: return launch_tc_k<8>(p, n, mt, stream);
+  }
 }
 
 // The fast path where the shape allows it, else -1.
 template <typename T>
 int dispatch_fast(const ConvArgs& p, int n, cudaStream_t stream) {
   if (!msau::fast::fast_shape<T>(p.in)) return -1;
-  const int cout = p.in.cout;
   if constexpr (sizeof(T) == 4) {
-    if (cout <= 8) return launch_fast_k<T, 8>(p, n, stream);
-    if (cout > 16 && cout <= 24) return launch_fast_k<T, 12>(p, n, stream);
-    return launch_fast_k<T, 16>(p, n, stream);
+    const int mt = tc_plan(p.in);
+    if (mt > 0) return dispatch_tc(p, n, mt, stream);
+    // the FP32 pipes: 3x3 and 4x4 kernels into more than 24 channels
+    return p.in.kh == 1 ? -1
+           : p.in.kh == 3 ? launch_fast<T, 3, 16>(p, n, stream)
+                          : launch_fast<T, 4, 16>(p, n, stream);
   } else {
-    if (cout <= 8) return launch_fast_k<T, 1>(p, n, stream);
-    if (cout <= 16) return launch_fast_k<T, 2>(p, n, stream);
-    if (cout <= 24) return launch_fast_k<T, 3>(p, n, stream);
-    if (cout <= 32) return launch_fast_k<T, 4>(p, n, stream);
-    return launch_fast_k<T, 8>(p, n, stream);
+    switch (cout_tiles(p.in.cout)) {
+      case 1: return launch_fast_k<1>(p, n, stream);
+      case 2: return launch_fast_k<2>(p, n, stream);
+      case 3: return launch_fast_k<3>(p, n, stream);
+      case 4: return launch_fast_k<4>(p, n, stream);
+      default: return launch_fast_k<8>(p, n, stream);
+    }
   }
 }
 
@@ -399,4 +515,15 @@ extern "C" int msau_flat_conv2d(const void* a, const void* b, const void* w,
                    lrn_k};
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? dispatch<__nv_bfloat16>(p, n, s) : dispatch<float>(p, n, s);
+}
+
+// 1 where msau_flat_conv2d runs this shape in f32 on the tensor cores (the
+// launches ops/flatconv.py counts in ``tc_launches``), else 0.
+extern "C" int msau_flat_conv_tc(int ca, int cb, int cout, int kh, int kw, int dil,
+                                 int pleft, int is_bf16) {
+  if (is_bf16 || ca <= 0 || cb < 0 || cout <= 0 || kh <= 0 || kw <= 0 || dil <= 0 ||
+      pleft < 0)
+    return 0;
+  const ConvIn in{nullptr, nullptr, nullptr, ca, cb, 1, 1, cout, kh, kw, dil, 0, pleft};
+  return tc_plan(in) > 0 ? 1 : 0;
 }

@@ -79,11 +79,22 @@ GENERAL_ATTENTION = {
 }
 
 
+# the flat conv's wrappers (csrc/flatconv.cu) -> the wrapper whose
+# ``tc_launches`` counts its f32 launches on the tensor cores
+TENSOR_CORE_CONV = {
+    "flat_conv2d": flat_conv2d_cuda,
+    "flat_conv_dx": flat_conv_dx_cuda,
+    "concat_conv1x1": concat_conv1x1_cuda,
+}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     for fn in GENERAL_ATTENTION.values():
         fn.general_launches = 0
+    for fn in TENSOR_CORE_CONV.values():
+        fn.tc_launches = 0
 
 
 def launch_counts() -> dict:
@@ -93,3 +104,7 @@ def launch_counts() -> dict:
 def general_launch_counts() -> dict:
     return {name: fn.general_launches
             for name, fn in GENERAL_ATTENTION.items()}
+
+
+def tc_launch_counts() -> dict:
+    return {name: fn.tc_launches for name, fn in TENSOR_CORE_CONV.items()}

@@ -76,6 +76,9 @@ SIGNATURES = {
     # pleft, act, lrn_size, alpha, beta, lrn_k, is_bf16, stream
     "msau_flat_conv2d": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # ca, cb, cout, kh, kw, dil, pleft, is_bf16 -> 1 where msau_flat_conv2d
+    # runs the shape in f32 on the tensor cores
+    "msau_flat_conv_tc": (_I, _I, _I, _I, _I, _I, _I, _I),
     # a, b, w, bias, g, g0, partial, out, n, ca, cb, h, w, cout, kh, kw, dil,
     # pt, pleft, act, lrn_size, alpha, beta, lrn_k, is_bf16, stream
     "msau_flat_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

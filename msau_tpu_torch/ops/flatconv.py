@@ -26,7 +26,9 @@ sizes, wide cin, geometries without an aligned tiling), so any H, W runs.
                                             _ups_bwd_kernel
 
 A CUDA tensor launches the kernel (the ``*_cuda`` wrappers, each counting
-its launches in ``.launches``); a CPU tensor takes the ``*_plain`` version.
+its launches in ``.launches``; those of csrc/flatconv.cu count the f32
+launches that ran on the tensor cores in ``.tc_launches`` too); a CPU
+tensor takes the ``*_plain`` version.
 Activations are f32 or bf16; weights are cast to the activation dtype,
 biases are added in f32, and every op accumulates and runs its epilogue in
 f32.  Each op is a ``torch.autograd.Function`` whose backward follows the
@@ -40,6 +42,7 @@ does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -325,10 +328,21 @@ def flat_conv2d_plain(a: torch.Tensor, b: Optional[torch.Tensor],
     return y.to(x.dtype)
 
 
-def _conv_launch(name, a, b, w, bias, dilation, pads, act, lrn_size, alpha,
-                 beta, lrn_k, couts: Optional[Sequence[int]] = None):
-    """One msau_flat_conv2d launch; ``couts`` splits the output channels
-    over one or two tensors (returned as a tuple when given)."""
+@functools.lru_cache(maxsize=None)
+def tensor_core_shape(ca: int, cb: int, cout: int, kh: int, kw: int,
+                      dilation: int, pleft: int, bf16: int) -> bool:
+    """Whether msau_flat_conv2d runs this shape in f32 on the tensor cores
+    (three bf16 parts of each operand; csrc/conv_fast.cuh)."""
+    return bool(cuda_lib.library().msau_flat_conv_tc(
+        ca, cb, cout, kh, kw, dilation, pleft, bf16))
+
+
+def _conv_launch(wrapper, name, a, b, w, bias, dilation, pads, act, lrn_size,
+                 alpha, beta, lrn_k, couts: Optional[Sequence[int]] = None):
+    """One msau_flat_conv2d launch, counted in ``wrapper``'s ``launches``
+    and, in f32 on the tensor cores, ``tc_launches``; ``couts`` splits the
+    output channels over one or two tensors (returned as a tuple when
+    given)."""
     cb = _check_conv(name, a, b, w, bias)
     n, ca, h, wd = a.shape
     cout, _, kh, kw = w.shape
@@ -344,20 +358,23 @@ def _conv_launch(name, a, b, w, bias, dilation, pads, act, lrn_size, alpha,
         kh, kw, dilation, pads[0], pads[1], act_code(act), int(lrn_size or 0),
         alpha, beta, lrn_k, is_bf16(a), cuda_lib.stream_ptr(a.device))
     cuda_lib.check("msau_flat_conv2d", code)
+    wrapper.launches += 1
+    wrapper.tc_launches += tensor_core_shape(ca, cb, cout, kh, kw, dilation,
+                                             pads[1], is_bf16(a))
     return tuple(ys) if couts is not None else ys[0]
 
 
 def flat_conv2d_cuda(a, b, w, bias, *, dilation=1, act=None, lrn_size=0,
                      alpha=1e-4, beta=0.75, lrn_k=1.0) -> torch.Tensor:
-    """Launch the conv kernel; ``.launches`` counts calls."""
+    """Launch the conv kernel; ``.launches`` counts calls, ``.tc_launches``
+    those in f32 on the tensor cores."""
     (pt, _), (pl, _) = conv_pads(w, dilation)
-    y = _conv_launch("flat_conv2d", a, b, w, bias, dilation, (pt, pl), act,
-                     lrn_size, alpha, beta, lrn_k)
-    flat_conv2d_cuda.launches += 1
-    return y
+    return _conv_launch(flat_conv2d_cuda, "flat_conv2d", a, b, w, bias,
+                        dilation, (pt, pl), act, lrn_size, alpha, beta, lrn_k)
 
 
 flat_conv2d_cuda.launches = 0
+flat_conv2d_cuda.tc_launches = 0
 
 
 def concat_conv1x1_plain(a, b, w, bias, *, act=None) -> torch.Tensor:
@@ -366,16 +383,16 @@ def concat_conv1x1_plain(a, b, w, bias, *, act=None) -> torch.Tensor:
 
 def concat_conv1x1_cuda(a, b, w, bias, *, act=None) -> torch.Tensor:
     """Launch the conv kernel as the two-input 1x1 coupling conv;
-    ``.launches`` counts calls."""
+    ``.launches`` counts calls, ``.tc_launches`` those in f32 on the tensor
+    cores."""
     if tuple(w.shape[-2:]) != (1, 1):
         raise ValueError(f"concat_conv1x1: weight {tuple(w.shape)} is not 1x1")
-    y = _conv_launch("concat_conv1x1", a, b, w, bias, 1, (0, 0), act, 0, 0.0,
-                     0.0, 0.0)
-    concat_conv1x1_cuda.launches += 1
-    return y
+    return _conv_launch(concat_conv1x1_cuda, "concat_conv1x1", a, b, w, bias,
+                        1, (0, 0), act, 0, 0.0, 0.0, 0.0)
 
 
 concat_conv1x1_cuda.launches = 0
+concat_conv1x1_cuda.tc_launches = 0
 
 
 def _epilogue_grad(a: torch.Tensor, g: torch.Tensor, code: int, size: int,
@@ -472,17 +489,17 @@ def flat_conv_dx_plain(g0: torch.Tensor, w: torch.Tensor,
 
 def flat_conv_dx_cuda(g0, w, couts, *, dilation=1):
     """Launch the conv kernel as the transposed conv of g0 with split
-    outputs; ``.launches`` counts calls."""
+    outputs; ``.launches`` counts calls, ``.tc_launches`` those in f32 on
+    the tensor cores."""
     (pt, _), (pl, _) = _dx_pads(w, dilation)
     wt = _dx_taps(w, g0.dtype)
     zero = torch.zeros(wt.shape[0], dtype=torch.float32, device=g0.device)
-    ys = _conv_launch("flat_conv_dx", g0, None, wt, zero, dilation, (pt, pl),
-                      None, 0, 0.0, 0.0, 0.0, couts=couts)
-    flat_conv_dx_cuda.launches += 1
-    return ys
+    return _conv_launch(flat_conv_dx_cuda, "flat_conv_dx", g0, None, wt, zero,
+                        dilation, (pt, pl), None, 0, 0.0, 0.0, 0.0, couts=couts)
 
 
 flat_conv_dx_cuda.launches = 0
+flat_conv_dx_cuda.tc_launches = 0
 
 
 class _FlatConv(torch.autograd.Function):

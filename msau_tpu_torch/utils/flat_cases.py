@@ -71,6 +71,14 @@ FLAT_CASES = [
           h=29, w=61, k=3, d=4, act=None, lrn=True),
     _case("flat_conv2d", "32 + 32 -> 32 21x48", 0, n=2, c=32, cb=32,
           cout=32, h=21, w=48, k=3, d=1, act=None, lrn=False),
+    # f32 on the tensor cores stages 32 input channels a pass: two passes,
+    # the second of 8 channels (its dx: 12 channels, one pass of 2 chunks)
+    _case("flat_conv2d", "cin 40 -> 12 two passes 19x35 elu", 0, n=2, c=40,
+          cout=12, h=19, w=35, k=3, d=2, act="elu", lrn=True),
+    # f32 weights whose three bf16 parts pass a block's shared memory: the
+    # fast path's FP32 pipes (bf16: the tensor cores as any fast shape)
+    _case("flat_conv2d", "40 -> 40 21x37 (f32 on the FP32 pipes)", 0, n=2,
+          c=40, cout=40, h=21, w=37, k=3, d=1, act=None, lrn=False),
     # just past the fast path: more than 64 input channels, and a 5x5
     # kernel, take the general kernels
     _case("flat_conv2d", "64 + 64 -> 64 18x40 (general)", 0, n=2, c=64,

@@ -78,8 +78,13 @@ def test_bound_counts_bf16_fast_convs_at_the_tensor_core_peak(op, name):
     conv = 2 * n * hw * cout * (c + cb) * k * k
     epi = op == "flat_conv_bwd" and (case["act"] or case["lrn"])
     flops = conv * (2 if epi else 1)
-    # f32 counts the FP32 peak, bf16 the tensor cores' (a bytes bound here)
-    assert f32_ms >= flops / cs.PEAK_F32_FLOPS * 1e3 * (1 - 1e-9)
+    # f32 counts the FP32 peak (stage 1) or, for the forward and dx on the
+    # tensor cores, a sixth of their peak; bf16 the tensor cores' (a bytes
+    # bound here)
+    f32_peak = (cs.PEAK_F32_TC_FLOPS if op != "flat_conv_bwd"
+                else cs.PEAK_F32_FLOPS)
+    assert (op != "flat_conv_bwd") == cs._conv_tc(case)
+    assert f32_ms >= flops / f32_peak * 1e3 * (1 - 1e-9)
     assert bf16_ms >= flops / cs.PEAK_BF16_FLOPS * 1e3 * (1 - 1e-9)
     assert bf16_ms < flops / cs.PEAK_F32_FLOPS * 1e3
     assert by == "bytes"
@@ -293,3 +298,29 @@ def test_device_time_leaves_a_failed_profiler_alone(monkeypatch):
     clock[0] += cs.PROFILER_RETRY_S
     cs._device_time(lambda: None, 2)
     assert len(sessions) == 4 and cs.TIMER["event_calls"] == 3
+
+
+def test_tensor_cores_take_the_train_cells_f32_convs():
+    """Every f32 conv forward, coupling forward and dx of the flagship fs=3
+    step (its instances in FLAT_CASES and FLAT_BWD_CASES), of a residual
+    block at res depth 3 (C -> C 3x3 at 8, 16 and 32 channels) and every
+    ragged case on the fast path runs on the tensor cores (``_conv_tc``
+    mirrors flatconv.cu's tc_plan); stage 1 and the general path never
+    do, nor the f32 forward and dx of weights too wide for a block's shared
+    memory in three parts, which keep the fast path's FP32 pipes."""
+    res = [_case("flat_conv2d", "dil_conv_0 stages 1-2", c=c, cout=c, h=64,
+                 w=64, lrn=False, act="relu") for c in (8, 16, 32)]
+    res += [dict(c, op="flat_conv_dx") for c in res]
+    for case in FLAT_CASES + FLAT_BWD_CASES + res:
+        if case["op"] not in ("flat_conv2d", "flat_conv_bwd", "flat_conv_dx",
+                              "concat_conv1x1"):
+            continue
+        tc = cs._conv_tc(case)
+        if case["op"] == "flat_conv_bwd":
+            assert not tc, case["name"]
+        elif "FP32 pipes" in case["name"]:
+            assert cs._conv_fast(case, 4) and not tc, (case["op"], case["name"])
+        else:
+            assert tc == cs._conv_fast(case, 4), (case["op"], case["name"])
+        if case.get("per_request", 0) or case.get("per_step", 0):
+            assert tc or case["op"] == "flat_conv_bwd", case["name"]

@@ -11,10 +11,13 @@ scale (max(1, max |want|)): the residue is the conv sums' order.  Layout
 conversion and max pooling are exact.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
 from msau_tpu.models.flat_layers import make_scale_geoms
@@ -356,3 +359,92 @@ def test_card_cases_take_the_plain_version_on_the_cpu(case):
         h, w = -(-h // 2), -(-w // 2)
     c = case.get("cout", case["c"])
     assert got.shape == (n, c, h, w) and torch.isfinite(got).all()
+
+
+# ---- f32 on the tensor cores: the arithmetic of csrc/conv_fast.cuh's
+# conv_core_tc, emulated with torch casts
+
+def _bf16_parts(x: torch.Tensor, parts: int):
+    """x (f32) as ``parts`` bf16-valued f32 tensors, the largest first, each
+    the rounded remainder of the ones before (attention_mma.cuh:split2)."""
+    out, r = [], x
+    for _ in range(parts):
+        b = r.to(torch.bfloat16).float()
+        out.append(b)
+        r = r - b
+    return out
+
+
+def _conv_of_parts(x, w, dilation, parts, terms):
+    """The conv as the kernel sums it: x and w in ``parts`` bf16 parts, the
+    products of parts (qa, qb) in ``terms``, each exact in f32 (8-bit
+    significands), summed over the taps and channels in f32."""
+    xs, ws = _bf16_parts(x, parts), _bf16_parts(w, parts)
+    return sum(F.conv2d(xs[qa], ws[qb], dilation=dilation)
+               for qa, qb in terms)
+
+
+def _part_errors(x, w, d):
+    """The scaled error (against 1e-5 of max(1, max |want|), the card
+    test's) of the six products of three parts, of the three products of
+    two parts and of a plain f32 conv, each against the float64 conv of x
+    (padded to the kernel's "same" output) and w at dilation d."""
+    k = w.shape[-1]
+    lo = (k - 1) * d // 2
+    x = F.pad(x, (lo, (k - 1) * d - lo, lo, (k - 1) * d - lo))
+    want = F.conv2d(x.double(), w.double(), dilation=d)
+
+    def err(got):
+        return float((got.double() - want).abs().max()
+                     / max(1.0, float(want.abs().max())))
+
+    six = err(_conv_of_parts(x, w, d, 3, [(0, 2), (1, 1), (2, 0), (0, 1),
+                                          (1, 0), (0, 0)]))
+    three = err(_conv_of_parts(x, w, d, 2, [(0, 1), (1, 0), (0, 0)]))
+    return six, three, err(F.conv2d(x, w, dilation=d))
+
+
+TC_SHAPES = [(8, 8, 3, 1), (16, 32, 3, 4), (8, 17, 4, 1)]
+
+
+@pytest.mark.parametrize("cin,cout,k,d", TC_SHAPES)
+def test_three_bf16_parts_carry_the_f32_conv(cin, cout, k, d):
+    """Three bf16 parts of input and weights, the six products qa + qb < 3,
+    hold the conv to f32's own rounding: within the card test's tolerance
+    (1e-5 of max(1, max |want|)) of the float64 conv and within twice
+    where a plain f32 conv lies.  Two parts with three products carry 16
+    bits: they lie over five times as far as the f32 conv (at these
+    operands still inside 1e-5, a tolerance looser than f32's rounding),
+    so the kernel takes three."""
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.normal(size=(2, cin, 19, 23)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(cout, cin, k, k))
+                          * (k * k * cin) ** -0.5).astype(np.float32))
+    six, three, f32 = _part_errors(x, w, d)
+    assert six <= REL and six <= 2 * f32, (six, f32)
+    assert three > 5 * f32 and three > 10 * six, (three, f32, six)
+
+
+@pytest.mark.parametrize("cin,cout,k,d", TC_SHAPES)
+def test_two_bf16_parts_miss_the_f32_tolerance(cin, cout, k, d):
+    """Where the parts' remainders share a sign, the products that two
+    parts leave out (x1 w1, x0 w2, x2 w0: 2^-16 of each product) add up
+    instead of cancelling: operands of bf16 values in [0.5, 0.53) plus just
+    under half their unit in the last place, weights scaled by a power of
+    two so the largest output lies in [1, 2).  Two parts with three
+    products then miss the card test's 1e-5; three parts with six hold the
+    conv within a plain f32 conv's error."""
+    rng = np.random.default_rng(24)
+
+    def remainders_up(shape):
+        base = torch.from_numpy(rng.uniform(0.5, 0.53, size=shape)
+                                .astype(np.float32)).to(torch.bfloat16)
+        up = rng.uniform(0.46, 0.49, size=shape).astype(np.float32) * 2.0**-8
+        return base.float() + torch.from_numpy(up)
+
+    x = remainders_up((2, cin, 19, 23))
+    w = remainders_up((cout, cin, k, k)) * 2.0 ** -math.floor(
+        math.log2(k * k * cin / 4))
+    six, three, f32 = _part_errors(x, w, d)
+    assert three > REL, (three, six, f32)
+    assert six <= f32 <= REL, (six, f32)

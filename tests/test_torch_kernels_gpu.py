@@ -628,6 +628,83 @@ def test_flat_bwd_kernels_match_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_conv_tensor_core_launches_in_a_train_step(cuda, dtype):
+    """One training step of a model shaped as the benchmark's msau_default
+    (feat_root 8, res depth 3, so its residual blocks are flat convs;
+    flat_scales 3), at 4 scales on 64^2 pages: in f32 every launch of the
+    flat conv's kernel (forward, the couplings' forward, dx) runs on the
+    tensor cores, ``ops.tc_launch_counts()`` equal to the wrappers'
+    ``launches``; in bf16 none does."""
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import ModelConfig, TrainConfig
+    from msau_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(img_channels=64, n_class=17, scale_space_num=4,
+                      res_depth=3, feat_root=8, num_blocks=3,
+                      final_act="softmax", flat_scales=3, dtype=dtype)
+    tr = Trainer(cfg, TrainConfig(optimizer="adam", learning_rate=1e-4),
+                 device=cuda)
+    tr.init_state(np.zeros((2, 64, 64, 64), np.float32))
+    rng = np.random.default_rng(0)
+    batch = tr.put_batch({
+        "input": (rng.random((2, 64, 64, 64)) < 0.05).astype(np.float32),
+        "label": rng.integers(0, 17, (2, 64, 64)).astype(np.int32),
+        "valid": np.ones((2, 64, 64), bool)})
+    tr.state, _ = tr.train_step(tr.state, batch)
+    ops.reset_launch_counts()
+    tr.state, metrics = tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    launches, tc = ops.launch_counts(), ops.tc_launch_counts()
+    assert all(launches[k] > 0 for k in tc), launches
+    assert tc == {k: launches[k] if dtype == "float32" else 0 for k in tc}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,tc", [
+    ("5x5 12 -> 8 23x31 (general)", False),
+    ("64 + 64 -> 64 18x40 (general)", False),
+    ("40 -> 40 21x37 (f32 on the FP32 pipes)", False),
+    ("dil_conv_0 stage 0", True), ("end_conv", True)])
+def test_flat_conv_tensor_core_count_follows_the_shape(cuda, name, tc):
+    """A launch off the fast path (the general kernels) or on its FP32
+    pipes counts in ``launches`` and not in ``tc_launches``; an f32 launch
+    on the tensor cores counts in both, a bf16 one in ``launches`` alone."""
+    from msau_tpu_torch import ops
+
+    case = next(c for c in FLAT_CASES
+                if c["op"] == "flat_conv2d" and c["name"] == name)
+    for dtype in (torch.float32, torch.bfloat16):
+        tensors = flat_case_tensors(dict(case, n=1, h=24, w=40),
+                                    np.random.default_rng(3), cuda, dtype)
+        kernel, _ = flat_case_fns(case, tensors, dtype)
+        ops.reset_launch_counts()
+        kernel()
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flat_conv2d"] == 1
+        assert ops.tc_launch_counts()["flat_conv2d"] == int(
+            tc and dtype == torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in FLAT_CASES if c["per_request"]
+                                  and c["op"] in ("flat_conv2d",
+                                                  "concat_conv1x1")],
+                         ids=lambda c: f"{c['op']}-{c['name']}")
+def test_flat_conv_f32_tensor_cores_same_bits(cuda, case):
+    """The f32 conv on the tensor cores sums in a fixed order: two launches
+    of the forward at a train step's batch give the same bits."""
+    tensors = flat_case_tensors(dict(case, n=4), np.random.default_rng(4),
+                                cuda, torch.float32)
+    kernel, _ = flat_case_fns(case, tensors, torch.float32)
+    first = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.gpu
 def test_tf32_stays_off_after_import(cuda):
     """Importing the port turns TF32 off for cuDNN and for matmul, so the
     f32 products of this slice (cuDNN convs, the LSTM's cuDNN cell, the
