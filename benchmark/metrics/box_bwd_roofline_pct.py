@@ -1,0 +1,10 @@
+"""The box convolution backward's share of its roofline: the step's calls'
+bounds (``box_counts``, bytes-bound) over ``msau::box::filter_bwd``'s
+device time a step, in %; None where the launch counter is not one a call
+(``box_roofline.share``)."""
+
+from benchmark.box_roofline import share
+
+
+def read(ctx):
+    return share(ctx, "bwd")

@@ -48,6 +48,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
        masked CE  fwd and bwd on [16, 17, 512^2] f32 and bf16 logits with
                   label-0 pixels and a masked-out band: correct exact,
                   ce_sum rel 1e-5, dlogits 1e-6 (f32) / 1e-2 (bf16);
+       box conv   forward and backward (dx, both coordinate gradients) at
+                  every scale shape of config 4 and of the benchmark's
+                  BMSAU (BOX_SHAPES), f32 and bf16 inputs, coordinates
+                  drawn as the model draws them, against the plain version
+                  in float64 on the same input (BOX_TOL, over max(1, max
+                  |want|); f32 no further than twice the f32 plain
+                  version, bf16 no further than the bf16 one, or within
+                  the tolerance), each run twice for equal bits; both timed
+                  at the largest shape beside the plain version and their
+                  byte bounds, and at each of the BMSAU's;
      the flat-layout forward kernels (entry layout, max pool, conv with its
      fused epilogue, concat 1x1, stride-2 deconv, fused residual block) on
      every case of utils/flat_cases.py: each instance the flagship's
@@ -168,14 +178,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      convolutions: 2 a block, 3 boxes a channel, max 28) at 256^2, batch
      4, remat, f32 and bf16, on rng(0) uniform inputs and random labels
      (bench_configs.time_train): 2 warm-up and 5 timed steps (launches per
-     step PER_STEP_REMAT: 6 resident attention forwards, 2 backwards, 2 CE
-     forwards and backwards), the loss below its first value after 10
+     step PER_STEP_CONFIG4: 6 resident attention forwards, 2 backwards, 2 CE
+     forwards and backwards, 84 box filter forwards and 42 backwards), the
+     loss below its first value after 10
      steps, a device profile; (b) one f32 step at 64^2, batch 2, of the
      BMSAU and of the flagship with use_lstm and use_spn (the LSTM's
      cuDNN cell, the CSPN), on the card within F32_VS_EXACT of the exact
      (float64, CPU) step and of the CPU's f32 step within twice that; (c)
      KVModel.predict of the BMSAU on the 512^2 bench page, f32: launches
-     per request (paint 3, attention 3, CCL 1) and the decode tables equal
+     per request (paint 3, attention 3, CCL 1, box filter 42) and the
+     decode tables equal
      to the plain pipeline's; (d) BASELINE config 3, the flagship's widths
      on 832 input channels, 256^2, batch 8, remat, f32, 3 timed steps; (e)
      entry A: preprocess_funsd of the FUNSD fixture, then train_funsd
@@ -1315,6 +1327,128 @@ def check_train_kernels(dev):
         "library_ms": None, "times": times,
         "bound": _bound(0, n * length * (2 * c + 2) * 4)}
     return out
+
+
+# the box convolution's card cases (N, C, H, W), 3 boxes of up to 28: each
+# scale of config 4 (4 scales from 256^2, batch 4) and of the benchmark's
+# BMSAU (benchmark/configs/bmsau_default.json: 6 scales from 512^2, batch
+# 16), featRoot 8; the last is the largest, the one timed against the plain
+# version
+BOX_MAX = 28
+BOX_SHAPES = ([(4, 8 * 2 ** s, 256 // 2 ** s, 256 // 2 ** s) for s in range(4)]
+              + [(16, 8 * 2 ** s, 512 // 2 ** s, 512 // 2 ** s)
+                 for s in range(5, -1, -1)])
+# tolerances of (out, dx, dybox, dxbox) over max(1, max |want|), as the card
+# tests hold them (tests/test_torch_kernels_gpu.py)
+BOX_TOL = {"float32": (2e-3, 2e-5, 5e-5, 5e-5),
+           "bfloat16": (2e-3, 4e-3, 5e-5, 5e-5)}
+
+
+def _box_bytes(kind, n, c, h, w, itemsize):
+    """Bytes the box filter must move: the forward reads x and the f32
+    coordinates and writes the 3 f32 responses; the backward reads their
+    cotangent, x and the coordinates, writes dx and the coordinates'
+    gradients."""
+    x, y = n * c * h * w * itemsize, n * c * 3 * h * w * 4
+    coords = 2 * 2 * c * 3 * 4
+    return x + y + coords if kind == "fwd" else y + 2 * x + 3 * coords
+
+
+def check_box_kernels(dev):
+    """Phase 1, the box convolution's kernels -> {kernel: {max_abs_err, ms,
+    plain_ms, library_ms, bound, cases, times}}."""
+    import numpy as np
+    import torch
+
+    from msau_tpu_torch.ops.boxconv import (
+        box_conv_bwd_cuda,
+        box_conv_bwd_plain,
+        box_conv_fwd_cuda,
+        box_conv_plain,
+    )
+
+    kw = dict(max_h=BOX_MAX, max_w=BOX_MAX)
+    cases, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    for n, c, h, w in BOX_SHAPES:
+        rng = np.random.default_rng(n * c + h)
+        # the model's draw: centre U(-max/4, max/4), half-size U(1, max/2)
+        centre = rng.uniform(-BOX_MAX / 4, BOX_MAX / 4, (2, c, 3))
+        half = rng.uniform(1, BOX_MAX / 2, (2, c, 3))
+        yb, xb = (torch.from_numpy(np.stack([centre[i] - half[i],
+                                             centre[i] + half[i]])).float()
+                  .to(dev) for i in range(2))
+        x32 = torch.from_numpy(rng.random((n, c, h, w), dtype=np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((n, c * 3, h, w),
+                                                 dtype=np.float32)).to(dev)
+        for dtype, tols in BOX_TOL.items():
+            x = x32.to(getattr(torch, dtype))
+            runs = [(box_conv_fwd_cuda(x, yb, xb, **kw),
+                     *box_conv_bwd_cuda(x, yb, xb, g, **kw)) for _ in range(2)]
+            torch.cuda.synchronize()
+            key = f"N{n} C{c} {h}x{w} {dtype}"
+            for a, b in zip(*runs):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"box conv {key}: a rerun gives "
+                                         "other bits")
+            want = (box_conv_plain(x.double(), yb.double(), xb.double(), **kw),
+                    *box_conv_bwd_plain(x.double(), yb.double(), xb.double(),
+                                        g.double(), **kw))
+            plain = (box_conv_plain(x, yb, xb, **kw),
+                     *box_conv_bwd_plain(x, yb, xb, g, **kw))
+            errs = [_scaled_err(a, b) for a, b in zip(runs[0], want)]
+            plain_errs = [_scaled_err(a, b) for a, b in zip(plain, want)]
+            del runs, want, plain
+            for name, e, pe, tol in zip(("out", "dx", "dybox", "dxbox"),
+                                        errs, plain_errs, tols):
+                near = max(2 * pe, 1e-5) if dtype == "float32" else max(pe, tol)
+                if e > tol or e > near:
+                    raise AssertionError(
+                        f"box conv {key}: {name} error {e:.3e} (tolerance "
+                        f"{tol}, the plain version's {pe:.3e})")
+            cases[key] = {"errors": errs, "plain_errors": plain_errs}
+            if dtype == "float32":
+                worst["fwd"] = max(worst["fwd"], errs[0])
+                worst["bwd"] = max(worst["bwd"], *errs[1:])
+            print(f"[phase 1] box conv {key}: out / dx / dybox / dxbox "
+                  f"errors {', '.join(f'{e:.2e}' for e in errs)} (plain "
+                  f"{', '.join(f'{e:.2e}' for e in plain_errs)})", flush=True)
+        del x32, g
+        torch.cuda.empty_cache()
+
+    # times: every shape of the benchmark's BMSAU, and the plain version at
+    # the largest
+    times = {}
+    for n, c, h, w in BOX_SHAPES[4:]:
+        x = torch.rand((n, c, h, w), device=dev)
+        yb = torch.tensor([-7.5, 6.25], device=dev)[:, None, None].expand(
+            2, c, 3).contiguous()
+        g = torch.randn((n, c * 3, h, w), device=dev)
+        rec = {}
+        for dtype in BOX_TOL:
+            xd = x.to(getattr(torch, dtype))
+            item = xd.element_size()
+            rec[dtype] = {
+                "fwd_ms": _cuda_ms(lambda: box_conv_fwd_cuda(xd, yb, yb, **kw), 10),
+                "bwd_ms": _cuda_ms(lambda: box_conv_bwd_cuda(xd, yb, yb, g, **kw), 10),
+                "fwd_bound_ms": _bound(0, _box_bytes("fwd", n, c, h, w, item))[0],
+                "bwd_bound_ms": _bound(0, _box_bytes("bwd", n, c, h, w, item))[0]}
+        if (n, c, h, w) == BOX_SHAPES[-1]:
+            rec["float32"]["fwd_plain_ms"] = _cuda_ms(
+                lambda: box_conv_plain(x, yb, yb, **kw), 3)
+            rec["float32"]["bwd_plain_ms"] = _cuda_ms(
+                lambda: box_conv_bwd_plain(x, yb, yb, g, **kw), 3)
+        times[f"N{n} C{c} {h}x{w}"] = rec
+        print(f"[phase 1] box conv times N{n} C{c} {h}x{w}: {json.dumps(rec)}",
+              flush=True)
+        del x, g
+    torch.cuda.empty_cache()
+    n, c, h, w = BOX_SHAPES[-1]
+    top = times[f"N{n} C{c} {h}x{w}"]["float32"]
+    return {f"box_conv_{kind}": {
+        "max_abs_err": worst[kind], "ms": top[f"{kind}_ms"],
+        "plain_ms": top[f"{kind}_plain_ms"], "library_ms": None,
+        "bound": _bound(0, _box_bytes(kind, n, c, h, w, 4)),
+        "cases": cases, "times": times} for kind in ("fwd", "bwd")}
 
 
 # (N, T, operand dtype) of the streaming attention's cases: config 5's
@@ -3255,6 +3389,11 @@ VARIANT_TIMED = {"config 4": 5, "config 3": 3}
 # last stage's attention output feeds nothing, so 2 backwards
 PER_STEP_REMAT = {"resident_attention_fwd": 6, "resident_attention_bwd": 2,
                   "masked_ce_fwd": 2, "masked_ce_bwd": 2}
+# config 4 adds its box convolutions, 3 stages x 7 blocks (4 down, 3 up) x
+# 2 a block, each forward twice (remat) and one backward, in both dtypes
+PER_STEP_CONFIG4 = dict(PER_STEP_REMAT, box_conv_fwd=84, box_conv_bwd=42)
+# and a request of config 4's serve path: the forward once
+SERVE_PER_REQUEST_BOX = dict(SERVE_PER_REQUEST[0], box_conv_fwd=42)
 # the bottleneck extras at the flagship's widths: the row / column LSTM in
 # every stage, the CSPN in the last
 LSTM_SPN = dict(FLAGSHIP, use_lstm=True, use_spn=True)
@@ -3289,13 +3428,14 @@ def variants_train(dev):
 
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
     results = {}
-    runs = [("config 4", CONFIG4, CONFIG4_BATCH, dtype, 10)
+    runs = [("config 4", CONFIG4, CONFIG4_BATCH, dtype, 10, PER_STEP_CONFIG4)
             for dtype in ("float32", "bfloat16")]
-    runs.append(("config 3", CONFIG3, CONFIG3_BATCH, "float32", 0))
-    for label, kwargs, batch_hw, dtype, fall in runs:
+    runs.append(("config 3", CONFIG3, CONFIG3_BATCH, "float32", 0,
+                 PER_STEP_REMAT))
+    for label, kwargs, batch_hw, dtype, fall, per_step in runs:
         results[f"{label.replace(' ', '')}_{dtype}"] = _train_run(
             dev, label, kwargs, dtype, batch_hw, VARIANT_TIMED[label],
-            PER_STEP_REMAT, total, batch=_uniform_batch(kwargs, *batch_hw),
+            per_step, total, batch=_uniform_batch(kwargs, *batch_hw),
             fall_after=fall, phase="phase 4", profile_steps=1)
     return total, results
 
@@ -3366,7 +3506,7 @@ def variant_serve(dev):
     """Phase 4c: KVModel.predict of the BMSAU (config 4's widths, seeded
     random weights) on the 512^2 bench page, f32: 3 requests with the
     launch counts held to a request's (paint 3, resident attention 3, CCL
-    1), the decode tables equal to the plain-version pipeline's -> (launch
+    1, box filter forward 42), the decode tables equal to the plain-version pipeline's -> (launch
     counts, stage p50s, check)."""
     import numpy as np
     import torch
@@ -3380,8 +3520,8 @@ def variant_serve(dev):
     kv = _bench_kv(dict(CONFIG4, final_act="softmax"), "float32", dev, 512,
                    page)
     total = {k: 0 for k in ops.KERNEL_WRAPPERS}
-    timings = _serve_requests(kv, page, 3, SERVE_PER_REQUEST[0], "BMSAU f32",
-                              total, phase="phase 4")
+    timings = _serve_requests(kv, page, 3, SERVE_PER_REQUEST_BOX,
+                              "BMSAU f32", total, phase="phase 4")
     print(f"[phase 4] BMSAU f32 predict p50 ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in timings.items()), flush=True)
     check, _ = _decode_check(kv, page, 512, dev, "bmsau_f32", phase="phase 4")
@@ -5259,6 +5399,7 @@ def main() -> int:
         "phase 1 ccl page axis", check_ccl_batched, dev)
     kernels.update(timed("phase 1 attention", check_attention_kernels, dev))
     kernels.update(timed("phase 1 train kernels", check_train_kernels, dev))
+    kernels.update(timed("phase 1 box conv", check_box_kernels, dev))
     kernels.update(timed("phase 1 streaming attention",
                          check_fused_attention, dev))
     kernels.update(timed("phase 1 general attention",
@@ -5299,6 +5440,9 @@ def main() -> int:
             ("resident_attention_bwd", var_train_counts),
             ("masked_ce_fwd", var_train_counts),
             ("masked_ce_bwd", var_train_counts),
+            ("box_conv_fwd", var_train_counts),
+            ("box_conv_bwd", var_train_counts),
+            ("box_conv_fwd", var_serve_counts),
             ("paint", var_serve_counts), ("ccl_multiclass", var_serve_counts),
             ("paint", entry_counts)):
         if not phase_counts[name]:
@@ -5348,6 +5492,12 @@ def main() -> int:
                           "msau_tpu/ops/ce_loss.py:39"),
         "masked_ce_bwd": ("msau_tpu_torch/csrc/ce_loss.cu",
                           "msau_tpu/ops/ce_loss.py:61"),
+        # no Pallas kernel: the JAX package's box filter is XLA (two banded
+        # einsums over the integral image)
+        "box_conv_fwd": ("msau_tpu_torch/csrc/boxconv.cu",
+                         "msau_tpu/ops/boxconv.py:56 (XLA)"),
+        "box_conv_bwd": ("msau_tpu_torch/csrc/boxconv.cu",
+                         "msau_tpu/ops/boxconv.py:56 (XLA, autodiff)"),
         **FLAT_KERNELS,
         **{name: v[:2] for name, v in FLAT_BWD_KERNELS.items()},
         "fused_attention_fwd": ("msau_tpu_torch/csrc/attention.cu",

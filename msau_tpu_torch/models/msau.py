@@ -92,7 +92,8 @@ def check_supported(cfg: ModelConfig) -> None:
                          "and deconv are 2x2, stride 2)")
     if cfg.flat_scales > 0 and (cfg.model == "msau_box" or cfg.use_spn):
         raise ValueError("flat_scales > 0 needs the conv residual blocks and "
-                         "no use_spn: the box and CSPN paths are NHWC only")
+                         "no use_spn: the flat layout has no box or CSPN "
+                         "block")
 
 
 def check_shard_rows(cfg: ModelConfig, h: int, sp: int) -> None:

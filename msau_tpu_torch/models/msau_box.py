@@ -3,9 +3,10 @@
 The MSAU's topology with every residual block replaced by a
 ``MultiBoxConvBlock``: ``num_convs`` x [``BoxConv2d`` (C -> C*B box
 responses) -> 1x1 conv (C*B -> C)] inside a residual connection.  The box
-filters are ``ops.boxconv`` (torch ops; the JAX package computes them in
-XLA).  ``BMSAUNet`` holds the network as ``bmsau``, so its parameters sit
-at ``net.bmsau.block_{b}...`` as in the flax tree.
+filters are ``ops.boxconv.box_conv`` (hand-written kernels on a card; the
+JAX package computes them in XLA), each in a span ``msau.box_conv``.
+``BMSAUNet`` holds the network as ``bmsau``, so its parameters sit at
+``net.bmsau.block_{b}...`` as in the flax tree.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from msau_tpu_torch.config import ModelConfig
 from msau_tpu_torch.models.layers import ConvBnLrnDrop, get_activation
 from msau_tpu_torch.ops.boxconv import BoxConv2d
+from msau_tpu_torch.utils.profiling import trace
 
 
 class MultiBoxConvBlock(nn.Module):
@@ -41,7 +43,9 @@ class MultiBoxConvBlock(nn.Module):
         for i in range(self.num_convs):
             # the box responses are f32; the 1x1 conv computes in the
             # block's dtype, as flax's ``dtype=`` casts its input
-            y = getattr(self, f"box_conv_{i}")(y).to(x.dtype)
+            with trace("msau.box_conv"):
+                y = getattr(self, f"box_conv_{i}")(y)
+            y = y.to(x.dtype)
             y = getattr(self, f"proj_conv_{i}")(y)
         y = y + x
         act = get_activation(self.activation)

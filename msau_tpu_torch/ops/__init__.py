@@ -4,8 +4,8 @@ backward, multiclass CCL, fused masked CE
 forward and backward, and the flat-layout ops: entry layout, max pool, conv
 with its fused epilogue, concat 1x1 conv, stride-2 deconv and the fused
 residual block, with their backward: pool, conv stage 1 and dx, the
-concat 1x1 conv's one pass, deconv dx and dw, residual block), and the
-torch-op morphology and single-map labelling that ``msau_tpu.ops`` exports."""
+concat 1x1 conv's one pass, deconv dx and dw, residual block; the box
+filter forward and backward), and the torch-op morphology and single-map labelling that ``msau_tpu.ops`` exports."""
 
 from msau_tpu_torch.ops.attention import (
     fused_attention_bwd_cuda,
@@ -13,6 +13,7 @@ from msau_tpu_torch.ops.attention import (
     resident_attention_bwd_cuda,
     resident_attention_cuda,
 )
+from msau_tpu_torch.ops.boxconv import box_conv_bwd_cuda, box_conv_fwd_cuda
 from msau_tpu_torch.ops.ccl import (
     connected_components_jax,
     connected_components_multiclass_cuda,
@@ -66,6 +67,8 @@ KERNEL_WRAPPERS = {
     "flat_res_block_bwd": flat_res_block_bwd_cuda,
     "fused_attention_fwd": fused_attention_cuda,
     "fused_attention_bwd": fused_attention_bwd_cuda,
+    "box_conv_fwd": box_conv_fwd_cuda,
+    "box_conv_bwd": box_conv_bwd_cuda,
 }
 
 # the attention's general kernels (csrc/attention_general.cuh, every width

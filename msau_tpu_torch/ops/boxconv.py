@@ -3,31 +3,50 @@
 Each (channel, box) pair learns a rectangle (y_min, y_max, x_min, x_max)
 and outputs the area-normalised average of the input over that rectangle
 translated to every pixel.  The box sum comes from a 2-D exclusive prefix
-sum sampled at the four corners with a linear blend, which factorises into
-two banded 1-D sampling matrices: one product over columns, one over rows.
-Autodiff through the blend weights gives the boundary-integral gradients to
-the box coordinates, as in the JAX package; the products are plain
-``torch.einsum`` (the JAX package runs them in XLA, not in Pallas).
+sum sampled at the four corners with a linear blend.
 
-Layout is NCHW: ``box_conv2d`` maps [N, C, H, W] to [N, C*B, H, W] with
-output channel ``c * B + b``.
+``box_conv`` is the entry point, on the raw [2, C, B] coordinate
+parameters.  A CUDA tensor, f32 or bf16, launches the hand-written
+kernels through ``BoxConv``, a ``torch.autograd.Function``
+(``csrc/boxconv.cu``: the filter from tile-local f32 integral images in
+shared memory, one launch forward; its backward, the input's and the
+coordinates' gradients with the ties below, one launch); a CUDA tensor of
+another dtype is refused.  A CPU tensor takes the plain version,
+``box_conv2d``, and its gradients by autograd.  No TPU kernel is
+replaced: the JAX package computes the filter in XLA.
+
+``box_conv2d`` is the JAX package's formulation: the prefix sum sampled
+by two banded 1-D sampling matrices, one product over columns, one over
+rows.  Autodiff through the blend weights gives the boundary-integral
+gradients to the box coordinates, as in the JAX package; the products are
+plain ``torch.einsum``.
+
+Layout is NCHW: [N, C, H, W] -> [N, C*B, H, W] with output channel
+``c * B + b``.
 
 Every clip is ``torch.minimum`` / ``torch.maximum``, never ``torch.clamp``:
 at a tie those split the gradient 0.5 / 0.5 as ``jnp.clip``,
 ``jnp.minimum`` and ``jnp.maximum`` do, where ``torch.clamp`` passes all of
 it.  So coordinate gradients agree where a box sits on +-``max_h`` or where
-``y_min == y_max``.
+``y_min == y_max``; the kernels apply the same rules.
 
-Dtype: as in the JAX package, the integral image is a ``cumsum`` in the
-input's dtype (bf16 under a bf16 model) and the f32 bands promote both
-products to f32, so the output is f32 whatever the input.
+Dtype: as in the JAX package, ``box_conv2d``'s integral image is a
+``cumsum`` in the input's dtype (bf16 under a bf16 model) and the f32
+bands promote both products to f32, so the output is f32 whatever the
+input.  The kernels read a bf16 input and sum it in f32 (nearer the exact
+filter than the bf16 ``cumsum``), return f32 and give dx in the input's
+dtype.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from msau_tpu_torch.ops import cuda_lib
 
 
 def integral_image(x: torch.Tensor) -> torch.Tensor:
@@ -108,6 +127,142 @@ def box_conv2d(
     return out.reshape(n, c * b, h, w)
 
 
+def _check(name: str, x: torch.Tensor, ybox: torch.Tensor,
+           xbox: torch.Tensor, max_h: int, max_w: int) -> Tuple[int, ...]:
+    cuda_lib.require_cuda(f"{name} x", x, (torch.float32, torch.bfloat16), 4)
+    for label, t in (("ybox", ybox), ("xbox", xbox)):
+        cuda_lib.require_cuda(f"{name} {label}", t, torch.float32, 3)
+        if t.device != x.device:
+            raise ValueError(f"{name}: {label} on {t.device}, x on {x.device}")
+    n, c, h, w = x.shape
+    if ybox.shape != xbox.shape or ybox.shape[:2] != (2, c):
+        raise ValueError(f"{name}: ybox {tuple(ybox.shape)} / xbox "
+                         f"{tuple(xbox.shape)} must be [2, {c}, B]")
+    b = ybox.shape[2]
+    if not cuda_lib.library().msau_box_conv_smem(n, c, b, h, w, max_h, max_w):
+        raise ValueError(f"{name}: the kernels do not take x {tuple(x.shape)}, "
+                         f"{b} boxes, max {max_h} x {max_w} (at most 8 boxes; "
+                         "a tile's halo region must fit shared memory)")
+    return n, c, b, h, w
+
+
+def box_conv_fwd_cuda(x: torch.Tensor, ybox: torch.Tensor, xbox: torch.Tensor,
+                      *, max_h: int, max_w: int,
+                      normalize: bool = True) -> torch.Tensor:
+    """Launch the forward kernel: x [N, C, H, W] f32 or bf16, ybox / xbox
+    [2, C, B] f32 (raw: min and max as stored) -> [N, C*B, H, W] f32.
+    ``.launches`` counts calls."""
+    n, c, b, h, w = _check("box_conv_fwd", x, ybox, xbox, max_h, max_w)
+    out = torch.empty((n, c * b, h, w), dtype=torch.float32, device=x.device)
+    code = cuda_lib.library().msau_box_conv_fwd(
+        x.data_ptr(), ybox.data_ptr(), xbox.data_ptr(), out.data_ptr(), n, c,
+        b, h, w, max_h, max_w, int(normalize), int(x.dtype == torch.bfloat16),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check("msau_box_conv_fwd", code)
+    box_conv_fwd_cuda.launches += 1
+    return out
+
+
+box_conv_fwd_cuda.launches = 0
+
+# device -> int32 tickets of the backward's last-block sums, one a channel;
+# every launch leaves them zero
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, c: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < c:
+        t = _TICKETS[device] = torch.zeros(max(c, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
+def box_conv_bwd_cuda(x: torch.Tensor, ybox: torch.Tensor, xbox: torch.Tensor,
+                      g: torch.Tensor, *, max_h: int, max_w: int,
+                      normalize: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel on the cotangent ``g`` [N, C*B, H, W] f32
+    -> (dx in x's dtype, dybox, dxbox), the gradients of the raw
+    coordinates with the plain version's tie rules; one launch, no float
+    atomics.  ``.launches`` counts calls."""
+    n, c, b, h, w = _check("box_conv_bwd", x, ybox, xbox, max_h, max_w)
+    cuda_lib.require_cuda("box_conv_bwd g", g, torch.float32, 4)
+    if g.shape != (n, c * b, h, w) or g.device != x.device:
+        raise ValueError(f"box_conv_bwd: g {tuple(g.shape)} must be "
+                         f"[{n}, {c * b}, {h}, {w}] on {x.device}")
+    lib = cuda_lib.library()
+    tiles = lib.msau_box_conv_tiles(n, c, b, h, w)
+    partial = torch.empty(c * b * 5 * n * tiles, dtype=torch.float32,
+                          device=x.device)
+    dx = torch.empty_like(x)
+    dybox, dxbox = torch.empty_like(ybox), torch.empty_like(xbox)
+    code = lib.msau_box_conv_bwd(
+        x.data_ptr(), ybox.data_ptr(), xbox.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), dybox.data_ptr(), dxbox.data_ptr(), partial.data_ptr(),
+        _tickets(x.device, c).data_ptr(), n, c, b, h, w, max_h, max_w,
+        int(normalize), int(x.dtype == torch.bfloat16),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check("msau_box_conv_bwd", code)
+    box_conv_bwd_cuda.launches += 1
+    return dx, dybox, dxbox
+
+
+box_conv_bwd_cuda.launches = 0
+
+
+def box_conv_plain(x: torch.Tensor, ybox: torch.Tensor, xbox: torch.Tensor,
+                   *, max_h: int, max_w: int,
+                   normalize: bool = True) -> torch.Tensor:
+    """``box_conv2d`` on the raw [2, C, B] coordinates."""
+    return box_conv2d(x, ybox[0], ybox[1], xbox[0], xbox[1], max_h=max_h,
+                      max_w=max_w, normalize=normalize)
+
+
+def box_conv_bwd_plain(x, ybox, xbox, g, *, max_h, max_w, normalize=True):
+    """(dx, dybox, dxbox) of ``box_conv_plain`` by autograd: what the
+    backward kernel is held to."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, ybox, xbox)]
+        out = box_conv_plain(*leaves, max_h=max_h, max_w=max_w,
+                             normalize=normalize)
+        return torch.autograd.grad(out, leaves, g)
+
+
+class BoxConv(torch.autograd.Function):
+    """The box filter's kernels on the raw coordinates, with the gradients
+    to the input and to both coordinate tensors."""
+
+    @staticmethod
+    def forward(ctx, x, ybox, xbox, max_h, max_w, normalize):
+        x, ybox, xbox = (t.contiguous() for t in (x, ybox, xbox))
+        ctx.save_for_backward(x, ybox, xbox)
+        ctx.opts = dict(max_h=max_h, max_w=max_w, normalize=normalize)
+        return box_conv_fwd_cuda(x, ybox, xbox, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ybox, xbox = ctx.saved_tensors
+        grads = box_conv_bwd_cuda(x, ybox, xbox, g.contiguous(), **ctx.opts)
+        return (*grads, None, None, None)
+
+
+def box_conv(x: torch.Tensor, ybox: torch.Tensor, xbox: torch.Tensor, *,
+             max_h: int, max_w: int, normalize: bool = True) -> torch.Tensor:
+    """Box-filter responses of x [N, C, H, W] for the raw coordinates
+    ybox / xbox [2, C, B] (min and max stacked) -> [N, C*B, H, W] f32: the
+    kernels on a CUDA tensor (f32 or bf16; the coordinates taken in f32),
+    ``box_conv2d`` on a CPU one."""
+    if x.device.type != "cuda":
+        return box_conv_plain(x, ybox, xbox, max_h=max_h, max_w=max_w,
+                              normalize=normalize)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"box_conv: the kernels take f32 or bf16, not "
+                         f"{x.dtype}")
+    return BoxConv.apply(x, ybox.float(), xbox.float(), max_h, max_w,
+                         normalize)
+
+
 class BoxConv2d(nn.Module):
     """Learnable per-(channel, box) rectangles: ``ybox`` and ``xbox`` are
     [2, C, B] (min and max stacked), drawn as a centre ~ U(-max/4, max/4)
@@ -129,6 +284,5 @@ class BoxConv2d(nn.Module):
         self.xbox = init_minmax(max_w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return box_conv2d(x, self.ybox[0], self.ybox[1], self.xbox[0],
-                          self.xbox[1], max_h=self.max_h, max_w=self.max_w,
-                          normalize=self.normalize)
+        return box_conv(x, self.ybox, self.xbox, max_h=self.max_h,
+                        max_w=self.max_w, normalize=self.normalize)

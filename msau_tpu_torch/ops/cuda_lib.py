@@ -102,6 +102,20 @@ SIGNATURES = {
                              _I, _P),
     # x, w1, b1, w2, b2, y, n, c, h, w, act, is_bf16, stream
     "msau_flat_res_block": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # n, c, b, h, w, max_h, max_w -> bytes of shared memory the box filter
+    # needs at this shape, 0 where it refuses it
+    "msau_box_conv_smem": (_I, _I, _I, _I, _I, _I, _I),
+    # n, c, b, h, w -> tiles of a plane (the backward's partials: C * B * 5
+    # * N * tiles floats), 0 where the shape is refused
+    "msau_box_conv_tiles": (_I, _I, _I, _I, _I),
+    # x, ybox, xbox, out, n, c, b, h, w, max_h, max_w, normalize, is_bf16,
+    # stream
+    "msau_box_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
+    # x, ybox, xbox, g, dx, dybox, dxbox, partial, tickets, n, c, b, h, w,
+    # max_h, max_w, normalize, is_bf16, stream
+    "msau_box_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _P),
     # x, g, w1, b1, w2, b2, dx, partial, out, n, c, h, w, act, is_bf16, stream
     "msau_flat_res_block_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _P),

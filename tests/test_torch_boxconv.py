@@ -104,3 +104,62 @@ def test_box_conv_module_init_and_shape():
     assert 1.0 - 1e-5 <= float(half.min()) and float(half.max()) <= 14.0 + 1e-5
     out = m(torch.rand(2, 4, 9, 11))
     assert out.shape == (2, 12, 9, 11)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_box_conv_function_on_the_cpu_is_the_plain_version(kind):
+    """``box_conv`` (the entry the kernels sit behind on a card) on a CPU
+    tensor: the plain version's output, and its gradients to the input and
+    to the raw [2, C, B] coordinates, ties and clamps included, to the bit
+    (the same torch ops on both sides)."""
+    rng = np.random.default_rng(10 + KINDS.index(kind))
+    coords = [torch.from_numpy(v) for v in _coords(rng, 3, 2, kind)]
+    x = torch.from_numpy(rng.random((2, 3, 13, 10)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 6, 13, 10)).astype(np.float32))
+    kw = dict(max_h=MAX_H, max_w=MAX_W)
+    outs = []
+    for fn in ("function", "plain"):
+        leaves = [x.clone().requires_grad_(),
+                  torch.stack(coords[:2]).requires_grad_(),
+                  torch.stack(coords[2:]).requires_grad_()]
+        if fn == "function":
+            out = boxconv.box_conv(*leaves, **kw)
+        else:
+            out = boxconv.box_conv2d(leaves[0], leaves[1][0], leaves[1][1],
+                                     leaves[2][0], leaves[2][1], **kw)
+        outs.append([out.detach(), *torch.autograd.grad(out, leaves, g)])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_box_conv_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(1, 2, 8, 8)
+    box = torch.zeros(2, 2, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        boxconv.box_conv_fwd_cuda(x, box, box, max_h=4, max_w=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        boxconv.box_conv_bwd_cuda(x, box, box, torch.zeros(1, 6, 8, 8),
+                                  max_h=4, max_w=4)
+
+
+def test_box_conv_bf16_on_the_cpu_is_the_plain_version():
+    """A bf16 CPU input takes the plain version too: its f32 output and
+    its bf16 dx to the bit."""
+    rng = np.random.default_rng(20)
+    coords = [torch.from_numpy(v) for v in _coords(rng, 3, 2, "fractional")]
+    x = torch.from_numpy(rng.random((2, 3, 9, 12)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    kw = dict(max_h=MAX_H, max_w=MAX_W)
+    outs = []
+    for fn in ("entry", "plain"):
+        leaf = x.clone().requires_grad_()
+        ybox, xbox = torch.stack(coords[:2]), torch.stack(coords[2:])
+        if fn == "entry":
+            out = boxconv.box_conv(leaf, ybox, xbox, **kw)
+        else:
+            out = boxconv.box_conv2d(leaf, *coords, **kw)
+        (dx,) = torch.autograd.grad(out.sum(), [leaf])
+        outs.append((out.detach(), dx))
+    assert outs[0][0].dtype == torch.float32 and outs[0][1].dtype == torch.bfloat16
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)

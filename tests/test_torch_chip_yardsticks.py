@@ -324,3 +324,47 @@ def test_tensor_cores_take_the_train_cells_f32_convs():
             assert tc == cs._conv_fast(case, 4), (case["op"], case["name"])
         if case.get("per_request", 0) or case.get("per_step", 0):
             assert tc or case["op"] == "flat_conv_bwd", case["name"]
+
+
+@pytest.mark.parametrize("shape", cs.BOX_SHAPES)
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_box_bytes_are_the_benchmarks(kind, shape):
+    """The box filter's bound moves the bytes the benchmark's roofline
+    counts (``benchmark/box_counts.py``) at f32."""
+    from benchmark import box_counts
+
+    n, c, h, w = shape
+    assert cs._box_bytes(kind, n, c, h, w, 4) == box_counts.box_bytes(
+        kind, (n, c, 3, h, w))
+
+
+def test_box_launches_are_config4s(monkeypatch):
+    """Config 4's step launches the box forward once a box convolution and
+    once more under remat, the backward once; its request the forward
+    once: counted on the plain version the CPU runs, at 32^2."""
+    from msau_tpu_torch.config import ModelConfig
+    from msau_tpu_torch.models.msau import build_model
+    from msau_tpu_torch.ops import boxconv
+    from msau_tpu_torch.train.trainer import make_loss_and_grad
+
+    calls = []
+    real = boxconv.box_conv_plain
+
+    def counted(*args, **kwargs):
+        calls.append(torch.is_grad_enabled())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(boxconv, "box_conv_plain", counted)
+    net = build_model(ModelConfig(**cs.CONFIG4, final_act="softmax"),
+                      torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((1, 32, 32, 64), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 17, (1, 32, 32)).astype(np.int32))
+    make_loss_and_grad(net)({"input": x, "label": y})
+    boxes = sum(isinstance(m, boxconv.BoxConv2d) for m in net.modules())
+    assert boxes == cs.PER_STEP_CONFIG4["box_conv_bwd"]
+    assert sum(calls) == cs.PER_STEP_CONFIG4["box_conv_fwd"]
+    calls.clear()
+    with torch.no_grad():
+        net(x)
+    assert len(calls) == cs.SERVE_PER_REQUEST_BOX["box_conv_fwd"]

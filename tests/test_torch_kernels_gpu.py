@@ -831,3 +831,166 @@ def test_train_step_spans_on_card(cuda, tmp_path):
     assert (bwd[0] - ns <= min(x[0] for x in backward)
             and max(x[1] for x in backward) <= bwd[1] + ns), (
         min(x[0] for x in backward), max(x[1] for x in backward), bwd)
+
+
+# the box convolution at every scale of benchmark/configs/bmsau_default.json
+# (batch 16, featRoot 8, 6 scales from 512 x 512; 3 boxes of up to 28)
+# (N, C, H, W), then planes that end inside a tile: odd sizes, a wide and a
+# tall one
+BOX_SHAPES = ([(16, 8 * 2 ** s, 512 // 2 ** s, 512 // 2 ** s) for s in range(6)]
+              + [(3, 5, 45, 29), (2, 4, 7, 130), (2, 4, 100, 3)])
+BOX_KINDS = ("fractional", "swapped", "tied", "clamped")
+BOX_MAX = 28
+
+
+def _box_coords(rng, c, b, kind, m=BOX_MAX):
+    """ybox, xbox [2, C, B] (raw min, max) of one kind: fractional ends;
+    swapped pairs (min above max); y tied, and x tied too in every other
+    box (an area of exactly 1); on and past +-max."""
+    def u(lo, hi):
+        return rng.uniform(lo, hi, (c, b)).astype(np.float32)
+
+    if kind == "fractional":
+        y, x = u(-26, 10), u(-26, 10)
+        pairs = (y, y + u(0.3, 16), x, x + u(0.3, 16))
+    elif kind == "swapped":
+        y, x = u(-20, 20), u(-20, 20)
+        pairs = (y + 5.5, y, x + 2.25, x - 3.0)
+    elif kind == "tied":
+        y, x = u(-20, 20), u(-20, 20)
+        both = (np.arange(b) % 2 == 0)[None, :]
+        pairs = (y, y.copy(), np.where(both, x, x - 4.5),
+                 np.where(both, x, x + 7.75))
+    else:
+        lo = np.full((c, b), -m, np.float32)
+        pairs = (lo, -lo, np.where(rng.random((c, b)) < 0.5, -m, -m - 2.5),
+                 np.where(rng.random((c, b)) < 0.5, m, 3.25))
+    yb, xb = (np.stack(p).astype(np.float32) for p in (pairs[:2], pairs[2:]))
+    return torch.from_numpy(yb), torch.from_numpy(xb)
+
+
+def _box_errors(cuda, n, c, h, w, kind, dtype=torch.float32):
+    """The kernels' and the plain version's largest errors, both on an
+    input of ``dtype``, against the plain version in float64 on the same
+    input (forward, dx, dybox, dxbox), each over max(1, max |want|) of its
+    tensor, and the kernels' outputs twice."""
+    from msau_tpu_torch.ops.boxconv import (
+        box_conv_bwd_cuda,
+        box_conv_bwd_plain,
+        box_conv_fwd_cuda,
+        box_conv_plain,
+    )
+
+    rng = np.random.default_rng(c * 7 + BOX_KINDS.index(kind))
+    yb, xb = _box_coords(rng, c, 3, kind)
+    x = torch.from_numpy(rng.random((n, c, h, w), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((n, c * 3, h, w),
+                                             dtype=np.float32))
+    x, yb, xb, g = (t.to(cuda) for t in (x, yb, xb, g))
+    x = x.to(dtype)
+    kw = dict(max_h=BOX_MAX, max_w=BOX_MAX)
+    runs = [(box_conv_fwd_cuda(x, yb, xb, **kw),
+             *box_conv_bwd_cuda(x, yb, xb, g, **kw)) for _ in range(2)]
+    assert runs[0][0].dtype == torch.float32 and runs[0][1].dtype == dtype
+    want = (box_conv_plain(x.double(), yb.double(), xb.double(), **kw),
+            *box_conv_bwd_plain(x.double(), yb.double(), xb.double(),
+                                g.double(), **kw))
+    plain = (box_conv_plain(x, yb, xb, **kw),
+             *box_conv_bwd_plain(x, yb, xb, g, **kw))
+    torch.cuda.synchronize()
+    errs = [_scaled_err(a, w) for a, w in zip(runs[0], want)]
+    plain_errs = [_scaled_err(a, w) for a, w in zip(plain, want)]
+    return errs, plain_errs, runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", BOX_KINDS)
+@pytest.mark.parametrize("n,c,h,w", BOX_SHAPES)
+def test_box_conv_kernels_match_plain(cuda, n, c, h, w, kind):
+    """The box filter's forward, dx and both coordinate gradients against
+    the plain version (``box_conv2d``, autograd) in float64, on every scale
+    shape of the BMSAU and on planes that end inside a tile, on fractional, swapped, tied and clamped
+    coordinates, with the same bits on a rerun.  Tolerances, over max(1,
+    max |want|) of each tensor: the forward 2e-3, dx 2e-5, the coordinate
+    gradients 5e-5.  The forward samples f32 integral images of a tile
+    and its halo (up to 122 x 122 values in [0, 1), sums up to ~7.5e3
+    that round at ~4.9e-4): a box of area 1 (the tied case) is four such
+    roundings over 1, 1.3e-3 at 512 x 512 on the H100, a wide box far less
+    (1e-4).  The backward samples the cotangent's images, whose normal
+    values sum to far less: dx 9.5e-6, and the coordinate gradients,
+    these samples' edge terms against x summed over the batch's pixels,
+    5.3e-6.  And no further from float64 than twice the f32 plain version
+    (integral images of the whole plane, up to 1.3e5 at 512 x 512: 2e-2
+    there), or within 1e-5 where both form images of the same few values
+    (planes of 64 or less)."""
+    errs, plain_errs, runs = _box_errors(cuda, n, c, h, w, kind)
+    print(f"box {kind} N{n} C{c} {h}x{w}: kernel {errs}, f32 plain {plain_errs}")
+    for name, e, pe, tol in zip(("out", "dx", "dybox", "dxbox"), errs,
+                                plain_errs, (2e-3, 2e-5, 5e-5, 5e-5)):
+        assert e <= tol, (name, e)
+        assert e <= max(2 * pe, 1e-5), (name, e, pe)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", BOX_KINDS)
+@pytest.mark.parametrize("n,c,h,w", BOX_SHAPES)
+def test_box_conv_kernels_bf16_match_plain(cuda, n, c, h, w, kind):
+    """A bf16 input (a bf16 BMSAU): the kernels read it and sum in f32, so
+    against float64 on the same rounded input the forward and the
+    coordinate gradients keep the f32 tolerances of
+    ``test_box_conv_kernels_match_plain`` (2e-3, 5e-5), and dx, rounded
+    once to bf16, 4e-3 (bf16's unit roundoff 2^-8 of the largest |dx|,
+    and the f32 sums; the H100 read 2.6e-3 to 3.4e-3).  None is further from float64 than the bf16 plain
+    version, whose integral image is a bf16 cumsum (at most the
+    tolerance where that one is closer).  The same bits on a rerun."""
+    errs, plain_errs, runs = _box_errors(cuda, n, c, h, w, kind,
+                                         torch.bfloat16)
+    print(f"box bf16 {kind} N{n} C{c} {h}x{w}: kernel {errs}, "
+          f"bf16 plain {plain_errs}")
+    for name, e, pe, tol in zip(("out", "dx", "dybox", "dxbox"), errs,
+                                plain_errs, (2e-3, 4e-3, 5e-5, 5e-5)):
+        assert e <= tol, (name, e)
+        assert e <= max(pe, tol), (name, e, pe)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_box_conv_train_step_runs_the_kernels(cuda, dtype):
+    """A BMSAU training step on the card (f32 and bf16) runs every box
+    convolution as one forward and one backward launch of the kernels,
+    and no torch op of the plain formulation (its integral image's
+    cumsum, the bands' floor; the LRN's band product is an einsum too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msau_tpu_torch import ops
+    from msau_tpu_torch.config import ModelConfig
+    from msau_tpu_torch.models.msau import build_model
+    from msau_tpu_torch.train.trainer import make_loss_and_grad
+
+    cfg = ModelConfig(model="msau_box", img_channels=6, n_class=5,
+                      scale_space_num=4, feat_root=8, num_blocks=2,
+                      final_act="softmax", num_box_convs=2,
+                      num_box_per_channel=3, max_box_size=6, dtype=dtype)
+    net = build_model(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.default_rng(0)
+    batch = {"input": torch.from_numpy(
+                 rng.random((2, 64, 64, 6), dtype=np.float32)).to(cuda),
+             "label": torch.from_numpy(
+                 rng.integers(0, 5, (2, 64, 64)).astype(np.int32)).to(cuda)}
+    step = make_loss_and_grad(net)
+    step(batch)
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, grads = step(batch)
+        torch.cuda.synchronize()
+    calls = 2 * (4 + 3) * 2   # stages x scales (down, up) x box convs
+    counts = ops.launch_counts()
+    assert counts["box_conv_fwd"] == calls and counts["box_conv_bwd"] == calls
+    names = {e.key for e in prof.key_averages()}
+    assert not names & {"aten::cumsum", "aten::floor"}, names
+    assert all(float(g.abs().max()) > 0 for k, g in grads.items()
+               if k.endswith("ybox"))
